@@ -1,0 +1,389 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one GPU.
+
+    python3 chip_smoke.py [--out results.json] [--profile]
+
+Phases, each of which raises on failure (nothing falls back to the CPU):
+
+1. device  -- the ``nvidia-smi`` name and power limit every time below
+              belongs to;
+2. build   -- ``nvcc`` for every kernel of ``repro_torch/csrc``, in parallel;
+3. kernels -- each CUDA kernel against its plain PyTorch version on the
+              card, at the main path's shapes: gram within rtol 2e-5 /
+              atol 2e-3, q-ent histograms and the quality SSE and tensor
+              bit-equal; CUDA-event times of kernel, plain version and,
+              where one call computes the same function, the library;
+4. small   -- the whole sweep on a small input on the card against the
+              same call on the CPU (plain versions);
+5. main    -- the paper's path on ``cesm-cloud`` at its Table-1 edge
+              (40 slices of 1800 x 1800 float32 made on the card): one
+              ``EbGridModel.train`` per compressor on 32 slices over a
+              6-point eb grid, then UC1 / UC2 / UC3 on the 8 held-out
+              slices; every kernel's launch counter must be above 0;
+6. held-out MedAPE of predicted against measured CRs.
+
+``--profile`` traces the main path with ``torch.profiler`` (a separate
+run: tracing slows the host side) and reports the device's busy time.
+
+The last two lines of standard output are the card's ``nvidia-smi`` line
+and ``{"ok": true, "device": {...}}``; the line before them is the
+per-kernel JSON record.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+FIELD = "cesm-cloud"
+N_TRAIN, N_TEST = 32, 8
+COMPRESSORS = ("sz3-lorenzo", "bitgrooming", "digitrounding")
+# H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def log(msg: str, card: str | None = None) -> None:
+    """Print a line; a line with times names the card they were taken on."""
+    print(msg if card is None else f"{msg} [{card}]", flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0].strip()
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call by CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time (ms) the card could take: bytes at the memory rate or
+    float32 operations at the FP32 peak, whichever is larger."""
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def check_kernels(torch, test, ebs_t):
+    """Phase 3: every kernel against its plain version on the card."""
+    from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
+    from repro_torch.kernels.qent import ops as qent_ops, ref as qent_ref
+    from repro_torch.kernels.quality import ops as q_ops, ref as q_ref
+
+    k, m, n = test.shape
+    e = ebs_t.shape[0]
+    rows = []
+
+    # gram: the mean-corrected slices svd_trunc_batch hands it
+    xc = test - test.mean(dim=1, keepdim=True)
+    got = gram_ops.gram_batched(xc)
+    want = gram_ref.gram_xtx_batched(xc)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=2e-5, atol=2e-3):
+        raise AssertionError(f"gram kernel disagrees: max abs err {err}")
+    b_ms, b_by = bound(4.0 * (k * m * n + k * n * n), k * m * n * (n + 1.0))
+    xt = xc.transpose(1, 2)
+    rows.append(dict(
+        name="gram_batched", route="cuda",
+        source="src/repro_torch/csrc/gram.cu",
+        replaces="src/repro/kernels/gram/gram.py:82",
+        max_abs_err=err, tolerance="rtol 2e-5, atol 2e-3",
+        ms=cuda_ms(torch, lambda: gram_ops.gram_batched(xc), 10),
+        plain_ms=cuda_ms(torch, lambda: gram_ref.gram_xtx_batched(xc), 3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(torch, lambda: torch.bmm(xt, xc), 10)))
+    del got, want, xt
+    log(f"check gram_batched ({k}, {m}, {n}): max abs err {err:.3g}")
+
+    # q-ent: (k, n) x e histograms at the path's 65536 bins
+    flat = test.reshape(k, -1)
+    nel = flat.shape[1]
+    bins = 65536
+    got = qent_ops.qent_histogram_sweep(flat, ebs_t, bins)
+    want = qent_ref.qent_histogram_sweep(flat, ebs_t, bins)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"qent kernel disagrees on {int((got != want).sum())} bins")
+    b_ms, b_by = bound(4.0 * (k * nel + e + k * e * bins), 4.0 * k * nel * e)
+    rows.append(dict(
+        name="qent_histogram_sweep", route="cuda",
+        source="src/repro_torch/csrc/qent.cu",
+        replaces="src/repro/kernels/qent/qent.py:129",
+        max_abs_err=0.0, tolerance="bit-equal",
+        ms=cuda_ms(torch, lambda: qent_ops.qent_histogram_sweep(
+            flat, ebs_t, bins), 10),
+        plain_ms=cuda_ms(torch, lambda: qent_ref.qent_histogram_sweep(
+            flat, ebs_t, bins), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    del got, want
+    log(f"check qent_histogram_sweep ({k}, {e}, {bins}): bit-equal")
+
+    # quality: the SSE and the full (k, e, 2) tensor, bit for bit
+    sse = q_ops.qdq_sse_sweep(flat, ebs_t)
+    sse_plain = q_ref.sse_sweep(flat, ebs_t)
+    if not torch.equal(sse, sse_plain):
+        raise AssertionError(
+            f"quality SSE differs on {int((sse != sse_plain).sum())} values")
+    qual = q_ops.quality_sweep(test, ebs_t)
+    qual_plain = q_ref.quality_from_stats(
+        sse_plain, nel, flat.amin(dim=1), flat.amax(dim=1))
+    if not torch.equal(qual, qual_plain):
+        raise AssertionError("quality tensor differs from its plain version")
+    b_ms, b_by = bound(4.0 * (k * nel + e + k * e), 9.0 * k * nel * e)
+    rows.append(dict(
+        name="qdq_sse_sweep", route="cuda",
+        source="src/repro_torch/csrc/quality.cu",
+        replaces="src/repro/kernels/quality/quality.py:56",
+        max_abs_err=0.0, tolerance="bit-equal",
+        ms=cuda_ms(torch, lambda: q_ops.qdq_sse_sweep(flat, ebs_t), 10),
+        plain_ms=cuda_ms(torch, lambda: q_ref.sse_sweep(flat, ebs_t), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    log(f"check qdq_sse_sweep ({k}, {e}): SSE and quality tensor bit-equal")
+    return rows
+
+
+def sweep_breakdown(torch, P, train, ebs_t, card):
+    """Phase 3b: the training sweep at full size, and its library part
+    (``eigvalsh`` of the Gram stack), by CUDA events."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    engine = P.get_engine()
+    sweep_ms = cuda_ms(torch, lambda: engine.sweep(train, ebs_t, quality=True), 2)
+    g = gram_ops.gram_batched(train - train.mean(dim=1, keepdim=True))
+    eig_ms = cuda_ms(torch, lambda: torch.linalg.eigvalsh(g), 2)
+    log(f"training sweep {tuple(train.shape)} x {ebs_t.shape[0]} ebs: "
+        f"{sweep_ms:.1f} ms, of which eigvalsh {eig_ms:.1f} ms", card)
+    return {"sweep_ms": sweep_ms, "eigvalsh_ms": eig_ms}
+
+
+def profile_summary(torch, prof, wall_s: float, card) -> dict:
+    """Device busy time of a profiled window: the CUDA kernels' own time."""
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        log("profile: the trace holds no device time (busy time not measured)")
+        return {"busy_s": None, "wall_s": wall_s, "top_ms": []}
+    busy_ms = sum(ms for _, ms in rows)
+    top = [(name[:80], ms) for name, ms in sorted(rows, key=lambda r: -r[1])[:8]]
+    log(f"profile: device busy {busy_ms / 1e3:.3f} s of {wall_s:.3f} s "
+        f"({100.0 * (1 - busy_ms / 1e3 / wall_s):.2f}% idle); top kernels "
+        + json.dumps([(k[:60], round(ms, 2)) for k, ms in top]), card)
+    return {"busy_s": busy_ms / 1e3, "wall_s": wall_s, "top_ms": top}
+
+
+def check_small(torch, P, TS):
+    """Phase 4: the sweep on the card against the CPU on a small input."""
+    x = TS.field_slices(FIELD, count=3, n=96, seed=7, device="cuda")
+    ebs = [1e-3, 1e-2, 5e-2]
+    f_gpu, q_gpu = P.features_sweep(x, ebs, quality=True)
+    f_cpu, q_cpu = P.features_sweep(x.cpu(), ebs, quality=True)
+    if f_gpu.shape != (3, 3, 2) or not torch.isfinite(f_gpu).all():
+        raise AssertionError(f"bad feature tensor {tuple(f_gpu.shape)}")
+    err = float((f_gpu.cpu() - f_cpu).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"features on the card differ from the CPU by {err}")
+    if not torch.equal(q_gpu.cpu(), q_cpu):
+        raise AssertionError("quality tensor on the card differs from the CPU")
+    log(f"small input: card vs CPU features max abs err {err:.3g}, "
+        "quality bit-equal")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the full record as JSON here")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the main path with torch.profiler and "
+                         "report the device's busy and idle time")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 2
+    from repro_torch import compressors as C
+    from repro_torch.compressors import lossless
+    from repro_torch.core import predictors as P
+    from repro_torch.core import usecases as UC
+    from repro_torch.data import scientific as TS
+    from repro_torch.dist import sweep as DS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.qent import ops as qent_ops
+    from repro_torch.kernels.quality import ops as q_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"lossless stage: {lossless.BACKEND})")
+    stages = {}
+
+    t = time.perf_counter()
+    _build.build()
+    stages["build_s"] = time.perf_counter() - t
+    log(f"build: {stages['build_s']:.2f} s", smi)
+
+    spec = TS.FIELDS[FIELD]
+    t = time.perf_counter()
+    data = TS.field_slices(FIELD, count=N_TRAIN + N_TEST, n=spec.full_n,
+                           seed=0, device="cuda")
+    torch.cuda.synchronize()
+    stages["data_s"] = time.perf_counter() - t
+    train, test = data[:N_TRAIN], data[N_TRAIN:]
+    ebs = spec.eps * 10.0 ** np.linspace(-0.5, 2.0, 6)   # ebs[1] == eps
+    ebs_t = torch.tensor(ebs, dtype=torch.float32, device="cuda")
+    log(f"data: {FIELD} {tuple(data.shape)} float32 on the card in "
+        f"{stages['data_s']:.2f} s; eb grid {np.array2string(ebs, precision=3)}",
+        smi)
+
+    t = time.perf_counter()
+    kernels = check_kernels(torch, test, ebs_t)
+    stages["kernel_checks_s"] = time.perf_counter() - t
+    stages.update(sweep_breakdown(torch, P, train, ebs_t, smi))
+    check_small(torch, P, TS)
+
+    # ---- phase 5: the main path, counters read around it
+    counters = {"gram_batched": gram_ops.gram_batched,
+                "qent_histogram_sweep": qent_ops.qent_histogram_sweep,
+                "qdq_sse_sweep": q_ops.qdq_sse_sweep}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    t_main = time.perf_counter()
+    models = {}
+    for name in COMPRESSORS:
+        t = time.perf_counter()
+        models[name] = UC.EbGridModel.train(train, name, ebs)
+        stages[f"train_{name}_s"] = time.perf_counter() - t
+        log(f"train {name}: {stages[f'train_{name}_s']:.2f} s", smi)
+    lorenzo = models["sz3-lorenzo"]
+    target = lorenzo.predict(test[0], float(ebs[2]))   # a CR inside the grid
+    psnr_floor = float(lorenzo.quality.mean_psnr[2])
+    uc1, uc2, uc3 = [], [], []
+    t = time.perf_counter()
+    for i in range(N_TEST):
+        uc1.append(UC.find_error_bound_for_cr(lorenzo, test[i], target))
+    stages["uc1_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for i in range(N_TEST):
+        uc2.append(UC.best_compressor(
+            {n: m.models[1] for n, m in models.items()}, test[i], float(ebs[1])))
+    stages["uc2_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for i in range(N_TEST):
+        uc3.append(UC.find_setting(models, test[i], cr_floor=2.0,
+                                   psnr_floor=psnr_floor))
+    stages["uc3_s"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    stages["main_path_s"] = time.perf_counter() - t_main
+    launches = {name: fn.launches for name, fn in counters.items()}
+    profiled = None
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        profiled = profile_summary(torch, prof, stages["main_path_s"], smi)
+    log(f"main path: {stages['main_path_s']:.2f} s; launches {launches}", smi)
+    missing = [name for name, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+        lib = row["library_ms"]
+        log(f"kernel {row['name']}: max abs err {row['max_abs_err']:.3g} "
+            f"({row['tolerance']}); {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"{row['launches']} launches on the main path", smi)
+
+    # ---- phase 6: held-out MedAPE (measured CRs run the compressors)
+    t = time.perf_counter()
+    measured = np.stack([DS.training_crs(C.get(name), test, ebs)
+                         for name in COMPRESSORS])          # (c, k, e)
+    caches = [P.get_engine().cached(test[i]) for i in range(N_TEST)]
+    for i, cache in enumerate(caches):
+        cache.prefetch(ebs)
+    apes = {}
+    for c, name in enumerate(COMPRESSORS):
+        for i in range(N_TEST):
+            for j, eb in enumerate(ebs):
+                pred = models[name].predict(test[i], float(eb), caches[i])
+                if not np.isfinite(pred) or pred <= 0:
+                    raise AssertionError(f"bad predicted CR {pred} ({name})")
+                apes.setdefault(name, []).append(
+                    100.0 * abs(pred - measured[c, i, j]) / measured[c, i, j])
+    stages["heldout_measure_s"] = time.perf_counter() - t
+    medape = {n: float(np.median(v)) for n, v in apes.items()}
+    uc1_true = [float(C.get("sz3-lorenzo").cr(test[i], eb))
+                for i, (eb, _) in enumerate(uc1)]
+    uc1_err = float(np.median([100.0 * abs(c - target) / target
+                               for c in uc1_true]))
+    best_true = [COMPRESSORS[int(np.argmax(measured[:, i, 1]))]
+                 for i in range(N_TEST)]
+    uc2_agree = sum(b == p for b, (p, _) in zip(best_true, uc2))
+    feasible = sum(s.feasible for s in uc3)
+    for v in list(medape.values()) + [uc1_err]:
+        if not np.isfinite(v):
+            raise AssertionError("non-finite held-out error")
+    log(f"held-out MedAPE % {json.dumps(medape)}")
+    log(f"UC1 target CR {target:.3f}: median |true - target| / target "
+        f"{uc1_err:.2f}% over {N_TEST} slices")
+    log(f"UC2 predicted best == measured best on {uc2_agree}/{N_TEST} slices")
+    log(f"UC3 PSNR >= {psnr_floor:.2f} dB and CR >= 2: feasible on "
+        f"{feasible}/{N_TEST} slices, picks "
+        f"{sorted({s.compressor for s in uc3})}")
+    log("stages s " + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+        smi)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"peak device memory {peak_gb:.2f} GiB")
+
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(dict(
+            device=smi, torch=torch.__version__, lossless=lossless.BACKEND,
+            field=FIELD, shape=list(data.shape), ebs=list(map(float, ebs)),
+            stages=stages, kernels=kernels, medape=medape, uc1_err=uc1_err,
+            uc1_target=target, uc2_agree=uc2_agree, uc3_feasible=feasible,
+            peak_gib=peak_gb, profile=profiled), indent=1))
+    log(json.dumps({"kernels": [
+        {k: row[k] for k in ("name", "route", "source", "replaces",
+                             "launches", "max_abs_err", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms")}
+        for row in kernels]}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,72 @@
+"""Compressor API + registry.
+
+Every compressor exposes:
+  * ``encode(data, eps)   -> (codes, aux)``   decorrelate + quantize (torch)
+  * ``decode(codes, aux, eps) -> recon``      reconstruction (torch)
+  * ``size_bytes(codes, aux, eps) -> int``    host-side real byte count
+  * ``cr(data, eps) -> float``                original_bytes / compressed
+
+Decorrelation and quantization run on the data's device; the entropy
+stage runs on the host (``lossless``), as real compressor pipelines do.
+"""
+from __future__ import annotations
+
+import abc
+from typing import Any, Dict, Tuple
+
+import torch
+
+
+class Compressor(abc.ABC):
+    name: str = "base"
+    supports_3d: bool = True
+
+    @abc.abstractmethod
+    def encode(self, data: torch.Tensor, eps: float) -> Tuple[Any, Dict[str, Any]]:
+        ...
+
+    @abc.abstractmethod
+    def decode(self, codes: Any, aux: Dict[str, Any], eps: float) -> torch.Tensor:
+        ...
+
+    @abc.abstractmethod
+    def size_bytes(self, codes: Any, aux: Dict[str, Any], eps: float) -> int:
+        ...
+
+    def cr(self, data: torch.Tensor, eps: float) -> float:
+        """Measured compression ratio (original fp32 bytes / compressed)."""
+        codes, aux = self.encode(data, eps)
+        size = self.size_bytes(codes, aux, eps)
+        return float(data.numel() * 4) / max(size, 1)
+
+    def roundtrip_error(self, data: torch.Tensor, eps: float) -> float:
+        codes, aux = self.encode(data, eps)
+        recon = self.decode(codes, aux, eps)
+        return float(torch.max(torch.abs(recon - data)))
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim float32 tensor on ``like``'s device.  Arithmetic with it is
+    the plain IEEE operation on every device (a Python scalar divisor on
+    a CUDA tensor is turned into a multiply by its reciprocal)."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+_REGISTRY: Dict[str, Compressor] = {}
+
+
+def register(comp: Compressor) -> Compressor:
+    _REGISTRY[comp.name] = comp
+    return comp
+
+
+def get(name: str) -> Compressor:
+    return _REGISTRY[name]
+
+
+def names() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def all_compressors() -> Dict[str, Compressor]:
+    return dict(_REGISTRY)

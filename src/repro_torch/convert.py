@@ -1,0 +1,75 @@
+"""Carry a fitted model across from the reference package.
+
+A fitted reference model is exported as plain numpy arrays and Python
+values (this package never imports the reference, so the export is the
+caller's); these functions rebuild the port's objects from them.
+
+The state of one CR model::
+
+    {"kind": "spline", "mean": (2,), "std": (2,), "knots1": (K,),
+     "knots2": (K,), "coef": (p,), "eps": float, "ndim": 2}
+    {"kind": "linear", "mean": (2,), "std": (2,), "coef": (4,), ...}
+
+and of an ``EbGridModel``::
+
+    {"ebs": (e,), "name": str, "models": [<CR model state>, ...],
+     "cfg": {"variance_fraction_2d": ..., "variance_fraction_3d": ...,
+             "qent_bins": ...},
+     "quality": {"coef": (e, 3), "mean_psnr": (e,), "mean_nrmse": (e,)}
+                or None}
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core import pipeline as PL
+from repro_torch.core import predictors as P
+from repro_torch.core import regression as R
+from repro_torch.core import usecases as UC
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def cr_model(state: Dict[str, Any], device="cuda"):
+    """A ``SplineCRModel`` or ``LinearCRModel`` from its arrays."""
+    std = R.Standardizer(_t(state["mean"], device), _t(state["std"], device))
+    if state["kind"] == "spline":
+        return R.SplineCRModel(std, _t(state["knots1"], device),
+                               _t(state["knots2"], device),
+                               _t(state["coef"], device))
+    if state["kind"] == "linear":
+        return R.LinearCRModel(std, _t(state["coef"], device))
+    raise ValueError(f"unknown CR model kind {state['kind']!r}")
+
+
+def predictor_config(cfg: Dict[str, Any] | None) -> P.PredictorConfig:
+    """The port's config from the reference's fields; ``use_kernels`` and
+    ``tune`` have no counterpart (the route follows the device) and are
+    dropped."""
+    fields = P.PredictorConfig.__dataclass_fields__
+    return P.PredictorConfig(**{k: v for k, v in (cfg or {}).items()
+                                if k in fields})
+
+
+def cr_predictor(state: Dict[str, Any], cfg: Dict[str, Any] | None = None,
+                 device="cuda") -> PL.CRPredictor:
+    return PL.CRPredictor(cr_model(state, device), float(state["eps"]),
+                          predictor_config(cfg), int(state.get("ndim", 2)))
+
+
+def eb_grid_model(state: Dict[str, Any], device="cuda") -> UC.EbGridModel:
+    """An ``EbGridModel`` (with its quality table, if any) from its state."""
+    q = state.get("quality")
+    quality = None if q is None else UC.QualityTable(
+        np.asarray(q["coef"], np.float64),
+        np.asarray(q["mean_psnr"], np.float64),
+        np.asarray(q["mean_nrmse"], np.float64))
+    return UC.EbGridModel(
+        np.asarray(state["ebs"], np.float64),
+        [cr_predictor(m, state.get("cfg"), device) for m in state["models"]],
+        state.get("name", ""), predictor_config(state.get("cfg")), quality)

@@ -1,0 +1,38 @@
+"""Plain PyTorch version of the q-ent kernel and the entropy reduction."""
+import torch
+
+from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN
+
+
+def hash_codes(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
+    """(n,) values x (e,) error bounds -> (e, n) int64 bins in [0, bins):
+    ``floor(x / eps)`` saturated to the int32 range, then positive mod.
+    The division is tensor by tensor, so it is IEEE on every device."""
+    codes = torch.clamp(torch.floor(x[None, :] / epss[:, None]),
+                        INT32_CODE_MIN, INT32_CODE_MAX).to(torch.int32)
+    return torch.remainder(codes, bins).to(torch.int64)
+
+
+def qent_histogram_sweep(x: torch.Tensor, epss: torch.Tensor,
+                         bins: int) -> torch.Tensor:
+    """(k, n) float32 x (e,) float32 -> (k, e, bins) int32 histograms,
+    one ``bincount`` per slice over all its error bounds."""
+    k, _ = x.shape
+    e = epss.shape[0]
+    offs = (torch.arange(e, device=x.device) * bins)[:, None]
+    out = torch.empty((k, e, bins), dtype=torch.int32, device=x.device)
+    for s in range(k):
+        idx = hash_codes(x[s], epss, bins) + offs
+        out[s] = torch.bincount(idx.reshape(-1), minlength=e * bins
+                                ).reshape(e, bins).to(torch.int32)
+    return out
+
+
+def entropy_bits_rows(hist: torch.Tensor) -> torch.Tensor:
+    """Entropy (bits/symbol) along the last (bins) axis of a histogram
+    stack, float32 like the reference's ``entropy_bits_rows``."""
+    n = torch.clamp(hist.sum(dim=-1, keepdim=True), min=1)
+    p = hist.to(torch.float32) / n.to(torch.float32)
+    terms = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)),
+                        torch.zeros_like(p))
+    return -terms.sum(dim=-1)

@@ -1,0 +1,30 @@
+"""Shared quantization plumbing: code-range saturation + eps validation.
+
+The constants every quantizing route (the q-ent histogram, the quality
+SSE, their plain versions) must agree on exactly.  Leaf module.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# floor(x/eps) is clamped to this f32-representable sub-range of int32
+# before any cast: the largest float32 not exceeding 2^31 - 1 is
+# 2147483520.0, so casting the clamped value can never wrap.
+INT32_CODE_MIN = -2147483648.0
+INT32_CODE_MAX = 2147483520.0
+
+
+def validate_eps_positive(epss) -> None:
+    """Reject non-positive / non-finite error bounds.
+
+    Accepts a number, a sequence, a numpy array or a tensor (a CUDA
+    tensor is copied to the host for the check)."""
+    if isinstance(epss, torch.Tensor):
+        arr = epss.detach().to("cpu", torch.float64).numpy()
+    else:
+        arr = np.asarray(epss, np.float64)
+    if arr.size and not bool(np.all(np.isfinite(arr) & (arr > 0))):
+        raise ValueError(
+            f"error bounds must be positive and finite, got {arr}; "
+            "an eps <= 0 makes floor(x/eps) ill-defined")

@@ -1,0 +1,199 @@
+"""The port's kernel modules against the reference's Pallas kernels.
+
+Inputs are made with numpy from a seed and handed to both stacks; the
+reference runs its kernels in interpret mode on the CPU, the port its
+plain versions (the route a CPU tensor takes).  The CUDA kernels
+themselves are held against those plain versions on the card by the
+``cuda``-marked test at the end and by ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch.kernels.gram import ops as tgram  # noqa: E402
+from repro_torch.kernels.qent import ops as tqent  # noqa: E402
+from repro_torch.kernels.qent import ref as tqent_ref  # noqa: E402
+from repro_torch.kernels.quality import ops as tqual  # noqa: E402
+from repro_torch.kernels.quality import ref as tqual_ref  # noqa: E402
+
+
+def _field(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.standard_normal(shape), axis=-1) * scale
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------- gram
+@pytest.mark.parametrize("shape", [(3, 64, 64), (2, 130, 70), (3, 70, 130),
+                                   (1, 100, 97)])
+@pytest.mark.parametrize("transpose", [True, False])
+def test_gram_batched_matches_reference(shape, transpose):
+    from repro.kernels.gram import ops as jgram
+    x = _field(1, shape)
+    want = np.asarray(jgram.gram_batched(jnp.asarray(x), transpose=transpose))
+    got = tgram.gram_batched(torch.from_numpy(x), transpose).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-3)
+
+
+def test_gram_unbatched_is_k1_case():
+    from repro.kernels.gram import ops as jgram
+    x = _field(2, (90, 120))
+    for tr in (True, False):
+        want = np.asarray(jgram.gram(jnp.asarray(x), transpose=tr))
+        got = tgram.gram(torch.from_numpy(x), tr).numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-3)
+
+
+# ---------------------------------------------------------------------- qent
+def _qent_inputs(n):
+    x = _field(3, (3, n), scale=0.05)
+    # a saturating (value, eps) pair at both ends of the int32 code range
+    x[0, 5], x[1, 7] = 3.0e30, -3.0e30
+    epss = np.array([1e-3, 1e-2, 7.5e-2], np.float32)
+    return x, epss
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_qent_histograms_bit_equal(n):
+    from repro.kernels.qent import qent as jqent
+    x, epss = _qent_inputs(n)
+    want = np.asarray(jqent.qent_histogram_sweep(
+        jnp.asarray(x), jnp.asarray(epss), tile=2048, bins=4096))
+    got = tqent.qent_histogram_sweep(torch.from_numpy(x),
+                                     torch.from_numpy(epss), 4096).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [5000, 130 * 130])
+def test_qent_entropy_sweep_ragged(n):
+    from repro.kernels.qent import ops as jqent
+    x, epss = _qent_inputs(n)
+    want = np.asarray(jqent.quantized_entropy_sweep(
+        jnp.asarray(x), jnp.asarray(epss), num_bins=4096))
+    got = tqent.quantized_entropy_sweep(torch.from_numpy(x), epss, 4096).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    single = float(tqent.quantized_entropy(torch.from_numpy(x[1]),
+                                           float(epss[2]), 4096))
+    assert abs(single - float(want[1, 2])) < 1e-4
+
+
+def test_qent_entropy_matches_exact_bincount():
+    x = _field(4, (1, 4000), scale=0.02)
+    eps = 1e-2
+    codes = np.floor(x.reshape(-1) / np.float32(eps)).astype(np.int64)
+    _, counts = np.unique(codes, return_counts=True)
+    p = counts / counts.sum()
+    expect = float(-(p * np.log2(p)).sum())
+    got = float(tqent.quantized_entropy(torch.from_numpy(x), eps, 65536))
+    assert abs(got - expect) < 1e-4
+
+
+def test_qent_rejects_bad_eps():
+    with pytest.raises(ValueError):
+        tqent.quantized_entropy_sweep(torch.zeros(2, 16), [1e-3, 0.0])
+
+
+# ------------------------------------------------------------------- quality
+def _quality_inputs():
+    x = _field(5, (5, 130 * 130), scale=0.3)
+    x[2] = 0.1234567                             # zero range, nonzero error
+    x[3] = np.round(x[3] * 4) / 4                # exact at eps = 0.25
+    x[4] = 0.0                                   # zero range, zero error
+    return x, np.array([1e-3, 0.0375, 0.25], np.float32)
+
+
+def test_quality_sse_bit_equal_to_pallas_kernel():
+    from repro.kernels.quality import quality as jq
+    x, epss = _quality_inputs()
+    n = x.shape[1]
+    pad = (-n) % 2048
+    xp = np.concatenate([x, np.zeros((x.shape[0], pad), np.float32)], axis=1)
+    xb = np.swapaxes(xp.reshape(x.shape[0], -1, 8), 1, 2)
+    want = np.asarray(jq.qdq_sse_sweep(jnp.asarray(xb), jnp.asarray(epss)))
+    got = tqual.qdq_sse_sweep(torch.from_numpy(x), torch.from_numpy(epss)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_quality_tensor_bit_equal(use_kernel):
+    from repro.kernels.quality import ops as jq
+    x, epss = _quality_inputs()
+    want = np.asarray(jq.quality_sweep(jnp.asarray(x), epss,
+                                       use_kernel=use_kernel))
+    got = tqual.quality_sweep(torch.from_numpy(x), epss).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    # the caps: zero range -> -PSNR_CAP / NRMSE_CAP, exact -> PSNR_CAP / 0
+    assert np.all(got[2, :, 0] == -tqual_ref.PSNR_CAP)
+    assert np.all(got[2, :, 1] == np.float32(tqual_ref.NRMSE_CAP))
+    assert got[3, 2, 0] == tqual_ref.PSNR_CAP and got[3, 2, 1] == 0.0
+    assert np.all(got[4, :, 0] == tqual_ref.PSNR_CAP)
+    assert np.all(np.isfinite(got))
+
+
+def test_det_log10_bit_equal():
+    import jax
+    from repro.kernels.quality import ref as jref
+    # normal float32 inputs only: XLA on the CPU flushes subnormals to
+    # zero (-> -1e4) where PyTorch and the card keep them
+    rng = np.random.default_rng(6)
+    v = (np.abs(rng.standard_normal(1 << 16)) + 0.01) \
+        * 10.0 ** rng.integers(-35, 35, 1 << 16)
+    v = v.astype(np.float32)
+    v[:4] = [0.0, -1.0, 1.0, 2.0 ** -110]
+    assert np.all((v <= 0) | (v >= np.finfo(np.float32).tiny))
+    want = np.asarray(jax.jit(jref.det_log10)(v))
+    got = tqual_ref.det_log10(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_fma32_rounds_once():
+    # a*b = 2^-24 (1 - 2^-46): the float64 sum with c = 1 + 2^-23 lands
+    # exactly on a float32 midpoint; the exact value is just below it
+    a = np.float32(2.0 ** -24 * (1 + 2.0 ** -23))
+    b = np.float32(1 - 2.0 ** -23)
+    c = np.float32(1 + 2.0 ** -23)
+    t = lambda v: torch.tensor([v], dtype=torch.float32)  # noqa: E731
+    naive = np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    got = tqual_ref.fma32(t(a), t(b), t(c)).numpy()[0]
+    assert got == c and naive != c
+    got_neg = tqual_ref.fma32(t(-a), t(b), t(-c)).numpy()[0]
+    assert got_neg == -c
+
+
+# ------------------------------------------------------------------ routing
+@pytest.mark.parametrize("fn, args", [
+    (tgram.gram_batched, (torch.zeros(1, 4, 4, dtype=torch.float64),)),
+    (tqent.qent_histogram_sweep, (torch.zeros(2, 8), torch.tensor([0.5]))),
+    (tqual.qdq_sse_sweep, (torch.zeros(2, 8), torch.tensor([0.5]))),
+])
+def test_wrappers_take_plain_version_on_cpu(fn, args):
+    before = fn.launches
+    out = fn(*args)
+    assert out.device.type == "cpu" and fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gram", "qent", "quality"])
+def test_cuda_kernel_matches_plain_version(kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ only")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((3, 130, 70), generator=g, device="cuda") * 2 - 0.5
+    epss = torch.tensor([1e-3, 1e-2, 0.1], device="cuda")
+    if kernel == "gram":
+        for tr in (True, False):
+            got = tgram.gram_batched(x, tr)
+            want = tgram.gram_batched(x.cpu(), tr)
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-3)
+    elif kernel == "qent":
+        flat = x.reshape(3, -1)
+        got = tqent.qent_histogram_sweep(flat, epss, 65536)
+        assert torch.equal(got, tqent_ref.qent_histogram_sweep(flat, epss, 65536))
+    else:
+        flat = x.reshape(3, -1)
+        got = tqual.qdq_sse_sweep(flat, epss)
+        assert torch.equal(got, tqual_ref.sse_sweep(flat, epss))

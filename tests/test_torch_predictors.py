@@ -1,0 +1,209 @@
+"""The port's featurization, regression and pipeline against the reference.
+
+Slice stacks are made once by the reference's generators and handed to
+both stacks as numpy arrays.  The port's q-ent always has the kernel
+route's semantics (codes hashed into ``qent_bins`` bins), so it is held
+to the reference's kernel route within 1e-5, and to the reference's
+default (sort) route within rtol/atol 1e-4 where the code range fits
+the bins (error bounds >= 1e-3 of the data range).
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import pipeline as JPL  # noqa: E402
+from repro.core import predictors as JP  # noqa: E402
+from repro.core import regression as JR  # noqa: E402
+from repro.data import scientific as JS  # noqa: E402
+from repro_torch.core import pipeline as TPL  # noqa: E402
+from repro_torch.core import predictors as TP  # noqa: E402
+from repro_torch.core import regression as TR  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+JAX_KERNEL_CFG = JP.PredictorConfig(use_kernels=True, qent_bins=4096)
+PORT_CFG = TP.PredictorConfig(qent_bins=4096)
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    s2 = np.array(JS.field_slices("miranda-vx", count=3, n=72))
+    s4 = np.array(JS.volume("hurricane-u", shape=(6, 20, 24)))
+    s4 = np.stack([s4, s4[::-1] * 0.5 + 0.1])           # (2, 6, 20, 24)
+    rng2 = float(np.ptp(s2))
+    rng4 = float(np.ptp(s4))
+    return {3: (s2, np.array([1e-3, 1e-2, 5e-2]) * rng2),
+            4: (s4, np.array([1e-3, 1e-2, 5e-2]) * rng4)}
+
+
+@pytest.mark.parametrize("rank", [3, 4])
+@pytest.mark.parametrize("mode", ["features", "quality", "both"])
+def test_features_sweep_matches_kernel_route(stacks, rank, mode):
+    x, ebs = stacks[rank]
+    want = np.asarray(JP._features_sweep_traced(
+        jnp.asarray(x), jnp.asarray(ebs, jnp.float32),
+        vf=JP.variance_fraction_for(JAX_KERNEL_CFG, x.ndim), bins=4096,
+        use_kernels=True, tune=JAX_KERNEL_CFG.tune, mode=mode))
+    got = TP._sweep(torch.from_numpy(x), ebs, PORT_CFG, mode).numpy()
+    assert got.shape == want.shape == (x.shape[0], 3,
+                                       TP.SWEEP_MODE_WIDTHS[mode])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    if mode != "features":                 # the quality half is bit-equal
+        np.testing.assert_array_equal(got[..., -2:].view(np.int32),
+                                      want[..., -2:].view(np.int32))
+
+
+@pytest.mark.parametrize("rank", [3, 4])
+def test_features_sweep_matches_default_route(stacks, rank):
+    x, ebs = stacks[rank]
+    want = np.asarray(JP.features_sweep(jnp.asarray(x), ebs, sharded=False))
+    got = TP.features_sweep(torch.from_numpy(x), ebs).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    f, q = TP.features_sweep(torch.from_numpy(x), ebs, quality=True)
+    jf, jq = JP.features_sweep(jnp.asarray(x), ebs, sharded=False,
+                               quality=True)
+    np.testing.assert_allclose(f.numpy(), np.asarray(jf), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(q.numpy().view(np.int32),
+                                  np.asarray(jq).view(np.int32))
+    np.testing.assert_array_equal(q.numpy(),
+                                  TP.quality_sweep(torch.from_numpy(x), ebs))
+
+
+def test_trunc_predictors_match(stacks):
+    x2, _ = stacks[3]
+    x4, _ = stacks[4]
+    np.testing.assert_allclose(
+        TP.svd_trunc_batch(torch.from_numpy(x2)).numpy(),
+        np.asarray(JP.svd_trunc_batch(jnp.asarray(x2), use_kernel=True)),
+        rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        TP.hosvd_trunc_batch(torch.from_numpy(x4)).numpy(),
+        np.asarray(JP.hosvd_trunc_batch(jnp.asarray(x4), use_kernel=True)),
+        rtol=0, atol=1e-6)
+    assert float(TP.svd_trunc(torch.from_numpy(x2[1]))) == \
+        float(TP.svd_trunc_batch(torch.from_numpy(x2))[1])
+    assert float(TP.hosvd_trunc(torch.from_numpy(x4[0]))) == \
+        float(TP.hosvd_trunc_batch(torch.from_numpy(x4))[0])
+
+
+def test_slice_cache_and_engine(stacks):
+    x, ebs = stacks[3]
+    xt = torch.from_numpy(x)
+    sweep = TP.features_sweep(xt, ebs)
+    engine = TP.get_engine()
+    assert engine is TP.get_engine(TP.PredictorConfig())
+    np.testing.assert_array_equal(engine.features(xt, ebs[1]).numpy(),
+                                  sweep[:, 1].numpy())
+    cache = engine.cached(xt[2])
+    fresh = cache(ebs[0])                      # SVD once + one q-ent
+    np.testing.assert_allclose(fresh.numpy(), sweep[2, 0].numpy(), atol=1e-6)
+    cache.prefetch(ebs)
+    for i, e in enumerate(ebs):
+        np.testing.assert_array_equal(cache(e).numpy(), sweep[2, i].numpy())
+    with pytest.raises(ValueError):
+        cache.seed(ebs, sweep[2, :2])
+
+
+def test_sweep_rejects_bad_inputs():
+    with pytest.raises(ValueError):
+        TP.features_sweep(torch.zeros(4, 4), [1e-3])
+    with pytest.raises(ValueError):
+        TP.features_sweep(torch.zeros(2, 4, 4), [1e-3, -1.0])
+    with pytest.raises(ValueError):
+        TP._features_sweep_impl(torch.zeros(2, 4, 4), torch.ones(1),
+                                vf=0.99, bins=16, mode="nope")
+
+
+def test_constant_slices_stay_finite():
+    x = torch.ones((2, 32, 32))
+    f, q = TP.features_sweep(x, [1e-3, 1e-2], quality=True)
+    assert torch.isfinite(f).all() and torch.isfinite(q).all()
+
+
+# ---------------------------------------------------------------- regression
+def _training_set(seed=0, n=40):
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((n, 2)).astype(np.float32)
+    logcr = 1.5 + 0.8 * feats[:, 0] - 0.3 * feats[:, 1] \
+        + 0.1 * feats[:, 0] * feats[:, 1] + 0.05 * rng.standard_normal(n)
+    return feats, np.exp(logcr).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["spline", "linear"])
+def test_regression_fit_matches(kind):
+    feats, cr = _training_set()
+    jm = JR.MODEL_REGISTRY[kind](jnp.asarray(feats), jnp.asarray(cr))
+    tm = TR.MODEL_REGISTRY[kind](torch.from_numpy(feats), torch.from_numpy(cr))
+    probe = _training_set(1, 16)[0]
+    np.testing.assert_allclose(tm.predict(torch.from_numpy(probe)).numpy(),
+                               np.asarray(jm.predict(jnp.asarray(probe))),
+                               rtol=1e-3)
+    np.testing.assert_allclose(tm.std.mean.numpy(), np.asarray(jm.std.mean),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(TR.predict_fast(tm, probe).numpy(),
+                                  tm.predict(torch.from_numpy(probe)).numpy())
+
+
+def test_spline_basis_and_knots_match():
+    z = np.linspace(-2.0, 2.5, 41).astype(np.float32)
+    jk = np.array(JR._quantile_knots(jnp.asarray(z), 3))
+    tk = TR._quantile_knots(torch.from_numpy(z), 3).numpy()
+    np.testing.assert_allclose(tk, jk, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        TR.ncs_basis(torch.from_numpy(z), torch.from_numpy(jk)).numpy(),
+        np.asarray(JR.ncs_basis(jnp.asarray(z), jnp.asarray(jk))),
+        rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ pipeline
+def test_kfold_evaluate_matches():
+    feats, cr = _training_set(2, 48)
+    j = JPL.kfold_evaluate(feats, cr, "spline", k=6, seed=3)
+    t = TPL.kfold_evaluate(feats, cr, "spline", k=6, seed=3)
+    np.testing.assert_array_equal(t.true_cr, j.true_cr)
+    np.testing.assert_allclose(t.pred_cr, j.pred_cr, rtol=1e-3)
+    assert abs(t.medape - j.medape) < 0.05
+    np.testing.assert_allclose(TPL.ape(np.array([2.0]), np.array([1.0])),
+                               [50.0])
+
+
+def test_crpredictor_train_predict_matches(stacks):
+    x, ebs = stacks[3]
+    x = np.concatenate([x, x[::-1] * 1.5, x * 0.25 + 1.0])     # k = 9
+    cr = np.linspace(3.0, 9.0, len(x))
+    jp = JPL.CRPredictor.train(jnp.asarray(x), jnp.asarray(cr), float(ebs[1]),
+                               "linear")
+    tp = TPL.CRPredictor.train(torch.from_numpy(x), cr, float(ebs[1]),
+                               "linear")
+    np.testing.assert_allclose(tp.predict(torch.from_numpy(x)).numpy(),
+                               np.asarray(jp.predict(jnp.asarray(x))),
+                               rtol=1e-3)
+    np.testing.assert_allclose(
+        TPL.featurize_sweep(torch.from_numpy(x), ebs).numpy(),
+        np.asarray(JPL.featurize_sweep(jnp.asarray(x), ebs, sharded=False)),
+        rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        tp.predict(torch.from_numpy(x[0]))
+
+
+# --------------------------------------------------------------- boundaries
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, name)
