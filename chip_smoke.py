@@ -10,17 +10,26 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 2. build   -- ``nvcc`` for every kernel of ``repro_torch/csrc``, in parallel;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes: gram within rtol 2e-5 /
-              atol 2e-3, q-ent histograms and the quality SSE and tensor
-              bit-equal; CUDA-event times of kernel, plain version and,
-              where one call computes the same function, the library;
-4. small   -- the whole sweep on a small input on the card against the
-              same call on the CPU (plain versions);
+              atol 2e-3; q-ent histograms, the quality SSE and tensor,
+              the Lorenzo codes and the ZFP coefficients and exponents
+              bit-equal (Lorenzo and ZFP on every held-out slice, ZFP
+              also on block maxima planted at and next to powers of
+              two); CUDA-event times of kernel, plain version and, where
+              one call computes the same function, the library;
+4. small   -- the sweep on a small input on the card against the same
+              call on the CPU, under the default config (exact sort
+              q-ent) and ``use_kernels=True`` (hashed q-ent kernel); at
+              full size, the two q-ent routes against each other at the
+              ebs whose code range fits the bins;
 5. main    -- the paper's path on ``cesm-cloud`` at its Table-1 edge
               (40 slices of 1800 x 1800 float32 made on the card): one
-              ``EbGridModel.train`` per compressor on 32 slices over a
-              6-point eb grid, then UC1 / UC2 / UC3 on the 8 held-out
-              slices; every kernel's launch counter must be above 0;
-6. held-out MedAPE of predicted against measured CRs.
+              ``EbGridModel.train`` (``use_kernels=True``) for each of the
+              8 compressors of ``STUDY_2D`` on 32 slices over a 6-point
+              eb grid, then UC1 (sz3-lorenzo), UC2 over the 8 models and
+              UC3 over the 8 on the 8 held-out slices; every kernel's
+              launch counter must be above 0;
+6. held-out MedAPE of predicted against measured CRs, per compressor,
+   and UC2 agreement with the measured best of 8.
 
 ``--profile`` traces the main path with ``torch.profiler`` (a separate
 run: tracing slows the host side) and reports the device's busy time.
@@ -45,10 +54,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FIELD = "cesm-cloud"
 N_TRAIN, N_TEST = 32, 8
-COMPRESSORS = ("sz3-lorenzo", "bitgrooming", "digitrounding")
+QENT_BINS = 65536
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+SPIN_CYCLES = 10_000_000    # ~5 ms at the H100's 1.98 GHz boost clock
 
 
 def log(msg: str, card: str | None = None) -> None:
@@ -76,6 +86,31 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_cuda_ms(torch, fn, reps: int) -> float:
+    """Median milliseconds per call by CUDA events around each call, with
+    the 50 MB L2 overwritten before it: an input that fits L2 (one
+    1800 x 1800 slice) is timed as its caller finds it, cold.  A spin
+    kernel of ~5 ms sits between the flush and the start event, so the
+    host has queued the call's kernels before the start event fires and
+    its own time per call (the wrapper, the launch) is not counted.  The
+    median, since single launches of a few tens of microseconds are
+    noisy."""
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    fn()
+    events = []
+    for _ in range(reps):
+        scratch.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        fn()
+        pair[1].record()
+        events.append(pair)
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -120,7 +155,7 @@ def check_kernels(torch, test, ebs_t):
     # q-ent: (k, n) x e histograms at the path's 65536 bins
     flat = test.reshape(k, -1)
     nel = flat.shape[1]
-    bins = 65536
+    bins = QENT_BINS
     got = qent_ops.qent_histogram_sweep(flat, ebs_t, bins)
     want = qent_ref.qent_histogram_sweep(flat, ebs_t, bins)
     torch.cuda.synchronize()
@@ -162,14 +197,96 @@ def check_kernels(torch, test, ebs_t):
         plain_ms=cuda_ms(torch, lambda: q_ref.sse_sweep(flat, ebs_t), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     log(f"check qdq_sse_sweep ({k}, {e}): SSE and quality tensor bit-equal")
+    del sse, sse_plain, qual, qual_plain
+    rows.append(check_lorenzo(torch, test, ebs_t))
+    rows.append(check_zfp(torch, test))
     return rows
 
 
-def sweep_breakdown(torch, P, train, ebs_t, card):
+def check_lorenzo(torch, test, ebs_t):
+    """lorenzo2d on every held-out slice at every grid eb, bit-equal to
+    the plain ``lorenzo_encode``; timed on one slice, as sz3-lorenzo's
+    encode calls it."""
+    from repro_torch.kernels.lorenzo import ops as lor_ops, ref as lor_ref
+    k, m, n = test.shape
+    ebs = [float(v) for v in ebs_t.cpu()]
+    for i in range(k):
+        for eps in ebs:
+            got = lor_ops.lorenzo2d(test[i], eps)
+            want = lor_ref.lorenzo2d(test[i], eps)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"lorenzo kernel differs on {int((got != want).sum())} "
+                    f"codes (slice {i}, eps {eps:.3g})")
+    x, eps = test[0], ebs[1]
+    b_ms, b_by = bound(8.0 * m * n, 8.0 * m * n)
+    log(f"check lorenzo2d {k} x ({m}, {n}) x {len(ebs)} ebs: bit-equal")
+    return dict(
+        name="lorenzo2d", route="cuda",
+        source="src/repro_torch/csrc/lorenzo.cu",
+        replaces="src/repro/kernels/lorenzo/lorenzo.py:61",
+        max_abs_err=0.0, tolerance="bit-equal",
+        ms=cold_cuda_ms(torch, lambda: lor_ops.lorenzo2d(x, eps), 50),
+        plain_ms=cold_cuda_ms(torch, lambda: lor_ref.lorenzo2d(x, eps), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def planted_powers(torch, n: int, device="cuda"):
+    """(n, n) float32 whose 4x4 blocks each hold a maximum |x| planted at
+    an exact power of two 2^k (k in [-40, 40]) or 1 or 2 ulps above or
+    below it, the other 15 values below half of it: the inputs on which
+    the reference's ceil(log2(.)) departs from the exact exponent."""
+    g = torch.Generator(device=device).manual_seed(11)
+    nb = (n // 4) ** 2
+    kexp = torch.randint(-40, 41, (nb,), generator=g, device=device)
+    shift = torch.randint(-2, 3, (nb,), generator=g, device=device)
+    mag = torch.ldexp(torch.ones(nb, device=device), kexp.to(torch.float32))
+    top = mag.clone()
+    for step in (1, 2):
+        top = torch.where(shift >= step, torch.nextafter(
+            top, torch.full_like(top, float("inf"))), top)
+        top = torch.where(shift <= -step, torch.nextafter(
+            top, torch.zeros_like(top)), top)
+    vals = (torch.rand((nb, 16), generator=g, device=device) - 0.5) * mag[:, None]
+    pos = torch.randint(0, 16, (nb,), generator=g, device=device)
+    sign = torch.where(torch.rand(nb, generator=g, device=device) < 0.5, -1.0, 1.0)
+    vals[torch.arange(nb, device=device), pos] = sign * top
+    return (vals.reshape(n // 4, n // 4, 4, 4).permute(0, 2, 1, 3)
+            .reshape(n, n).contiguous())
+
+
+def check_zfp(torch, test):
+    """zfp_forward2d on every held-out slice and on planted powers of two,
+    coefficients and exponents bit-equal to the plain ``zfp_transform``."""
+    from repro_torch.kernels.zfp_block import ops as zfp_ops, ref as zfp_ref
+    k, m, n = test.shape
+    inputs = [test[i] for i in range(k)] + [planted_powers(torch, m)]
+    for i, x in enumerate(inputs):
+        coef, exps = zfp_ops.zfp_forward2d(x)
+        coef_p, exps_p = zfp_ref.zfp_forward2d(x)
+        if not (torch.equal(coef, coef_p) and torch.equal(exps, exps_p)):
+            raise AssertionError(
+                f"zfp kernel differs on input {i}: "
+                f"{int((coef != coef_p).sum())} coefficients, "
+                f"{int((exps != exps_p).sum())} exponents")
+    x = test[0]
+    b_ms, b_by = bound((8.0 + 0.25) * m * n, 8.0 * m * n)
+    log(f"check zfp_forward2d {len(inputs)} x ({m}, {n}) (the last with "
+        "planted powers of two): coefficients and exponents bit-equal")
+    return dict(
+        name="zfp_forward2d", route="cuda",
+        source="src/repro_torch/csrc/zfp_block.cu",
+        replaces="src/repro/kernels/zfp_block/zfp_block.py:80",
+        max_abs_err=0.0, tolerance="bit-equal",
+        ms=cold_cuda_ms(torch, lambda: zfp_ops.zfp_forward2d(x), 50),
+        plain_ms=cold_cuda_ms(torch, lambda: zfp_ref.zfp_forward2d(x), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def sweep_breakdown(torch, engine, train, ebs_t, card):
     """Phase 3b: the training sweep at full size, and its library part
     (``eigvalsh`` of the Gram stack), by CUDA events."""
     from repro_torch.kernels.gram import ops as gram_ops
-    engine = P.get_engine()
     sweep_ms = cuda_ms(torch, lambda: engine.sweep(train, ebs_t, quality=True), 2)
     g = gram_ops.gram_batched(train - train.mean(dim=1, keepdim=True))
     eig_ms = cuda_ms(torch, lambda: torch.linalg.eigvalsh(g), 2)
@@ -195,20 +312,48 @@ def profile_summary(torch, prof, wall_s: float, card) -> dict:
 
 
 def check_small(torch, P, TS):
-    """Phase 4: the sweep on the card against the CPU on a small input."""
+    """Phase 4a: the sweep on the card against the CPU on a small input,
+    under the default config (exact sort q-ent) and under
+    ``use_kernels=True`` (the hashed q-ent kernel)."""
     x = TS.field_slices(FIELD, count=3, n=96, seed=7, device="cuda")
     ebs = [1e-3, 1e-2, 5e-2]
-    f_gpu, q_gpu = P.features_sweep(x, ebs, quality=True)
-    f_cpu, q_cpu = P.features_sweep(x.cpu(), ebs, quality=True)
-    if f_gpu.shape != (3, 3, 2) or not torch.isfinite(f_gpu).all():
-        raise AssertionError(f"bad feature tensor {tuple(f_gpu.shape)}")
-    err = float((f_gpu.cpu() - f_cpu).abs().max())
-    if err > 1e-5:
-        raise AssertionError(f"features on the card differ from the CPU by {err}")
-    if not torch.equal(q_gpu.cpu(), q_cpu):
-        raise AssertionError("quality tensor on the card differs from the CPU")
-    log(f"small input: card vs CPU features max abs err {err:.3g}, "
-        "quality bit-equal")
+    for cfg in (P.PredictorConfig(), P.PredictorConfig(use_kernels=True)):
+        f_gpu, q_gpu = P.features_sweep(x, ebs, cfg, quality=True)
+        f_cpu, q_cpu = P.features_sweep(x.cpu(), ebs, cfg, quality=True)
+        if f_gpu.shape != (3, 3, 2) or not torch.isfinite(f_gpu).all():
+            raise AssertionError(f"bad feature tensor {tuple(f_gpu.shape)}")
+        err = float((f_gpu.cpu() - f_cpu).abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"features on the card differ from the CPU "
+                                 f"by {err} (use_kernels={cfg.use_kernels})")
+        if not torch.equal(q_gpu.cpu(), q_cpu):
+            raise AssertionError("quality tensor on the card differs from the CPU")
+        log(f"small input, use_kernels={cfg.use_kernels}: card vs CPU "
+            f"features max abs err {err:.3g}, quality bit-equal")
+
+
+def check_qent_routes(torch, P, test, ebs):
+    """Phase 4b: at full size (the training stack, so the sort's memory
+    is shown to fit beside it), the exact sort q-ent against the hashed
+    kernel route.  They must agree within 1e-5 (log q-ent) at the ebs
+    whose code range (data range / eb) fits the bins; elsewhere the
+    largest difference is reported."""
+    span = float(test.amax() - test.amin())
+    fits = [span / eb + 1 < QENT_BINS for eb in ebs]
+    sort_f = P.features_sweep(test, ebs, P.PredictorConfig())
+    hash_f = P.features_sweep(test, ebs, P.PredictorConfig(use_kernels=True))
+    diff = (sort_f - hash_f).abs().amax(dim=(0, 2)).cpu().tolist()
+    bad = [(eb, d) for eb, d, ok in zip(ebs, diff, fits) if ok and d > 1e-5]
+    if bad:
+        raise AssertionError(f"sort and kernel q-ent disagree where the codes "
+                             f"fit the bins: {bad}")
+    log(f"q-ent routes at full size {tuple(test.shape)}, max |sort - kernel| "
+        "per eb: " + ", ".join(
+            f"{eb:.3g}: {d:.3g}{'' if ok else ' (range > bins)'}"
+            for eb, d, ok in zip(ebs, diff, fits))
+        + f"; peak device memory so far "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return dict(zip(map(float, ebs), diff))
 
 
 def main(argv=None) -> int:
@@ -232,8 +377,10 @@ def main(argv=None) -> int:
     from repro_torch.dist import sweep as DS
     from repro_torch.kernels import _build
     from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.lorenzo import ops as lor_ops
     from repro_torch.kernels.qent import ops as qent_ops
     from repro_torch.kernels.quality import ops as q_ops
+    from repro_torch.kernels.zfp_block import ops as zfp_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -246,7 +393,8 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     _build.build()
     stages["build_s"] = time.perf_counter() - t
-    log(f"build: {stages['build_s']:.2f} s", smi)
+    log(f"build: {len(_build.KERNELS)} kernels in {stages['build_s']:.2f} s",
+        smi)
 
     spec = TS.FIELDS[FIELD]
     t = time.perf_counter()
@@ -264,13 +412,22 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     kernels = check_kernels(torch, test, ebs_t)
     stages["kernel_checks_s"] = time.perf_counter() - t
-    stages.update(sweep_breakdown(torch, P, train, ebs_t, smi))
+    for row in kernels:
+        log(f"kernel {row['name']}: {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})", smi)
+    kernel_cfg = P.PredictorConfig(use_kernels=True)
+    stages.update(sweep_breakdown(torch, P.get_engine(kernel_cfg), train,
+                                  ebs_t, smi))
     check_small(torch, P, TS)
+    qent_routes = check_qent_routes(torch, P, train, ebs)
 
     # ---- phase 5: the main path, counters read around it
     counters = {"gram_batched": gram_ops.gram_batched,
                 "qent_histogram_sweep": qent_ops.qent_histogram_sweep,
-                "qdq_sse_sweep": q_ops.qdq_sse_sweep}
+                "qdq_sse_sweep": q_ops.qdq_sse_sweep,
+                "lorenzo2d": lor_ops.lorenzo2d,
+                "zfp_forward2d": zfp_ops.zfp_forward2d}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -281,9 +438,9 @@ def main(argv=None) -> int:
         prof.__enter__()
     t_main = time.perf_counter()
     models = {}
-    for name in COMPRESSORS:
+    for name in C.STUDY_2D:
         t = time.perf_counter()
-        models[name] = UC.EbGridModel.train(train, name, ebs)
+        models[name] = UC.EbGridModel.train(train, name, ebs, cfg=kernel_cfg)
         stages[f"train_{name}_s"] = time.perf_counter() - t
         log(f"train {name}: {stages[f'train_{name}_s']:.2f} s", smi)
     lorenzo = models["sz3-lorenzo"]
@@ -327,13 +484,14 @@ def main(argv=None) -> int:
 
     # ---- phase 6: held-out MedAPE (measured CRs run the compressors)
     t = time.perf_counter()
+    names = list(C.STUDY_2D)
     measured = np.stack([DS.training_crs(C.get(name), test, ebs)
-                         for name in COMPRESSORS])          # (c, k, e)
-    caches = [P.get_engine().cached(test[i]) for i in range(N_TEST)]
-    for i, cache in enumerate(caches):
+                         for name in names])                # (c, k, e)
+    caches = [P.get_engine(kernel_cfg).cached(test[i]) for i in range(N_TEST)]
+    for cache in caches:
         cache.prefetch(ebs)
     apes = {}
-    for c, name in enumerate(COMPRESSORS):
+    for c, name in enumerate(names):
         for i in range(N_TEST):
             for j, eb in enumerate(ebs):
                 pred = models[name].predict(test[i], float(eb), caches[i])
@@ -347,17 +505,27 @@ def main(argv=None) -> int:
                 for i, (eb, _) in enumerate(uc1)]
     uc1_err = float(np.median([100.0 * abs(c - target) / target
                                for c in uc1_true]))
-    best_true = [COMPRESSORS[int(np.argmax(measured[:, i, 1]))]
+    best_true = [names[int(np.argmax(measured[:, i, 1]))]
                  for i in range(N_TEST)]
     uc2_agree = sum(b == p for b, (p, _) in zip(best_true, uc2))
+    # the CR given up by taking UC2's pick instead of the measured best
+    uc2_loss = [100.0 * (1.0 - measured[names.index(p), i, 1]
+                         / measured[:, i, 1].max())
+                for i, (p, _) in enumerate(uc2)]
     feasible = sum(s.feasible for s in uc3)
+    if len(medape) != len(names):
+        raise AssertionError(f"MedAPE for {sorted(medape)} only")
     for v in list(medape.values()) + [uc1_err]:
         if not np.isfinite(v):
             raise AssertionError("non-finite held-out error")
     log(f"held-out MedAPE % {json.dumps(medape)}")
     log(f"UC1 target CR {target:.3f}: median |true - target| / target "
         f"{uc1_err:.2f}% over {N_TEST} slices")
-    log(f"UC2 predicted best == measured best on {uc2_agree}/{N_TEST} slices")
+    log(f"UC2 predicted best of {len(names)} == measured best on "
+        f"{uc2_agree}/{N_TEST} slices (measured best: "
+        f"{sorted(set(best_true))}, predicted: {sorted({p for p, _ in uc2})}); "
+        f"measured CR given up by the pick: median "
+        f"{np.median(uc2_loss):.2f}%, max {max(uc2_loss):.2f}%")
     log(f"UC3 PSNR >= {psnr_floor:.2f} dB and CR >= 2: feasible on "
         f"{feasible}/{N_TEST} slices, picks "
         f"{sorted({s.compressor for s in uc3})}")
@@ -371,9 +539,13 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(dict(
             device=smi, torch=torch.__version__, lossless=lossless.BACKEND,
             field=FIELD, shape=list(data.shape), ebs=list(map(float, ebs)),
-            stages=stages, kernels=kernels, medape=medape, uc1_err=uc1_err,
-            uc1_target=target, uc2_agree=uc2_agree, uc3_feasible=feasible,
-            peak_gib=peak_gb, profile=profiled), indent=1))
+            compressors=names, stages=stages, kernels=kernels,
+            qent_routes=qent_routes, medape=medape, uc1_err=uc1_err,
+            uc1_target=target, uc2_agree=uc2_agree, uc2_best=best_true,
+            uc2_pick=[p for p, _ in uc2], uc2_loss_pct=uc2_loss,
+            measured_crs=measured.tolist(),
+            uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled),
+            indent=1))
     log(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",

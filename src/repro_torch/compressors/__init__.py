@@ -1,12 +1,22 @@
 """Error-bounded lossy compressors (PyTorch decorrelation + real byte counts).
 
-Importing this package registers the compressors ported so far:
-sz3-lorenzo, bitgrooming, digitrounding.
+Importing this package registers the compressors ported so far: the
+paper's 2-D study set sz2, sz3-lorenzo, sz3-regression, sz3-interp,
+zfp, mgard, bitgrooming and digitrounding (``tthresh`` is not ported).
 """
 from repro_torch.compressors import base
-from repro_torch.compressors import rounding  # noqa: F401  (registers)
-from repro_torch.compressors import sz        # noqa: F401
+from repro_torch.compressors import sz        # noqa: F401  (registers)
+from repro_torch.compressors import zfp       # noqa: F401
+from repro_torch.compressors import mgard     # noqa: F401
+from repro_torch.compressors import rounding  # noqa: F401
 
 get = base.get
 names = base.names
 all_compressors = base.all_compressors
+
+# The 2-D study set (the paper's main compressor list), in the
+# reference's order.
+STUDY_2D = ["sz2", "sz3-lorenzo", "sz3-regression", "sz3-interp",
+            "zfp", "mgard", "bitgrooming", "digitrounding"]
+# The 3-D study set (paper section 4.5); tthresh is still to be ported.
+STUDY_3D = ["sz2", "zfp", "mgard", "bitgrooming", "tthresh"]

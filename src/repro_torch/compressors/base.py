@@ -16,6 +16,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.quant import scalar  # noqa: F401  (its callers' name)
+
 
 class Compressor(abc.ABC):
     name: str = "base"
@@ -45,11 +47,15 @@ class Compressor(abc.ABC):
         return float(torch.max(torch.abs(recon - data)))
 
 
-def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-dim float32 tensor on ``like``'s device.  Arithmetic with it is
-    the plain IEEE operation on every device (a Python scalar divisor on
-    a CUDA tensor is turned into a multiply by its reciprocal)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+def error_bound_slack(data: torch.Tensor) -> float:
+    """fp32 representability floor for quantizer-grid reconstructions.
+
+    Reconstruction values fl(q * 2eps) are spaced 2eps +- 1 ulp(|d|)
+    apart, so the best achievable max error is eps + ulp/2: for
+    |d| >> eps no integer code can do better.  The bound a compressor
+    holds is err <= eps + error_bound_slack(data).
+    """
+    return float(torch.max(torch.abs(data))) * 2.0 ** -23
 
 
 _REGISTRY: Dict[str, Compressor] = {}

@@ -3,12 +3,16 @@
 Both operate on IEEE-754 mantissas and rely on a downstream lossless coder;
 they have no spatial decorrelation step, which is why the paper finds the
 quantized entropy dominates their CR prediction.  The number of mantissa
-bits kept follows the paper's OptZConfig absolute-bound mapping.
+bits kept follows the paper's OptZConfig absolute-bound mapping.  Its
+``log2`` and ``exp2`` are the reference's float32 ones
+(``repro_torch.refmath``): XLA's ``exp2(k)`` is not ``2^k``, so Digit
+Rounding's grid step is not a power of two there either.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import refmath
 from repro_torch.compressors import base, lossless
 
 
@@ -20,11 +24,11 @@ class BitGrooming(base.Compressor):
 
     def _mask_bits(self, data: torch.Tensor, eps: float) -> torch.Tensor:
         amax = torch.max(torch.abs(data))
-        emax = torch.floor(torch.log2(torch.clamp(amax, min=1e-38)))
+        emax = torch.floor(refmath.log2_f32(torch.clamp(amax, min=1e-38)))
         # masking k low mantissa bits of a value with exponent e gives
         # error < 2^(e-23+k); bound by worst-case exponent emax
         return torch.clamp(
-            23 + torch.floor(torch.log2(base.scalar(eps, data))) - emax,
+            23 + torch.floor(refmath.log2_f32(base.scalar(eps, data))) - emax,
             0, 23).to(torch.int32)
 
     def encode(self, data, eps):
@@ -50,12 +54,13 @@ class BitGrooming(base.Compressor):
 
 class DigitRounding(base.Compressor):
     """Delaunay et al. 2018: round (not truncate) to the eps-determined
-    binary digit -- rounding onto a power-of-two grid."""
+    binary digit: a grid of step exp2(floor(log2(eps)))."""
     name = "digitrounding"
 
     def encode(self, data, eps):
         data = data.to(torch.float32)
-        step = torch.exp2(torch.floor(torch.log2(base.scalar(eps, data))))
+        step = refmath.exp2_f32(
+            torch.floor(refmath.log2_f32(base.scalar(eps, data))))
         rounded = torch.round(data / step) * step
         return rounded, {"shape": tuple(data.shape)}
 

@@ -14,7 +14,7 @@ and of an ``EbGridModel``::
 
     {"ebs": (e,), "name": str, "models": [<CR model state>, ...],
      "cfg": {"variance_fraction_2d": ..., "variance_fraction_3d": ...,
-             "qent_bins": ...},
+             "qent_bins": ..., "use_kernels": ...},
      "quality": {"coef": (e, 3), "mean_psnr": (e,), "mean_nrmse": (e,)}
                 or None}
 """
@@ -48,9 +48,10 @@ def cr_model(state: Dict[str, Any], device="cuda"):
 
 
 def predictor_config(cfg: Dict[str, Any] | None) -> P.PredictorConfig:
-    """The port's config from the reference's fields; ``use_kernels`` and
-    ``tune`` have no counterpart (the route follows the device) and are
-    dropped."""
+    """The port's config from the reference's fields.  ``use_kernels``
+    is carried across: it picks the q-ent route the model was fitted on
+    (exact sort, or hashed bins).  ``tune`` (the reference's TPU tile
+    policy) has no counterpart and is dropped."""
     fields = P.PredictorConfig.__dataclass_fields__
     return P.PredictorConfig(**{k: v for k, v in (cfg or {}).items()
                                 if k in fields})

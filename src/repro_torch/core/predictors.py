@@ -9,13 +9,19 @@ The paper's section 3.1, as the batched sweep engine of
 * ``hosvd_trunc_batch`` -- the 3-D extension, per-mode unfolding Grams at
                            90% of the squared singular mass;
 * ``quantized_entropy_sweep`` -- entropy of ``floor(d / eps)`` at every
-                           error bound of a grid, codes hashed into
-                           ``qent_bins`` bins (the kernel route's semantics).
+                           error bound of a grid: exact from one sort per
+                           slice (the default), or from codes hashed into
+                           ``qent_bins`` bins by the fused histogram kernel
+                           (``use_kernels=True``).
 
-The Gram products run through ``kernels.gram`` and the histograms
-through ``kernels.qent``: the CUDA kernels for tensors on the card, the
-plain versions for tensors on the CPU.  ``eigvalsh`` stays the library
-call, as the reference also calls it outside any kernel.
+``PredictorConfig.use_kernels`` keeps the reference's meaning for
+results: it chooses between the two q-ent routes, which differ once the
+code range outgrows the bins.  The Gram products (``kernels.gram``) and
+the quality SSE (``kernels.quality``) compute the same function either
+way, so they take their kernels under both values.  A kernel runs for a
+tensor on the card, its plain version for a tensor on the CPU.
+``eigvalsh`` and the sort stay library calls, as the reference also
+makes them outside any kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.qent import ops as qent_ops
 from repro_torch.kernels.quality import ops as quality_ops
+from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN
 from repro_torch.quant import validate_eps_positive as _validate_eps_positive
 
 DEFAULT_VARIANCE_FRACTION_2D = 0.99
@@ -38,6 +45,10 @@ class PredictorConfig:
     variance_fraction_2d: float = DEFAULT_VARIANCE_FRACTION_2D
     variance_fraction_3d: float = DEFAULT_VARIANCE_FRACTION_3D
     qent_bins: int = 65536
+    # q-ent route: False = exact sort route, True = hashed-bin histogram
+    # kernel (the reference's Pallas route); Gram and quality take their
+    # kernels on the card under either value
+    use_kernels: bool = False
 
 
 def _trunc_fraction(g: torch.Tensor, variance_fraction: float) -> torch.Tensor:
@@ -112,16 +123,52 @@ def hosvd_trunc(x: torch.Tensor,
     return hosvd_trunc_batch(x[None], variance_fraction)[0]
 
 
+def _sorted_entropy(xs: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """Exact entropy (bits) of ``floor(xs / eps)`` for each row of an
+    ascending-sorted (k, n) stack: run lengths from the sorted codes.
+
+    H = log2(n) - (1/n) sum_runs L*log2(L); telescoping over the rank
+    j = 1..L inside each run, L*log2(L) = sum_j g(j) with
+    g(j) = j*log2(j) - (j-1)*log2(j-1), so one forward cummax (the rank)
+    replaces any per-run reduction.  g is float32 as in the reference;
+    its sum and the last step are taken in float64."""
+    k, n = xs.shape
+    codes = torch.clamp(torch.floor(xs / eps), INT32_CODE_MIN,
+                        INT32_CODE_MAX).to(torch.int32)
+    iota = torch.arange(n, dtype=torch.int32, device=xs.device)
+    start = torch.ones((k, n), dtype=torch.bool, device=xs.device)
+    start[:, 1:] = codes[:, 1:] != codes[:, :-1]
+    del codes
+    run_start = torch.cummax(torch.where(start, iota, 0), dim=1).values
+    del start
+    j = (iota - run_start + 1).to(torch.float32)
+    del run_start
+    g = j * torch.log2(j) - (j - 1) * torch.log2(torch.clamp(j - 1, min=1))
+    s = g.sum(dim=1, dtype=torch.float64)
+    return (np.log2(float(n)) - s / n).to(torch.float32)
+
+
 def quantized_entropy_sweep(slices: torch.Tensor, epss,
-                            num_bins: int = 65536) -> torch.Tensor:
-    """q-ent of a (k, ...) stack at an (e,) eb vector -> (k, e), the codes
-    saturated to int32 and hashed into ``num_bins`` bins (exact whenever
-    the code range fits the bins)."""
+                            num_bins: int = 65536,
+                            use_kernel: bool = False) -> torch.Tensor:
+    """q-ent of a (k, ...) stack at an (e,) eb vector -> (k, e).
+
+    ``use_kernel=False``: sort each slice once (``floor(x/eps)`` is
+    monotone in x, so every eb shares the sort), then run lengths per
+    eb: the exact entropy.  ``use_kernel=True``: the fused multi-eps
+    histogram of ``kernels.qent``, codes saturated to int32 and hashed
+    into ``num_bins`` bins -- equal to the exact route whenever the code
+    range fits the bins."""
     _validate_eps_positive(epss)
     k = slices.shape[0]
     flat = slices.to(torch.float32).reshape(k, -1)
-    return qent_ops.quantized_entropy_sweep(flat, _eps_tensor(epss, flat),
-                                            num_bins)
+    eps_t = _eps_tensor(epss, flat)
+    if use_kernel:
+        return qent_ops.quantized_entropy_sweep(flat, eps_t, num_bins)
+    # -0.0 and +0.0 give the same code, so their order does not matter
+    xs = torch.sort(flat, dim=1).values
+    return torch.stack([_sorted_entropy(xs, eps_t[i])
+                        for i in range(eps_t.shape[0])], dim=1)
 
 
 def variance_fraction_for(cfg: PredictorConfig, stack_ndim: int) -> float:
@@ -149,8 +196,8 @@ def _log_ratio(sv: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 
 
 def _features_sweep_impl(slices: torch.Tensor, epss: torch.Tensor, *,
-                         vf: float, bins: int, mode: str = "features"
-                         ) -> torch.Tensor:
+                         vf: float, bins: int, use_kernels: bool = False,
+                         mode: str = "features") -> torch.Tensor:
     """(k, m, n) | (k, d, m, n) x (e,) -> (k, e, w), ``w`` per
     ``SWEEP_MODE_WIDTHS[mode]``."""
     if mode not in SWEEP_MODE_WIDTHS:
@@ -163,7 +210,7 @@ def _features_sweep_impl(slices: torch.Tensor, epss: torch.Tensor, *,
         sv = (svd_trunc_batch(x, vf) if x.ndim == 3
               else hosvd_trunc_batch(x, vf))
         log_ratio = _log_ratio(sv, sigma)
-        qe = quantized_entropy_sweep(x, epss, bins)
+        qe = quantized_entropy_sweep(x, epss, bins, use_kernels)
         log_qe = torch.log(torch.clamp(qe, min=1e-3))            # (k, e)
         outs.append(torch.stack(
             [log_qe, log_ratio[:, None].expand_as(log_qe)], dim=-1))
@@ -182,7 +229,7 @@ def _sweep(slices, epss, cfg: PredictorConfig, mode: str) -> torch.Tensor:
     return _features_sweep_impl(
         slices, _eps_tensor(epss, slices),
         vf=variance_fraction_for(cfg, slices.ndim), bins=cfg.qent_bins,
-        mode=mode)
+        use_kernels=cfg.use_kernels, mode=mode)
 
 
 def features_sweep(slices: torch.Tensor, epss,
@@ -264,7 +311,8 @@ class SliceCache:
         key = self._key(eps)
         if key not in self._memo:
             qe = quantized_entropy_sweep(self._x[None], [key],
-                                         self._cfg.qent_bins)[0, 0]
+                                         self._cfg.qent_bins,
+                                         self._cfg.use_kernels)[0, 0]
             self._memo[key] = torch.stack(
                 [torch.log(torch.clamp(qe, min=1e-3)), self._ratio()])
         return self._memo[key]

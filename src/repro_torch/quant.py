@@ -1,9 +1,13 @@
-"""Shared quantization plumbing: code-range saturation + eps validation.
+"""Shared quantization plumbing: code-range saturation, eps validation,
+the float32 error-bound scalars and edge padding to whole blocks.
 
-The constants every quantizing route (the q-ent histogram, the quality
-SSE, their plain versions) must agree on exactly.  Leaf module.
+The constants and helpers every quantizing route (the q-ent histogram,
+the quality SSE, the compressors, the kernels' plain versions) must
+agree on exactly.  Leaf module.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -28,3 +32,23 @@ def validate_eps_positive(epss) -> None:
         raise ValueError(
             f"error bounds must be positive and finite, got {arr}; "
             "an eps <= 0 makes floor(x/eps) ill-defined")
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim float32 tensor on ``like``'s device.  Arithmetic with it is
+    the plain IEEE operation on every device (a Python scalar divisor on
+    a CUDA tensor is turned into a multiply by its reciprocal)."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def pad_to_multiple(data: torch.Tensor, b: int
+                    ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """Edge-pad every axis up to a multiple of ``b`` (the last row,
+    column, ... repeated).  Returns (padded, original shape)."""
+    out = data
+    for axis, s in enumerate(data.shape):
+        r = (-s) % b
+        if r:
+            idx = torch.clamp(torch.arange(s + r, device=data.device), max=s - 1)
+            out = out.index_select(axis, idx)
+    return out, tuple(data.shape)

@@ -1,0 +1,101 @@
+"""float32 ``log2`` and ``exp2`` with the reference's bits.
+
+The reference computes ZFP's block exponent as ``ceil(log2(amax))``, its
+scale as ``exp2(24 - e)`` and the size model's bit length as
+``ceil(log2(mag + 1))``.  XLA on the CPU evaluates ``log2(x)`` as
+``log(x) * f32(1/ln 2)`` and ``exp2(k)`` as ``exp(k * f32(ln 2))``, each
+with a Cephes-style float32 polynomial whose multiply-adds the CPU
+contracts into FMAs.  Neither is exact: ``ceil(log2(2^k))`` comes out
+``k + 1`` for some ``k`` and ``exp2(k)`` misses ``2^k`` by up to ~30 ulp.
+So a bit-equal port spells out the same sequence of float32 operations
+here, with :func:`fma32` where XLA fuses, and the CUDA kernel of
+``csrc/zfp_block.cu`` repeats it with ``__f*_rn`` intrinsics.
+
+Domain: positive normal inputs for :func:`log2_f32` (a subnormal or
+zero is read here as the smallest normal, where XLA on the CPU reads a
+subnormal as zero: the recorded subnormal difference of the port);
+integer-valued inputs in [-125, 150] for :func:`exp2_f32`, whose
+subnormal results are flushed to zero as XLA flushes them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.quality.ref import fma32
+
+
+def _f32(bits: int) -> float:
+    """The float32 whose float64 bit pattern is ``bits`` (XLA's IR
+    spells its float32 constants as float64 hex)."""
+    return float(np.array([bits], np.uint64).view(np.float64)[0])
+
+
+# log: Cephes polynomial on the mantissa in [sqrt(1/2), sqrt(2)) - 1
+LOG_P = tuple(float(np.float32(v)) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+SQRTHF = _f32(0x3FE6A09E60000000)          # f32(sqrt(1/2))
+LN2_HI = 0.693359375                        # ln 2 split in two parts
+LN2_LO = float(np.float32(-2.12194440e-4))
+INV_LN2 = float(np.float32(1.44269502))     # f32(1 / f32(ln 2)), log2's factor
+MIN_NORMAL = 2.0 ** -126
+
+# exp: Cephes polynomial on the reduced argument
+LN2 = float(np.float32(0.693147182))        # exp2's factor, f32(ln 2)
+LOG2E = _f32(0x3FF7154760000000)
+EXP_LO = _f32(0xC055F33340000000)           # -87.8, XLA's input clamp
+EXP_HI = _f32(0x4056333340000000)           # 88.8
+EXP_P = tuple(float(np.float32(v)) for v in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 0.5))
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of positive float32 values, bit-equal to XLA's CPU
+    ``log``.  Every ``*`` and ``+`` below is one float32 operation."""
+    x = torch.clamp(x.to(torch.float32), min=MIN_NORMAL)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)   # [0.5, 1)
+    small = m < SQRTHF
+    t = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.to(torch.float32)
+    t2 = t * t
+    t3 = t2 * t
+    p = LOG_P
+    y = fma32(fma32(t, p[0], p[1]), t, p[2])
+    y1 = fma32(fma32(t, p[3], p[4]), t, p[5])
+    y2 = fma32(fma32(t, p[6], p[7]), t, p[8])
+    y = fma32(y, t3, y1)
+    y = fma32(y, t3, y2)
+    y = fma32(y, t3, e * LN2_LO)
+    r = fma32(t2, -0.5, t) + y
+    return fma32(e, LN2_HI, r)
+
+
+def log2_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log2`` of positive float32 values on the CPU, bit for bit."""
+    return log_f32(x) * INV_LN2
+
+
+def ceil_log2(x: torch.Tensor) -> torch.Tensor:
+    """``ceil(log2(x))`` as the reference computes it, as int32."""
+    return torch.ceil(log2_f32(x)).to(torch.int32)
+
+
+def exp2_f32(k: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp2`` of integer-valued exponents on the CPU, bit for bit."""
+    a = k.to(torch.float32) * LN2
+    a = torch.clamp(a, EXP_LO, EXP_HI)
+    fx = torch.clamp(torch.floor(fma32(a, LOG2E, 0.5)), -127.0, 127.0)
+    r = fma32(-fx, LN2_HI, a)
+    r = fma32(-fx, LN2_LO, r)
+    y = torch.full_like(r, EXP_P[0])
+    for c in EXP_P[1:]:
+        y = fma32(y, r, c)
+    t = fma32(y, r * r, r) + 1.0
+    pow2n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = t * pow2n
+    return torch.where(out.abs() < MIN_NORMAL, torch.zeros_like(out), out)

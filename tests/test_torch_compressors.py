@@ -1,0 +1,260 @@
+"""The port's compressor suite against the reference's.
+
+Slices are made by the reference's generators and handed to both
+packages as numpy arrays.  Compressors whose every float32 step is
+reproduced are held bit for bit (codes, exponents and CR); sz2 and
+sz3-regression fit their block planes through a library ``pinv`` and
+matmul whose float32 bits differ, and are held to a CR rtol of 1e-3.
+The reference's float32 ``log2``/``exp2`` (XLA's CPU polynomials, which
+are not exact) are pinned here too: ZFP's block exponent and bit length
+and Digit Rounding's grid follow them.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import compressors as JC  # noqa: E402
+from repro.compressors import base as JB  # noqa: E402
+from repro.compressors import zfp as JZ  # noqa: E402
+from repro.data import scientific as JS  # noqa: E402
+from repro_torch import compressors as TC  # noqa: E402
+from repro_torch import refmath  # noqa: E402
+from repro_torch.compressors import base as TB  # noqa: E402
+from repro_torch.compressors import zfp as TZ  # noqa: E402
+
+LIBRARY_FIT = ("sz2", "sz3-regression")     # pinv + matmul: CR rtol 1e-3
+BIT_EQUAL = tuple(n for n in JC.STUDY_2D if n not in LIBRARY_FIT)
+# the chip smoke's grid on cesm-cloud (eps 1e-5): 3.16e-6 ... 1e-3
+CESM_EBS = (1e-5 * 10.0 ** np.linspace(-0.5, 2.0, 6)).tolist()
+
+
+def _slice(field, shape, seed=1):
+    x = np.array(JS.field_slices(field, count=1, n=max(shape), seed=seed)[0])
+    return np.ascontiguousarray(x[:shape[0], :shape[1]])
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """(input, eps) pairs: square, ragged and 3-D inputs, relative ebs
+    from 1e-4 to 1e-2 and cesm-cloud at both ends of the chip grid."""
+    nyx = _slice("nyx-vx", (64, 64))
+    rng = float(np.ptp(nyx))
+    vol = np.array(JS.volume("miranda-vx", shape=(4, 24, 24)))
+    cesm = _slice("cesm-cloud", (130, 70))
+    return [(nyx, 1e-4 * rng), (nyx, 1e-2 * rng), (vol, 1e-3),
+            (cesm, CESM_EBS[0]), (cesm, CESM_EBS[-1])]
+
+
+def _leaves(codes):
+    """The integer arrays of a compressor's code tree, in order."""
+    if isinstance(codes, (tuple, list)):
+        return [a for c in codes for a in _leaves(c)]
+    if isinstance(codes, (str, int)):
+        return []
+    return [np.asarray(codes)]
+
+
+@pytest.mark.parametrize("name", BIT_EQUAL)
+def test_codes_and_cr_bit_equal(name, cases):
+    for x, eps in cases:
+        if x.ndim == 3 and not JC.get(name).supports_3d:
+            continue
+        jcodes, _ = JC.get(name).encode(jnp.asarray(x), eps)
+        tcodes, _ = TC.get(name).encode(torch.from_numpy(x), eps)
+        jl, tl = _leaves(jcodes), _leaves(tcodes)
+        assert len(jl) == len(tl)
+        for a, b in zip(jl, tl):
+            np.testing.assert_array_equal(b.view(np.int32), a.view(np.int32))
+        want = JC.get(name).cr(jnp.asarray(x), eps)
+        assert TC.get(name).cr(torch.from_numpy(x), eps) == want, (
+            name, x.shape, eps)
+
+
+@pytest.mark.parametrize("name", LIBRARY_FIT)
+def test_library_fit_cr_within_rtol(name, cases):
+    mir = _slice("miranda-vx", (100, 200))
+    for x, eps in cases + [(mir, 1e-3 * float(np.ptp(mir)))]:
+        want = JC.get(name).cr(jnp.asarray(x), eps)
+        got = TC.get(name).cr(torch.from_numpy(x), eps)
+        np.testing.assert_allclose(got, want, rtol=1e-3)
+
+
+# codes that differ from the reference's, per case of ``cases`` and the
+# ragged miranda slice: (residual codes, plane-coefficient codes).  Only
+# cesm-cloud at the grid's smallest eb and the miranda slice move.
+LIBRARY_FIT_DIFFS = {
+    "sz2": [(0, 0), (0, 0), (0, 0), (51, 55), (0, 0), (9, 3)],
+    "sz3-regression": [(0, 0), (0, 0), (0, 0), (211, 55), (0, 0), (9, 3)],
+}
+
+
+@pytest.mark.parametrize("name", LIBRARY_FIT)
+def test_library_fit_differing_codes_pinned(name, cases):
+    """The float32 bits of the library ``pinv``/matmul plane fit move a
+    few codes next to bin edges; their number is pinned, case by case."""
+    mir = _slice("miranda-vx", (100, 200))
+    got = []
+    for x, eps in cases + [(mir, 1e-3 * float(np.ptp(mir)))]:
+        jcodes, jaux = JC.get(name).encode(jnp.asarray(x), eps)
+        tcodes, taux = TC.get(name).encode(torch.from_numpy(x), eps)
+        pairs = [(np.asarray(jcodes), tcodes.numpy()),
+                 (np.asarray(jaux["coef_codes"]), taux["coef_codes"].numpy())]
+        assert all(a.shape == b.shape for a, b in pairs)
+        got.append(tuple(int(np.count_nonzero(a != b)) for a, b in pairs))
+    assert got == LIBRARY_FIT_DIFFS[name]
+
+
+@pytest.mark.parametrize("name", JC.STUDY_2D)
+def test_error_bound_held(name, cases):
+    for x, eps in cases:
+        if x.ndim == 3 and not TC.get(name).supports_3d:
+            continue
+        xt = torch.from_numpy(x)
+        err = TC.get(name).roundtrip_error(xt, eps)
+        assert err <= eps + TB.error_bound_slack(xt), (name, x.shape, eps)
+    assert TB.error_bound_slack(xt) == JB.error_bound_slack(jnp.asarray(x))
+
+
+@pytest.mark.parametrize("name", BIT_EQUAL)
+def test_decode_bit_equal(name, cases):
+    x, eps = cases[0]
+    jc = JC.get(name)
+    tc = TC.get(name)
+    jcodes, jaux = jc.encode(jnp.asarray(x), eps)
+    tcodes, taux = tc.encode(torch.from_numpy(x), eps)
+    want = np.asarray(jc.decode(jcodes, jaux, eps))
+    got = tc.decode(tcodes, taux, eps).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_sz2_regression_fraction_and_registry():
+    x = _slice("hurricane-u", (96, 96))
+    for eps in (1e-3, 1e-1):
+        np.testing.assert_allclose(
+            TC.get("sz2").regression_fraction(torch.from_numpy(x), eps),
+            JC.get("sz2").regression_fraction(jnp.asarray(x), eps), atol=0.02)
+    assert TC.STUDY_2D == JC.STUDY_2D and TC.STUDY_3D == JC.STUDY_3D
+    assert TC.names() == sorted(JC.STUDY_2D)
+    assert not TC.get("sz3-interp").supports_3d
+
+
+# ------------------------------------------------- the reference's log2/exp2
+def _powers_near(ks, ulps=(-2, -1, 0, 1, 2)):
+    """2^k and its float32 neighbours, 1 and 2 ulps either side."""
+    base = np.ldexp(np.float32(1), np.asarray(ks)).astype(np.float32)
+    out = []
+    for d in ulps:
+        v = base.copy()
+        for _ in range(abs(d)):
+            v = np.nextafter(v, np.float32(np.inf if d > 0 else 0))
+        out.append(v)
+    return np.concatenate(out)
+
+
+def test_log2_bit_equal_on_sampled_floats():
+    lo = np.float32(2.0 ** -40).view(np.uint32)
+    hi = np.float32(2.0 ** 40).view(np.uint32)
+    x = np.arange(lo, hi, 997, dtype=np.uint32).view(np.float32)
+    # normal floats only: XLA on the CPU reads a subnormal as zero
+    x = np.concatenate([x, _powers_near(range(-125, 128))])
+    want = np.asarray(jnp.log2(jnp.asarray(x)))
+    got = refmath.log2_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_log2_bit_equal_near_every_power_of_two():
+    """Every float32 within 2^13 ulps of 2^k, k in [-40, 40] (ZFP's block
+    maxima; departures counted in [2^-40, 2^40]), and every magnitude whose ``mag + 1`` is within 2^-10 of a
+    power of two, mag in [0, 2^28] (the size model's bit length).  Away
+    from those windows log2 is over 7e-4 from an integer, hundreds of
+    ulps of the result, so the ceilings counted here are all there are
+    in either range; every departure lies within 20 ulps of 2^k."""
+    w = 1 << 13
+    base = np.ldexp(np.float32(1), np.arange(-40, 41)).astype(np.float32)
+    offs = np.arange(-w, w + 1)
+    a = ((base.view(np.int32)[:, None] + offs).reshape(-1)
+         .astype(np.int32).view(np.float32))
+    want = np.asarray(jnp.log2(jnp.asarray(a)))
+    got = refmath.log2_f32(torch.from_numpy(a)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    off = np.ceil(want) != np.ceil(np.log2(a.astype(np.float64)))
+    inside = (a >= base[0]) & (a <= base[-1])
+    assert np.count_nonzero(off & inside) == 404
+    assert np.abs(np.tile(offs, base.size)[off]).max() <= 20
+    assert np.count_nonzero(off.reshape(base.size, -1)[:, w]) == 6
+
+    wins = [np.arange(0, 1 << 13)] + [
+        np.arange((1 << k) - (1 << (k - 10)) - 1,
+                  min((1 << k) + (1 << (k - 10)), 1 << 28) + 1)
+        for k in range(13, 29)]
+    mag = np.unique(np.concatenate(wins)).astype(np.int32)
+    v = jnp.asarray(mag).astype(jnp.float32) + 1.0
+    want = np.asarray(jnp.log2(v))
+    got = refmath.log2_f32(torch.from_numpy(mag).to(torch.float32) + 1.0)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    exact = np.ceil(np.log2(np.asarray(v).astype(np.float64)))
+    assert np.count_nonzero(np.ceil(want) != exact) == 140
+
+
+def test_ceil_log2_departs_from_exact_at_pinned_powers():
+    k = np.arange(-100, 100)
+    x = np.ldexp(np.float32(1), k).astype(np.float32)
+    ref = np.ceil(np.asarray(jnp.log2(jnp.asarray(x)))).astype(np.int32)
+    port = refmath.ceil_log2(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(port, ref)
+    # the exact exponent is k; the reference's rule gives k + 1 here
+    off = sorted(int(v) for v in k[port != k])
+    assert off == [-98, -93, -62, -60, -57, -54, -52, -49, -31, -30, -27,
+                   -26, -15, -13]
+    assert np.all(port - k >= 0) and np.all(port - k <= 1)
+
+
+def test_exp2_bit_equal_at_integer_exponents():
+    k = np.arange(-125, 151).astype(np.float32)
+    want = np.asarray(jnp.exp2(jnp.asarray(k)))
+    got = refmath.exp2_f32(torch.from_numpy(k)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    exact = np.ldexp(np.float64(1), k.astype(int))
+    inside = k <= 127
+    # XLA's exp2(k) misses 2^k at most integer k (up to ~30 ulp)
+    assert np.count_nonzero(got[inside] != exact[inside]) > 100
+    np.testing.assert_allclose(got[inside], exact[inside], rtol=5e-6)
+
+
+def test_zfp_exponent_and_bit_length_rule_on_planted_powers():
+    """Block maxima planted at and next to powers of two: the exponents
+    and the size model follow the reference, not the exact ceiling."""
+    rng = np.random.default_rng(3)
+    ks = np.arange(-40, 41)
+    tops = _powers_near(ks)                                  # 405 maxima
+    blocks = (rng.random((tops.size, 16)) - 0.5) * tops[:, None] * 0.9
+    blocks[np.arange(tops.size), rng.integers(0, 16, tops.size)] = \
+        tops * np.where(rng.random(tops.size) < 0.5, -1, 1)
+    nb = 28 * 15                                             # >= 405 blocks
+    blocks = np.concatenate([blocks, np.ones((nb - tops.size, 16))])
+    x = np.ascontiguousarray(blocks.astype(np.float32).reshape(28, 15, 4, 4)
+                             .transpose(0, 2, 1, 3).reshape(112, 60))
+    jq, je, _ = JZ.zfp_transform(jnp.asarray(x))
+    tq, te, _ = TZ.zfp_transform(torch.from_numpy(x))
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    amax = np.abs(blocks[:tops.size]).max(axis=1).astype(np.float64)
+    exact = np.ceil(np.log2(amax)).astype(np.int32)
+    assert np.count_nonzero(te.numpy()[:tops.size] != exact) > 0
+    for eps in (1e-3, 1e-6):
+        assert TZ.zfp_size_bits(tq, te, eps) == \
+            int(JZ.zfp_size_bits(jq, je, eps))
+    # bit lengths ceil(log2(mag + 1)) where XLA's log2 misses the exact one
+    mag = np.array([2097152, 2097153, 4194304, 16777218, 16777219, 16777220,
+                    33554435, 33554436, 1000, 65535], np.int32)
+    v = jnp.asarray(mag).astype(jnp.float32) + 1.0
+    ref_len = np.ceil(np.asarray(jnp.log2(v)))
+    port_len = torch.ceil(refmath.log2_f32(
+        torch.from_numpy(mag).to(torch.float32) + 1.0)).numpy()
+    np.testing.assert_array_equal(port_len, ref_len)
+    exact_len = np.ceil(np.log2(mag.astype(np.float64) + 1.0))
+    assert np.count_nonzero(port_len[:8] != exact_len[:8]) == 8
+    assert np.array_equal(port_len[8:], exact_len[8:])

@@ -4,7 +4,10 @@ Inputs are made with numpy from a seed and handed to both stacks; the
 reference runs its kernels in interpret mode on the CPU, the port its
 plain versions (the route a CPU tensor takes).  The CUDA kernels
 themselves are held against those plain versions on the card by the
-``cuda``-marked test at the end and by ``chip_smoke.py``.
+``cuda``-marked test at the end and by ``chip_smoke.py``.  Lorenzo
+codes and ZFP coefficients and exponents are bit-equal, ZFP also on
+block maxima planted at and next to powers of two, where the
+reference's float32 ``log2`` departs from the exact exponent.
 """
 import numpy as np
 import pytest
@@ -13,10 +16,14 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch.kernels.gram import ops as tgram  # noqa: E402
+from repro_torch.kernels.lorenzo import ops as tlor  # noqa: E402
+from repro_torch.kernels.lorenzo import ref as tlor_ref  # noqa: E402
 from repro_torch.kernels.qent import ops as tqent  # noqa: E402
 from repro_torch.kernels.qent import ref as tqent_ref  # noqa: E402
 from repro_torch.kernels.quality import ops as tqual  # noqa: E402
 from repro_torch.kernels.quality import ref as tqual_ref  # noqa: E402
+from repro_torch.kernels.zfp_block import ops as tzfp  # noqa: E402
+from repro_torch.kernels.zfp_block import ref as tzfp_ref  # noqa: E402
 
 
 def _field(seed, shape, scale=1.0):
@@ -164,20 +171,89 @@ def test_fma32_rounds_once():
     assert got_neg == -c
 
 
+# ------------------------------------------------------------------ lorenzo
+SHAPES_2D = [(64, 64), (100, 200), (130, 70), (256, 384)]
+
+
+@pytest.mark.parametrize("shape", SHAPES_2D)
+def test_lorenzo2d_bit_equal_to_pallas_kernel(shape):
+    from repro.kernels.lorenzo import ops as jlor
+    x = _field(7, shape)
+    for eps in (3.7e-4, 1e-3, 0.05):
+        want = np.asarray(jlor.lorenzo2d(jnp.asarray(x), eps))
+        got = tlor.lorenzo2d(torch.from_numpy(x), eps).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            tlor_ref.lorenzo2d(torch.from_numpy(x), eps).numpy(), want)
+
+
+def test_lorenzo2d_rejects_bad_input():
+    with pytest.raises(ValueError):
+        tlor.lorenzo2d(torch.zeros(2, 3, 4), 1e-3)
+    with pytest.raises(ValueError):
+        tlor.lorenzo2d(torch.zeros(3, 4), 0.0)
+
+
+# ---------------------------------------------------------------- zfp_block
+def _planted(m, n, seed):
+    """Block maxima at 2^k and 1 or 2 ulps either side of it."""
+    rng = np.random.default_rng(seed)
+    nb = (m // 4) * (n // 4)
+    mag = np.ldexp(np.float32(1), rng.integers(-40, 41, nb)).astype(np.float32)
+    shift = rng.integers(-2, 3, nb)
+    top = mag.copy()
+    for step in (1, 2):
+        top = np.where(shift >= step, np.nextafter(top, np.float32(np.inf)), top)
+        top = np.where(shift <= -step, np.nextafter(top, np.float32(0)), top)
+    vals = (rng.random((nb, 16)) - 0.5).astype(np.float32) * mag[:, None]
+    vals[np.arange(nb), rng.integers(0, 16, nb)] = top * np.where(
+        rng.random(nb) < 0.5, -1, 1).astype(np.float32)
+    return np.ascontiguousarray(vals.reshape(m // 4, n // 4, 4, 4)
+                                .transpose(0, 2, 1, 3).reshape(m, n))
+
+
+@pytest.mark.parametrize("shape", SHAPES_2D)
+def test_zfp_forward2d_bit_equal_to_pallas_kernel(shape):
+    from repro.kernels.zfp_block import ops as jzfp
+    m4, n4 = shape[0] - shape[0] % 4, shape[1] - shape[1] % 4
+    for x in (_field(8, shape, scale=0.01), _planted(m4, n4, 9)):
+        jc, je = jzfp.zfp_forward2d(jnp.asarray(x))
+        tc, te = tzfp.zfp_forward2d(torch.from_numpy(x))
+        assert tc.dtype == te.dtype == torch.int32
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+
+
+def test_zfp_ref_is_the_compressor_transform():
+    from repro.kernels.zfp_block import ref as jref
+    x = _planted(64, 96, 10)
+    jc, je = jref.zfp_forward2d(jnp.asarray(x))
+    tc, te = tzfp_ref.zfp_forward2d(torch.from_numpy(x))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    with pytest.raises(ValueError):
+        tzfp.zfp_forward2d(torch.zeros(4, 4, 4))
+
+
 # ------------------------------------------------------------------ routing
 @pytest.mark.parametrize("fn, args", [
     (tgram.gram_batched, (torch.zeros(1, 4, 4, dtype=torch.float64),)),
     (tqent.qent_histogram_sweep, (torch.zeros(2, 8), torch.tensor([0.5]))),
     (tqual.qdq_sse_sweep, (torch.zeros(2, 8), torch.tensor([0.5]))),
+    (tlor.lorenzo2d, (torch.zeros(5, 7), 0.5)),
+    (tzfp.zfp_forward2d, (torch.zeros(5, 7),)),
 ])
 def test_wrappers_take_plain_version_on_cpu(fn, args):
     before = fn.launches
     out = fn(*args)
+    out = out[0] if isinstance(out, tuple) else out
     assert out.device.type == "cpu" and fn.launches == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["gram", "qent", "quality"])
+@pytest.mark.parametrize("kernel", ["gram", "qent", "quality", "lorenzo",
+                                    "zfp"])
 def test_cuda_kernel_matches_plain_version(kernel):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++ only")
@@ -193,7 +269,19 @@ def test_cuda_kernel_matches_plain_version(kernel):
         flat = x.reshape(3, -1)
         got = tqent.qent_histogram_sweep(flat, epss, 65536)
         assert torch.equal(got, tqent_ref.qent_histogram_sweep(flat, epss, 65536))
-    else:
+    elif kernel == "quality":
         flat = x.reshape(3, -1)
         got = tqual.qdq_sse_sweep(flat, epss)
         assert torch.equal(got, tqual_ref.sse_sweep(flat, epss))
+    elif kernel == "lorenzo":
+        for eps in (1e-3, 3.7e-4):
+            got = tlor.lorenzo2d(x[0], eps)
+            assert torch.equal(got, tlor_ref.lorenzo2d(x[0], eps))
+            assert torch.equal(got.cpu(), tlor.lorenzo2d(x[0].cpu(), eps))
+    else:
+        planted = torch.from_numpy(_planted(128, 68, 1)).cuda()
+        for inp in (x[0] * 1e-3, x[1, :129, :69], planted):
+            coef, exps = tzfp.zfp_forward2d(inp)
+            coef_p, exps_p = tzfp.zfp_forward2d(inp.cpu())
+            assert torch.equal(coef.cpu(), coef_p)
+            assert torch.equal(exps.cpu(), exps_p)

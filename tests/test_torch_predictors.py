@@ -1,11 +1,12 @@
 """The port's featurization, regression and pipeline against the reference.
 
 Slice stacks are made once by the reference's generators and handed to
-both stacks as numpy arrays.  The port's q-ent always has the kernel
-route's semantics (codes hashed into ``qent_bins`` bins), so it is held
-to the reference's kernel route within 1e-5, and to the reference's
-default (sort) route within rtol/atol 1e-4 where the code range fits
-the bins (error bounds >= 1e-3 of the data range).
+both stacks as numpy arrays.  ``PredictorConfig.use_kernels`` picks the
+q-ent route as in the reference: the default is the exact sort route,
+held to the reference's default route (within 1e-5 on features, 1e-4
+on entropies, at every error bound); ``use_kernels=True`` hashes codes
+into ``qent_bins`` bins like the reference's kernel route, held to it
+within 1e-5.  The two routes agree where the code range fits the bins.
 """
 import ast
 import pathlib
@@ -26,7 +27,9 @@ from repro_torch.core import regression as TR  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JAX_KERNEL_CFG = JP.PredictorConfig(use_kernels=True, qent_bins=4096)
-PORT_CFG = TP.PredictorConfig(qent_bins=4096)
+PORT_CFG = TP.PredictorConfig(qent_bins=4096, use_kernels=True)
+# the chip smoke's eb grid on cesm-cloud (its eps 1e-5): 3.16e-6 ... 1e-3
+CESM_EBS = 1e-5 * 10.0 ** np.linspace(-0.5, 2.0, 6)
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +74,62 @@ def test_features_sweep_matches_default_route(stacks, rank):
                                   np.asarray(jq).view(np.int32))
     np.testing.assert_array_equal(q.numpy(),
                                   TP.quality_sweep(torch.from_numpy(x), ebs))
+
+
+@pytest.fixture(scope="module")
+def cesm():
+    return np.array(JS.field_slices("cesm-cloud", count=3, n=64))
+
+
+def test_default_route_matches_reference_on_cesm_cloud(cesm):
+    """At 3.16e-6 and 1e-5 cesm-cloud's code range (1 / eps) outgrows the
+    65536 bins: only the exact sort route matches the reference there."""
+    want = np.asarray(JP.features_sweep(jnp.asarray(cesm), CESM_EBS,
+                                        sharded=False))
+    got = TP.features_sweep(torch.from_numpy(cesm), CESM_EBS).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    hashed = TP.features_sweep(torch.from_numpy(cesm), CESM_EBS,
+                               TP.PredictorConfig(use_kernels=True)).numpy()
+    miss = np.abs(hashed - want).max(axis=(0, 2))
+    assert np.all(miss[:2] > 1e-4) and np.all(miss[2:] < 1e-5), miss
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_qent_sweep_matches_reference_routes(cesm, use_kernel):
+    ebs = np.concatenate([CESM_EBS, [3e-2]])
+    want = np.asarray(JP.quantized_entropy_sweep(
+        jnp.asarray(cesm), jnp.asarray(ebs, jnp.float32),
+        use_kernel=use_kernel))
+    got = TP.quantized_entropy_sweep(torch.from_numpy(cesm), ebs,
+                                     use_kernel=use_kernel).numpy()
+    assert got.shape == want.shape == (3, 7)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    # a constant slice has entropy 0; a stack of one value per code, log2(n)
+    flat = torch.arange(64, dtype=torch.float32).reshape(1, 8, 8)
+    ent = TP.quantized_entropy_sweep(torch.cat([flat * 0, flat]), [1.0],
+                                     use_kernel=use_kernel)
+    np.testing.assert_allclose(ent.numpy()[:, 0], [0.0, 6.0], atol=1e-6)
+
+
+def test_convert_keeps_use_kernels():
+    from repro_torch import convert
+    for flag in (False, True):
+        jcfg = JP.PredictorConfig(use_kernels=flag, qent_bins=4096)
+        cfg = convert.predictor_config(
+            {k: getattr(jcfg, k) for k in jcfg.__dataclass_fields__})
+        assert cfg == TP.PredictorConfig(qent_bins=4096, use_kernels=flag)
+    assert convert.predictor_config(None) == TP.PredictorConfig()
+    assert TP.PredictorConfig().use_kernels is False
+
+
+def test_slice_cache_follows_the_route(cesm):
+    for cfg in (TP.PredictorConfig(), TP.PredictorConfig(use_kernels=True)):
+        x = torch.from_numpy(cesm)
+        sweep = TP.features_sweep(x, CESM_EBS, cfg)
+        cache = TP.get_engine(cfg).cached(x[1])
+        for i in (0, 3):
+            np.testing.assert_allclose(cache(CESM_EBS[i]).numpy(),
+                                       sweep[1, i].numpy(), atol=1e-6)
 
 
 def test_trunc_predictors_match(stacks):

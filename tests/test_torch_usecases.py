@@ -92,7 +92,7 @@ def test_lorenzo_codes_equal_and_bounded():
         assert float((recon - torch.from_numpy(x)).abs().max()) <= eps + slack
     err = TC.get("digitrounding").roundtrip_error(torch.from_numpy(x), 1e-3)
     assert err <= 1e-3
-    assert TC.names() == sorted(PORTED)
+    assert TC.names() == sorted(TC.STUDY_2D)
     assert TL.BACKEND in ("zstd", "zlib")
 
 
@@ -174,6 +174,27 @@ def test_port_trained_models_agree(study):
                 np.testing.assert_allclose(
                     tm.predict(torch.from_numpy(slices[i]), e),
                     jm.predict(jnp.asarray(slices[i]), e), rtol=1e-3)
+
+
+def test_uc2_over_the_study_set(study):
+    """The slice as a whole: each package trains an EbGridModel for every
+    2-D study compressor on the same slices, then UC2 ranks all 8."""
+    slices, ebs, _ = study
+    train = slices[:10]
+    jm = {n: JUC.EbGridModel.train(jnp.asarray(train), n, ebs)
+          for n in JC.STUDY_2D}
+    tm = {n: TUC.EbGridModel.train(torch.from_numpy(train), n, ebs)
+          for n in TC.STUDY_2D}
+    for i in (10, 12):
+        jbest, jpreds = JUC.best_compressor(
+            {n: m.models[1] for n, m in jm.items()}, jnp.asarray(slices[i]),
+            ebs[1])
+        tbest, tpreds = TUC.best_compressor(
+            {n: m.models[1] for n, m in tm.items()}, torch.from_numpy(slices[i]),
+            ebs[1])
+        assert tbest == jbest
+        np.testing.assert_allclose([tpreds[n] for n in JC.STUDY_2D],
+                                   [jpreds[n] for n in JC.STUDY_2D], rtol=1e-3)
 
 
 def test_exhaustive_baselines_match(study):
