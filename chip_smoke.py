@@ -10,12 +10,17 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 2. build   -- ``nvcc`` for every kernel of ``repro_torch/csrc``, in parallel;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes: gram within rtol 2e-5 /
-              atol 2e-3; q-ent histograms, the quality SSE and tensor,
-              the Lorenzo codes and the ZFP coefficients and exponents
-              bit-equal (Lorenzo and ZFP on every held-out slice, ZFP
-              also on block maxima planted at and next to powers of
-              two); CUDA-event times of kernel, plain version and, where
-              one call computes the same function, the library;
+              atol 2e-3 and the same bits on two launches; q-ent
+              histograms, the quality SSE and tensor, the Lorenzo codes
+              and the ZFP coefficients and exponents bit-equal (Lorenzo
+              and ZFP on every held-out slice, ZFP also on block maxima
+              planted at and next to powers of two); gram and q-ent at
+              each shape the main path launches them with (the 32-slice
+              training sweep, one held-out slice) and at 8 slices, and
+              on their other branches (a volume unfolding's X X^T, ragged
+              edges, a hot bin, one eps, bins 3000 and 4096); CUDA-event
+              times of kernel, plain version and, where one call
+              computes the same function, the library;
 4. small   -- the sweep on a small input on the card against the same
               call on the CPU, under the default config (exact sort
               q-ent) and ``use_kernels=True`` (hashed q-ent kernel); at
@@ -27,7 +32,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               8 compressors of ``STUDY_2D`` on 32 slices over a 6-point
               eb grid, then UC1 (sz3-lorenzo), UC2 over the 8 models and
               UC3 over the 8 on the 8 held-out slices; every kernel's
-              launch counter must be above 0;
+              launch counter must be above 0, and gram's and q-ent's
+              are also read by shape, one per timed row;
 6. held-out MedAPE of predicted against measured CRs, per compressor,
    and UC2 agreement with the measured best of 8.
 
@@ -120,61 +126,142 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
-def check_kernels(torch, test, ebs_t):
-    """Phase 3: every kernel against its plain version on the card."""
+def gram_row(torch, x, reps, cold=False):
+    """gram_batched on a (k, 1800, 1800) stack of mean-corrected slices
+    (what svd_trunc_batch hands it): within rtol 2e-5 / atol 2e-3 of
+    the float64 plain version, the same bits on two launches, timed
+    beside the library product (``torch.bmm``, ``torch.mm`` at k = 1)."""
+    from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
+    k, m, n = x.shape
+    got = gram_ops.gram_batched(x)
+    again = gram_ops.gram_batched(x)
+    want = gram_ref.gram_xtx_batched(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=2e-5, atol=2e-3):
+        raise AssertionError(f"gram kernel disagrees at {(k, m, n)}: "
+                             f"max abs err {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"gram kernel bits differ between launches "
+                             f"at {(k, m, n)}")
+    del got, again, want
+    b_ms, b_by = bound(4.0 * (k * m * n + k * n * n), k * m * n * (n + 1.0))
+    xt = x.transpose(1, 2)
+    library = ((lambda: torch.mm(xt[0], x[0])) if k == 1
+               else (lambda: torch.bmm(xt, x)))
+    timer = cold_cuda_ms if cold else cuda_ms
+    log(f"check gram_batched ({k}, {m}, {n}): max abs err {err:.3g}, "
+        "same bits on two launches")
+    return dict(
+        name=f"gram_batched ({k}, {m}, {n})", route="cuda",
+        source="src/repro_torch/csrc/gram.cu",
+        replaces=("src/repro/kernels/gram/gram.py:42" if k == 1
+                  else "src/repro/kernels/gram/gram.py:82"),
+        shape=(k, m, n, True), max_abs_err=err,
+        tolerance="rtol 2e-5, atol 2e-3",
+        ms=timer(torch, lambda: gram_ops.gram_batched(x), reps),
+        plain_ms=timer(torch, lambda: gram_ref.gram_xtx_batched(x), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(torch, library, reps))
+
+
+def qent_row(torch, flat, eps_t, reps, cold=False):
+    """qent_histogram_sweep on a (k, 3 240 000) stack at 65536 bins,
+    bit-equal to the plain version, timed (no single PyTorch call
+    computes it)."""
+    from repro_torch.kernels.qent import ops as qent_ops, ref as qent_ref
+    k, nel = flat.shape
+    e, bins = eps_t.shape[0], QENT_BINS
+    got = qent_ops.qent_histogram_sweep(flat, eps_t, bins)
+    want = qent_ref.qent_histogram_sweep(flat, eps_t, bins)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"qent kernel disagrees at {(k, nel)} x {e} "
+                             f"on {int((got != want).sum())} bins")
+    del got, want
+    b_ms, b_by = bound(4.0 * (k * nel + e + k * e * bins), 4.0 * k * nel * e)
+    timer = cold_cuda_ms if cold else cuda_ms
+    log(f"check qent_histogram_sweep ({k}, {nel}) x {e} eps x {bins} bins: "
+        "bit-equal")
+    return dict(
+        name=f"qent_histogram_sweep ({k}, {nel}) x {e}", route="cuda",
+        source="src/repro_torch/csrc/qent.cu",
+        replaces="src/repro/kernels/qent/qent.py:129",
+        shape=(k, nel, e, bins), max_abs_err=0.0, tolerance="bit-equal",
+        ms=timer(torch, lambda: qent_ops.qent_histogram_sweep(
+            flat, eps_t, bins), reps),
+        plain_ms=timer(torch, lambda: qent_ref.qent_histogram_sweep(
+            flat, eps_t, bins), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_branches(torch, test, ebs_t):
+    """The kernels' other branches against their plain versions: gram on
+    a volume unfolding's X X^T (few output tiles, so the contraction is
+    split over a cluster) and on ragged edges, each twice for identical
+    bits; q-ent on a slice half of exact zeros (one hot bin), at one eps,
+    at a bins that is not a power of two and at the default 4096."""
     from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
     from repro_torch.kernels.qent import ops as qent_ops, ref as qent_ref
+    g = torch.Generator(device="cuda").manual_seed(5)
+    vol = torch.rand((2, 256, 65536), generator=g, device="cuda") - 0.3
+    ragged = torch.rand((1, 257, 129), generator=g, device="cuda") - 0.5
+    for x, tr in ((vol, False), (ragged, True), (ragged, False)):
+        got = gram_ops.gram_batched(x, tr)
+        again = gram_ops.gram_batched(x, tr)
+        want = (gram_ref.gram_xtx_batched(x) if tr
+                else gram_ref.gram_xxt_batched(x))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-3):
+            raise AssertionError(f"gram kernel disagrees at {tuple(x.shape)} "
+                                 f"transpose={tr}: max abs err {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"gram kernel bits differ between launches "
+                                 f"at {tuple(x.shape)} transpose={tr}")
+        log(f"check gram_batched {tuple(x.shape)} transpose={tr}: max abs "
+            f"err {err:.3g}, same bits on two launches")
+    flat = test.reshape(test.shape[0], -1)
+    hot = flat[:1].clone()
+    hot[0, : hot.shape[1] // 2] = 0.0
+    for x, e, bins, what in ((hot, ebs_t, QENT_BINS, "hot bin"),
+                             (hot, ebs_t[1:2], QENT_BINS, "hot bin, one eps"),
+                             (flat[:2], ebs_t, 3000, "bins 3000"),
+                             (flat[:2], ebs_t, 4096, "bins 4096")):
+        got = qent_ops.qent_histogram_sweep(x, e, bins)
+        want = qent_ref.qent_histogram_sweep(x, e, bins)
+        if not torch.equal(got, want):
+            raise AssertionError(f"qent kernel disagrees ({what}) on "
+                                 f"{int((got != want).sum())} bins")
+        log(f"check qent_histogram_sweep {tuple(x.shape)} x {e.shape[0]} "
+            f"eps x {bins} bins ({what}): bit-equal")
+
+
+def check_kernels(torch, train, test, ebs_t):
+    """Phase 3: every kernel against its plain version on the card.  Gram
+    and q-ent are timed at each shape the main path launches them with
+    (the 32-slice training sweep and one held-out slice) and at the
+    8-slice shape of the earlier records."""
     from repro_torch.kernels.quality import ops as q_ops, ref as q_ref
 
     k, m, n = test.shape
     e = ebs_t.shape[0]
     rows = []
-
-    # gram: the mean-corrected slices svd_trunc_batch hands it
+    xc = train - train.mean(dim=1, keepdim=True)
+    rows.append(gram_row(torch, xc, 5))
+    del xc
     xc = test - test.mean(dim=1, keepdim=True)
-    got = gram_ops.gram_batched(xc)
-    want = gram_ref.gram_xtx_batched(xc)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=2e-5, atol=2e-3):
-        raise AssertionError(f"gram kernel disagrees: max abs err {err}")
-    b_ms, b_by = bound(4.0 * (k * m * n + k * n * n), k * m * n * (n + 1.0))
-    xt = xc.transpose(1, 2)
-    rows.append(dict(
-        name="gram_batched", route="cuda",
-        source="src/repro_torch/csrc/gram.cu",
-        replaces="src/repro/kernels/gram/gram.py:82",
-        max_abs_err=err, tolerance="rtol 2e-5, atol 2e-3",
-        ms=cuda_ms(torch, lambda: gram_ops.gram_batched(xc), 10),
-        plain_ms=cuda_ms(torch, lambda: gram_ref.gram_xtx_batched(xc), 3),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(torch, lambda: torch.bmm(xt, xc), 10)))
-    del got, want, xt
-    log(f"check gram_batched ({k}, {m}, {n}): max abs err {err:.3g}")
-
-    # q-ent: (k, n) x e histograms at the path's 65536 bins
+    rows.append(gram_row(torch, xc, 10))
+    rows.append(gram_row(torch, xc[:1].contiguous(), 50, cold=True))
+    del xc
+    rows.append(qent_row(torch, train.reshape(train.shape[0], -1), ebs_t, 5))
     flat = test.reshape(k, -1)
     nel = flat.shape[1]
-    bins = QENT_BINS
-    got = qent_ops.qent_histogram_sweep(flat, ebs_t, bins)
-    want = qent_ref.qent_histogram_sweep(flat, ebs_t, bins)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(
-            f"qent kernel disagrees on {int((got != want).sum())} bins")
-    b_ms, b_by = bound(4.0 * (k * nel + e + k * e * bins), 4.0 * k * nel * e)
-    rows.append(dict(
-        name="qent_histogram_sweep", route="cuda",
-        source="src/repro_torch/csrc/qent.cu",
-        replaces="src/repro/kernels/qent/qent.py:129",
-        max_abs_err=0.0, tolerance="bit-equal",
-        ms=cuda_ms(torch, lambda: qent_ops.qent_histogram_sweep(
-            flat, ebs_t, bins), 10),
-        plain_ms=cuda_ms(torch, lambda: qent_ref.qent_histogram_sweep(
-            flat, ebs_t, bins), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    del got, want
-    log(f"check qent_histogram_sweep ({k}, {e}, {bins}): bit-equal")
+    rows.append(qent_row(torch, flat, ebs_t, 10))
+    rows.append(qent_row(torch, flat[:1], ebs_t, 50, cold=True))
+    rows.append(qent_row(torch, flat[:1], ebs_t[1:2].contiguous(), 50,
+                         cold=True))
+    check_branches(torch, test, ebs_t)
 
     # quality: the SSE and the full (k, e, 2) tensor, bit for bit
     sse = q_ops.qdq_sse_sweep(flat, ebs_t)
@@ -291,8 +378,10 @@ def sweep_breakdown(torch, engine, train, ebs_t, card):
     g = gram_ops.gram_batched(train - train.mean(dim=1, keepdim=True))
     eig_ms = cuda_ms(torch, lambda: torch.linalg.eigvalsh(g), 2)
     log(f"training sweep {tuple(train.shape)} x {ebs_t.shape[0]} ebs: "
-        f"{sweep_ms:.1f} ms, of which eigvalsh {eig_ms:.1f} ms", card)
-    return {"sweep_ms": sweep_ms, "eigvalsh_ms": eig_ms}
+        f"{sweep_ms:.2f} ms, of which eigvalsh {eig_ms:.2f} ms; sweep minus "
+        f"eigvalsh {sweep_ms - eig_ms:.2f} ms", card)
+    return {"sweep_ms": sweep_ms, "eigvalsh_ms": eig_ms,
+            "sweep_minus_eigvalsh_ms": sweep_ms - eig_ms}
 
 
 def profile_summary(torch, prof, wall_s: float, card) -> dict:
@@ -410,7 +499,7 @@ def main(argv=None) -> int:
         smi)
 
     t = time.perf_counter()
-    kernels = check_kernels(torch, test, ebs_t)
+    kernels = check_kernels(torch, train, test, ebs_t)
     stages["kernel_checks_s"] = time.perf_counter() - t
     for row in kernels:
         log(f"kernel {row['name']}: {row['ms']:.4f} ms, plain "
@@ -430,6 +519,8 @@ def main(argv=None) -> int:
                 "zfp_forward2d": zfp_ops.zfp_forward2d}
     for fn in counters.values():
         fn.launches = 0
+    for fn in (gram_ops.gram_batched, qent_ops.qent_histogram_sweep):
+        fn.by_shape.clear()
     torch.cuda.synchronize()
     prof = None
     if args.profile:
@@ -464,16 +555,22 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     stages["main_path_s"] = time.perf_counter() - t_main
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_shape = {name: dict(counters[name].by_shape)
+                for name in ("gram_batched", "qent_histogram_sweep")}
     profiled = None
     if prof is not None:
         prof.__exit__(None, None, None)
         profiled = profile_summary(torch, prof, stages["main_path_s"], smi)
-    log(f"main path: {stages['main_path_s']:.2f} s; launches {launches}", smi)
+    log(f"main path: {stages['main_path_s']:.2f} s; launches {launches}; "
+        f"by shape {by_shape}", smi)
     missing = [name for name, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        shape = row.pop("shape", None)
+        kernel = row["name"].split(" ")[0]
+        row["launches"] = (launches[kernel] if shape is None
+                           else by_shape[kernel].get(shape, 0))
         lib = row["library_ms"]
         log(f"kernel {row['name']}: max abs err {row['max_abs_err']:.3g} "
             f"({row['tolerance']}); {row['ms']:.4f} ms, plain "

@@ -1,4 +1,4 @@
-// Batched Gram matrix G = A^T A per slice, in IEEE float32.
+// Batched Gram matrix G = A^T A per slice, in IEEE float32, for Hopper.
 //
 // Replaces: src/repro/kernels/gram/gram.py, gram_xtx_batched (and
 // gram_xtx as its k = 1 case), reached through kernels/gram/ops.py.
@@ -15,133 +15,345 @@
 // far above the H100's float32 ridge (67 TFLOP/s over 3.35 TB/s = 20).
 // Tensor cores are excluded on purpose: TF32 keeps a 10-bit mantissa,
 // and svd_trunc counts eigenvalues against a 0.99 variance threshold,
-// which such rounding moves.  So the design is a classic shared-memory
-// SGEMM on the FP32 pipes:
-//   * one block per 64x64 output tile with i-block <= j-block only (the
-//     lower triangle is the mirror image; blocks below the diagonal exit
-//     at once), 256 threads each owning a 4x4 register tile;
-//   * 16-deep contraction chunks staged in shared memory, rows padded by
-//     one word so the transposed (X X^T) staging is bank-conflict free;
-//   * each chunk is summed into a fresh register partial, then added to
-//     the running sum: the per-chunk blocking the TPU kernel also has
-//     (bk = 128), which keeps the rounding error of a 1800-long sum
-//     several times below a single sequential chain;
-//   * the ragged edge is masked at load time (zeros), so no padding.
-// Every product is __fmaf_rn and every sum __fadd_rn, so the tile's
-// (i, j) and (j, i) values are the same bits and the mirror is exact.
+// which such rounding moves (3xTF32 wgmma would not round like IEEE
+// float32 either).  So the design is an SGEMM on the FP32 pipes:
+//   * 128 x 128 output tiles, 256 threads, each owning an 8 x 8 register
+//     tile (two 4-row by two 4-column quadrants, read from shared memory
+//     with 128-bit loads: 16 bytes of operands per 16 FMAs);
+//   * only the upper-triangle tiles are launched: a linear tile index is
+//     mapped to (bi <= bj), and the lower triangle is the mirrored write,
+//     so no block exits at once;
+//   * a 3-deep ring of 32-deep contraction stages filled by cp.async
+//     (one __syncthreads per stage; the copies of stages s + 1 and s + 2
+//     overlap the FMAs of stage s).  X^T X rows are copied 16 bytes at a
+//     time; the X X^T orientation, whose contiguous axis is the
+//     contraction, is copied 4 bytes at a time into the same [t][a]
+//     layout, a warp taking 8 t x 4 a so that its global reads fill whole
+//     32-byte sectors and its shared writes, on rows padded to 132 words,
+//     hit 32 distinct banks.  The ragged edge (1800 = 14 * 128 + 8) is
+//     zero-filled by cp.async's source size, so nothing is padded or
+//     cropped;
+//   * few tiles (a k = 1 slice of a small edge, or a volume unfolding
+//     with N <= 512 and T >= 65536) split the contraction over a thread
+//     block cluster of 2, 4 or 8 CTAs, until the grid fills the SMs.
+//     Each CTA leaves its partial tile in its own shared memory, and
+//     after a cluster barrier CTA r sums rows r * 128/S ... of all S
+//     partials, over distributed shared memory, in rank order: no float
+//     atomics, so every run gives the same bits;
+//   * numerics: each 32-deep stage of the contraction is summed into a
+//     fresh register partial (its first product a multiply) and then
+//     added to the running sum (the TPU kernel's bk blocking), which
+//     keeps the rounding error of a long sum well below one sequential
+//     chain.  Every product is __fmul_rn / __fmaf_rn and every sum
+//     __fadd_rn, so on a diagonal tile (i, j) and (j, i) are the same
+//     bits, and elsewhere the mirror writes one value twice.
+//
+// On the H100 80GB HBM3 at 700 W this reaches about half the FP32 bound
+// at (32, 1800, 1800) and beats torch.bmm / torch.mm at every main-path
+// shape (PERF.md, from chip_smoke.py).  Registers (233 a thread on the
+// main path's 16-byte route) allow one 256-thread CTA per SM, so a
+// k = 8 stack takes 8 waves for 7.3 waves of tiles.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BN = 64;        // output tile edge
-constexpr int BK = 16;        // contraction chunk
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int PAD = 1;
+constexpr int BM = 128;            // output tile edge
+constexpr int BK = 32;             // contraction depth of one stage, and
+                                   // of one partial sum
+constexpr int STAGES = 3;          // cp.async ring depth
+constexpr int THREADS = 256;       // 16 x 16 threads, 8 x 8 outputs each
+constexpr int LD = BM + 4;         // padded row, still 16-byte aligned
+constexpr int STAGE_FLOATS = 2 * BK * LD;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
+constexpr int MAX_SPLIT = 8;
+constexpr int MIN_SPLIT_T = 256;   // contraction a split CTA keeps at least
 
-__global__ void __launch_bounds__(THREADS)
-gram_kernel(const float* __restrict__ x, float* __restrict__ g, int T, int N,
-            long long slice_stride, long long stride_t, long long stride_a,
-            int contiguous_a) {
-  const int bj = blockIdx.x;
-  const int bi = blockIdx.y;
-  if (bi > bj) return;                       // lower triangle: mirrored
-  const int s = blockIdx.z;
-  const float* xs = x + (long long)s * slice_stride;
-  float* gs = g + (long long)s * N * N;
+static_assert(SMEM_BYTES >= BM * BM * (int)sizeof(float),
+              "the split reduction reuses the staging ring");
 
-  __shared__ float As[BK][BN + PAD];
-  __shared__ float Bs[BK][BN + PAD];
+enum Mode { VEC_ROWS = 0, ROWS = 1, COLS = 2 };
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int i0 = bi * BN;
-  const int j0 = bj * BN;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
 
-  float acc[4][4];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N_PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING));
+}
+
+// Stage A(t0 : t0+BK, c0 : c0+BM) into dst[t][a] (row stride LD); rows
+// t >= t_hi and columns a >= N are zero-filled.
+template <int MODE>
+__device__ __forceinline__ void load_stage(float* dst, const float* xs,
+                                           int t0, int t_hi, int c0, int N,
+                                           long long stride_t,
+                                           long long stride_a, int tid) {
+  if (MODE == VEC_ROWS) {                    // X^T X, n % 4 == 0, aligned
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-
-  for (int t0 = 0; t0 < T; t0 += BK) {
-    // stage A(t0 : t0+BK, i0 : i0+BN) and A(t0 : t0+BK, j0 : j0+BN);
-    // neighbouring threads take neighbouring addresses of the slice
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / THREADS; ++r) {
+    for (int r = 0; r < (BK * BM / 4) / THREADS; ++r) {
+      const int v = tid + r * THREADS;
+      const int tl = v / (BM / 4);
+      const int al = (v % (BM / 4)) * 4;
+      const int t = t0 + tl, a = c0 + al;
+      const bool ok = t < t_hi && a < N;
+      cp_async16(dst + tl * LD + al,
+                 ok ? xs + (long long)t * stride_t + a : xs, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int r = 0; r < (BK * BM) / THREADS; ++r) {
       const int e = tid + r * THREADS;
       int tl, al;
-      if (contiguous_a) { tl = e / BN; al = e % BN; }
-      else              { tl = e % BK; al = e / BK; }
-      const int t = t0 + tl;
-      const int ia = i0 + al;
-      const int ja = j0 + al;
-      float va = 0.0f, vb = 0.0f;
-      if (t < T) {
-        const long long row = (long long)t * stride_t;
-        if (ia < N) va = xs[row + (long long)ia * stride_a];
-        if (ja < N) vb = xs[row + (long long)ja * stride_a];
-      }
-      As[tl][al] = va;
-      Bs[tl][al] = vb;
+      if (MODE == ROWS) { tl = e / BM; al = e % BM; }
+      else { tl = (e & 7) + 8 * (e >> 10); al = (e >> 3) & (BM - 1); }
+      const int t = t0 + tl, a = c0 + al;
+      const bool ok = t < t_hi && a < N;
+      cp_async4(dst + tl * LD + al,
+                ok ? xs + (long long)t * stride_t + (long long)a * stride_a
+                   : xs, ok);
     }
-    __syncthreads();
+  }
+}
 
-    float part[4][4];
+__device__ __forceinline__ void store4(float* g, int N, int i, int j,
+                                       float v0, float v1, float v2,
+                                       float v3, bool vec) {
+  if (i >= N) return;
+  float* row = g + (long long)i * N;
+  if (vec) {
+    if (j < N) *reinterpret_cast<float4*>(row + j) = make_float4(v0, v1, v2, v3);
+  } else {
+    if (j < N) row[j] = v0;
+    if (j + 1 < N) row[j + 1] = v1;
+    if (j + 2 < N) row[j + 2] = v2;
+    if (j + 3 < N) row[j + 3] = v3;
+  }
+}
+
+// grid: (splits, upper tiles, k); a cluster of `splits` CTAs along x
+// shares one output tile when splits > 1.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+gram_kernel(const float* __restrict__ x, float* __restrict__ g, int T, int N,
+            int tiles, long long slice_stride, long long stride_t,
+            long long stride_a, int splits, int t_per_split, int vec_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+
+  int idx = blockIdx.y, bi = 0;              // linear index -> (bi <= bj)
+  while (idx >= tiles - bi) { idx -= tiles - bi; ++bi; }
+  const int bj = bi + idx;
+  const int s = blockIdx.z;
+  const int rank = blockIdx.x;               // == cluster block rank
+  const float* xs = x + (long long)s * slice_stride;
+  float* gs = g + (long long)s * N * N;
+  const int i0 = bi * BM, j0 = bj * BM;
+  const int t_lo = rank * t_per_split;
+  const int t_hi = min(T, t_lo + t_per_split);
+  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + BK - 1) / BK : 0;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+
+  float acc[8][8], part[8][8];               // part: set by each kk == 0
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) part[r][c] = 0.0f;
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < ntiles) {
+      float* as = smem + st * STAGE_FLOATS;
+      const int t0 = t_lo + st * BK;
+      load_stage<MODE>(as, xs, t0, t_hi, i0, N, stride_t, stride_a, tid);
+      load_stage<MODE>(as + BK * LD, xs, t0, t_hi, j0, N, stride_t,
+                       stride_a, tid);
+    }
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    {   // refill the slot every thread finished with in stage kt - 1
+      const int nt = kt + STAGES - 1;
+      if (nt < ntiles) {
+        float* as = smem + (nt % STAGES) * STAGE_FLOATS;
+        const int t0 = t_lo + nt * BK;
+        load_stage<MODE>(as, xs, t0, t_hi, i0, N, stride_t, stride_a, tid);
+        load_stage<MODE>(as + BK * LD, xs, t0, t_hi, j0, N, stride_t,
+                         stride_a, tid);
+      }
+      cp_async_commit();
+    }
+    const float* As = smem + (kt % STAGES) * STAGE_FLOATS;
+    const float* Bs = As + BK * LD;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
+      const float4 a0 = *reinterpret_cast<const float4*>(As + kk * LD + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(As + kk * LD + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * LD + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * LD + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[kk][ty + 16 * r];
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Bs[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          part[r][c] = __fmaf_rn(a[r], b[c], part[r][c]);
+        for (int c = 0; c < 8; ++c)
+          part[r][c] = kk == 0 ? __fmul_rn(a[r], b[c])
+                               : __fmaf_rn(a[r], b[c], part[r][c]);
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = __fadd_rn(acc[r][c], part[r][c]);
-    __syncthreads();
+      for (int c = 0; c < 8; ++c) acc[r][c] = __fadd_rn(acc[r][c], part[r][c]);
+  }
+  cp_async_wait<0>();
+
+  const bool mirror = bi != bj;
+  if (splits == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        const int ib = i0 + hr * 64 + ty * 4;
+        const int jb = j0 + hc * 64 + tx * 4;
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          store4(gs, N, ib + r, jb, acc[hr * 4 + r][hc * 4 + 0],
+                 acc[hr * 4 + r][hc * 4 + 1], acc[hr * 4 + r][hc * 4 + 2],
+                 acc[hr * 4 + r][hc * 4 + 3], vec_out);
+        if (mirror) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            store4(gs, N, jb + c, ib, acc[hr * 4 + 0][hc * 4 + c],
+                   acc[hr * 4 + 1][hc * 4 + c], acc[hr * 4 + 2][hc * 4 + c],
+                   acc[hr * 4 + 3][hc * 4 + c], vec_out);
+        }
+      }
+    return;
   }
 
+  // split contraction: partial tile -> own shared memory, then CTA
+  // `rank` sums its rows of all partials in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  __syncthreads();                           // ring no longer read
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= N) continue;
+  for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      if (j >= N) continue;
-      gs[(long long)i * N + j] = acc[r][c];
-      if (bi != bj) gs[(long long)j * N + i] = acc[r][c];
+    for (int hc = 0; hc < 2; ++hc)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        *reinterpret_cast<float4*>(
+            smem + (hr * 64 + ty * 4 + r) * BM + hc * 64 + tx * 4) =
+            make_float4(acc[hr * 4 + r][hc * 4 + 0], acc[hr * 4 + r][hc * 4 + 1],
+                        acc[hr * 4 + r][hc * 4 + 2], acc[hr * 4 + r][hc * 4 + 3]);
+  cluster.sync();
+  const int rows = BM / splits;
+  for (int e = tid; e < rows * BM; e += THREADS) {
+    const int il = rank * rows + e / BM;
+    const int jl = e % BM;
+    float sum = *cluster.map_shared_rank(smem + il * BM + jl, 0);
+    for (int q = 1; q < splits; ++q)
+      sum = __fadd_rn(sum, *cluster.map_shared_rank(smem + il * BM + jl, q));
+    const int i = i0 + il, j = j0 + jl;
+    if (i < N && j < N) {
+      gs[(long long)i * N + j] = sum;
+      if (mirror) gs[(long long)j * N + i] = sum;
     }
   }
+  cluster.sync();                            // partials read by all
+}
+
+template <int MODE>
+int launch(const float* x, float* g, int k, int T, int N, int tiles,
+           long long upper, long long slice_stride, long long stride_t,
+           long long stride_a, int splits, int t_per_split, int vec_out,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (unsigned)upper, k);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, gram_kernel<MODE>, x, g, T, N, tiles,
+                           slice_stride, stride_t, stride_a, splits,
+                           t_per_split, vec_out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: k slices of (m, n) float32, row-major, contiguous.
 // g: k outputs of (N, N) float32, N = n if xtx else m.
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch (or the error that
+// refused it: no fallback).
 extern "C" int repro_gram_batched(const float* x, float* g, int k, int m,
                                   int n, int xtx, void* stream) {
   const int T = xtx ? m : n;
   const int N = xtx ? n : m;
   const long long stride_t = xtx ? n : 1;
   const long long stride_a = xtx ? 1 : n;
-  const int tiles = (N + BN - 1) / BN;
   if (k <= 0 || N <= 0) return (int)cudaGetLastError();
-  dim3 grid(tiles, tiles, k);
-  gram_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, g, T, N, (long long)m * n, stride_t, stride_a, xtx);
-  return (int)cudaGetLastError();
+  const int tiles = (N + BM - 1) / BM;
+  const long long upper = (long long)tiles * (tiles + 1) / 2;
+  if (upper > 65535 || k > 65535) return (int)cudaErrorInvalidValue;
+
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // split the contraction while the CTAs (one per SM) stay under one
+  // wave and each keeps at least MIN_SPLIT_T of it
+  int splits = 1;
+  while (splits < MAX_SPLIT && upper * k * splits * 2 <= sms &&
+         T / (splits * 2) >= MIN_SPLIT_T)
+    splits *= 2;
+  const int t_per_split =
+      splits == 1 ? T : ((T + splits - 1) / splits + BK - 1) / BK * BK;
+
+  const int vec_out = N % 4 == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  const bool vec_in = xtx && n % 4 == 0 &&
+                      (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long ss = (long long)m * n;
+  if (!xtx)
+    return launch<COLS>(x, g, k, T, N, tiles, upper, ss, stride_t, stride_a,
+                        splits, t_per_split, vec_out, st);
+  if (vec_in)
+    return launch<VEC_ROWS>(x, g, k, T, N, tiles, upper, ss, stride_t,
+                            stride_a, splits, t_per_split, vec_out, st);
+  return launch<ROWS>(x, g, k, T, N, tiles, upper, ss, stride_t, stride_a,
+                      splits, t_per_split, vec_out, st);
 }

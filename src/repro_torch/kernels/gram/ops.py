@@ -7,6 +7,7 @@ orientation in place, so there is no padding and no transposed copy.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -17,9 +18,10 @@ from repro_torch.kernels.gram import ref as _ref
 def _launch(x: torch.Tensor, transpose: bool) -> torch.Tensor:
     _build.require_cuda(x, "gram_batched")
     k, m, n = x.shape
-    if max(k, m, n) >= 2 ** 31 or k > 65535:
-        raise ValueError(f"gram_batched: shape {tuple(x.shape)} too large")
     out_n = n if transpose else m
+    tiles = -(-out_n // 128)              # gram.cu: 128 x 128 output tiles
+    if max(k, m, n) >= 2 ** 31 or k > 65535 or tiles * (tiles + 1) // 2 > 65535:
+        raise ValueError(f"gram_batched: shape {tuple(x.shape)} too large")
     g = torch.empty((k, out_n, out_n), dtype=torch.float32, device=x.device)
     fn = _build.load("gram").repro_gram_batched
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -30,6 +32,7 @@ def _launch(x: torch.Tensor, transpose: bool) -> torch.Tensor:
                   _build.stream(x))
     _build.check(code, "gram_batched")
     gram_batched.launches += 1
+    gram_batched.by_shape[(k, m, n, transpose)] += 1
     return g
 
 
@@ -49,6 +52,7 @@ def gram_batched(x: torch.Tensor, transpose: bool = True) -> torch.Tensor:
 
 
 gram_batched.launches = 0
+gram_batched.by_shape = Counter()     # (k, m, n, transpose) -> launches
 
 
 def gram(x: torch.Tensor, transpose: bool = True) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """Public wrappers for the q-ent kernel (``csrc/qent.cu``).
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain
-version in ``ref``.  The kernel masks each block's element range, so
+version in ``ref``.  The kernel masks each cluster's element range, so
 unlike the TPU route there is no padding and no pad correction: the
 histogram is the same either way.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -16,8 +17,9 @@ from repro_torch.kernels.qent import ref as _ref
 from repro_torch.quant import validate_eps_positive as _check_eps
 
 DEFAULT_BINS = 4096
-# shared memory one block may spend on counters: two blocks fit an SM
-SMEM_BUDGET = 110 * 1024
+# shared memory one CTA may spend on counters: 65536 bins need a cluster
+# of 2 CTAs (128 KiB each), 4096 bins x 6 eps fit one CTA (96 KiB)
+SMEM_BUDGET = 192 * 1024
 
 
 def _launch(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
@@ -25,7 +27,7 @@ def _launch(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
     _build.require_cuda(epss, "qent_histogram_sweep eps")
     k, n = x.shape
     e = epss.shape[0]
-    if k * max(1, -(-e // 8)) > 65535 or not 0 < bins < 2 ** 31:
+    if not 0 < bins < 2 ** 31:
         raise ValueError(f"qent_histogram_sweep: unsupported k={k}, e={e}, "
                          f"bins={bins}")
     hist = torch.zeros((k, e, bins), dtype=torch.int32, device=x.device)
@@ -39,14 +41,15 @@ def _launch(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
                   bins, SMEM_BUDGET, _build.stream(x))
     _build.check(code, "qent_histogram_sweep")
     qent_histogram_sweep.launches += 1
+    qent_histogram_sweep.by_shape[(k, n, e, bins)] += 1
     return hist
 
 
 def qent_histogram_sweep(x: torch.Tensor, epss: torch.Tensor,
                          bins: int = DEFAULT_BINS) -> torch.Tensor:
     """(k, n) slice stack x (e,) error bounds -> (k, e, bins) int32
-    histograms of the hashed codes, one launch reading each element once
-    per bin chunk."""
+    histograms of the hashed codes in one launch, each element quantized
+    once per eps."""
     if x.ndim != 2:
         raise ValueError(f"qent_histogram_sweep expects (k, n), got "
                          f"{tuple(x.shape)}")
@@ -58,6 +61,7 @@ def qent_histogram_sweep(x: torch.Tensor, epss: torch.Tensor,
 
 
 qent_histogram_sweep.launches = 0
+qent_histogram_sweep.by_shape = Counter()     # (k, n, e, bins) -> launches
 
 
 def quantized_entropy_sweep(x: torch.Tensor, epss,

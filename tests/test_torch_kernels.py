@@ -33,9 +33,18 @@ def _field(seed, shape, scale=1.0):
 
 
 # ---------------------------------------------------------------------- gram
-@pytest.mark.parametrize("shape", [(3, 64, 64), (2, 130, 70), (3, 70, 130),
-                                   (1, 100, 97)])
-@pytest.mark.parametrize("transpose", [True, False])
+_GRAM_SHAPES = [(3, 64, 64), (2, 130, 70), (3, 70, 130), (1, 100, 97)]
+_GRAM_CASES = [pytest.param(s, t, id=f"{t}-shape{i}")
+               for t in (True, False) for i, s in enumerate(_GRAM_SHAPES)] + [
+    # a volume unfolding's X X^T (long contraction, few output tiles: the
+    # CUDA kernel's split-contraction path) and a ragged edge both ways
+    pytest.param((2, 16, 4096), False, id="False-tall_skinny"),
+    pytest.param((1, 257, 129), True, id="True-ragged"),
+    pytest.param((1, 257, 129), False, id="False-ragged"),
+]
+
+
+@pytest.mark.parametrize("shape, transpose", _GRAM_CASES)
 def test_gram_batched_matches_reference(shape, transpose):
     from repro.kernels.gram import ops as jgram
     x = _field(1, shape)
@@ -63,14 +72,27 @@ def _qent_inputs(n):
     return x, epss
 
 
-@pytest.mark.parametrize("n", [2048, 4096])
-def test_qent_histograms_bit_equal(n):
+@pytest.mark.parametrize("n, kind", [
+    pytest.param(2048, "plain", id="2048"),
+    pytest.param(4096, "plain", id="4096"),
+    # half of every slice exact zeros: one hot bin (cesm-cloud's clear sky)
+    pytest.param(4096, "hot_bin", id="hot_bin"),
+    pytest.param(4096, "one_eps", id="one_eps"),
+    # not a power of two: the general positive remainder
+    pytest.param(4096, "bins_3000", id="bins_3000"),
+])
+def test_qent_histograms_bit_equal(n, kind):
     from repro.kernels.qent import qent as jqent
     x, epss = _qent_inputs(n)
+    bins = 3000 if kind == "bins_3000" else 4096
+    if kind == "hot_bin":
+        x[:, : n // 2] = 0.0
+    if kind == "one_eps":
+        epss = epss[1:2]
     want = np.asarray(jqent.qent_histogram_sweep(
-        jnp.asarray(x), jnp.asarray(epss), tile=2048, bins=4096))
+        jnp.asarray(x), jnp.asarray(epss), tile=2048, bins=bins))
     got = tqent.qent_histogram_sweep(torch.from_numpy(x),
-                                     torch.from_numpy(epss), 4096).numpy()
+                                     torch.from_numpy(epss), bins).numpy()
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
 
@@ -246,9 +268,11 @@ def test_zfp_ref_is_the_compressor_transform():
 ])
 def test_wrappers_take_plain_version_on_cpu(fn, args):
     before = fn.launches
+    shapes = dict(getattr(fn, "by_shape", {}))
     out = fn(*args)
     out = out[0] if isinstance(out, tuple) else out
     assert out.device.type == "cpu" and fn.launches == before
+    assert dict(getattr(fn, "by_shape", {})) == shapes
 
 
 @pytest.mark.cuda
@@ -261,14 +285,24 @@ def test_cuda_kernel_matches_plain_version(kernel):
     x = torch.rand((3, 130, 70), generator=g, device="cuda") * 2 - 0.5
     epss = torch.tensor([1e-3, 1e-2, 0.1], device="cuda")
     if kernel == "gram":
-        for tr in (True, False):
-            got = tgram.gram_batched(x, tr)
-            want = tgram.gram_batched(x.cpu(), tr)
-            torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-3)
+        # the last input splits its long contraction over a cluster
+        vol = torch.rand((2, 16, 4096), generator=g, device="cuda") - 0.3
+        for inp in (x, x[:1, :129, :69].contiguous(), vol):
+            for tr in (True, False):
+                got = tgram.gram_batched(inp, tr)
+                want = tgram.gram_batched(inp.cpu(), tr)
+                torch.testing.assert_close(got.cpu(), want, rtol=2e-5,
+                                           atol=2e-3)
+                assert torch.equal(got, tgram.gram_batched(inp, tr))
     elif kernel == "qent":
         flat = x.reshape(3, -1)
-        got = tqent.qent_histogram_sweep(flat, epss, 65536)
-        assert torch.equal(got, tqent_ref.qent_histogram_sweep(flat, epss, 65536))
+        hot = flat.clone()
+        hot[:, : hot.shape[1] // 2] = 0.0
+        for inp, e, bins in ((flat, epss, 65536), (hot, epss, 65536),
+                             (flat, epss[1:], 65536), (flat, epss, 3000),
+                             (hot, epss, 4096)):
+            got = tqent.qent_histogram_sweep(inp, e, bins)
+            assert torch.equal(got, tqent_ref.qent_histogram_sweep(inp, e, bins))
     elif kernel == "quality":
         flat = x.reshape(3, -1)
         got = tqual.qdq_sse_sweep(flat, epss)
