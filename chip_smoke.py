@@ -14,13 +14,15 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               histograms, the quality SSE and tensor, the Lorenzo codes
               and the ZFP coefficients and exponents bit-equal (Lorenzo
               and ZFP on every held-out slice, ZFP also on block maxima
-              planted at and next to powers of two); gram and q-ent at
-              each shape the main path launches them with (the 32-slice
-              training sweep, one held-out slice) and at 8 slices, and
-              on their other branches (a volume unfolding's X X^T, ragged
-              edges, a hot bin, one eps, bins 3000 and 4096); CUDA-event
-              times of kernel, plain version and, where one call
-              computes the same function, the library;
+              planted at and next to powers of two, Lorenzo also on
+              ragged shapes); gram, q-ent and quality at each shape the
+              main path launches them with (the 32-slice training sweep,
+              one held-out slice) and at 8 slices, and on their other
+              branches (a volume unfolding's X X^T, ragged edges, a hot
+              bin, one eps, bins 3000 and 4096; quality at k = 1, at
+              lengths off the 2048-element tile, on unaligned slices and
+              at 11 eps); CUDA-event times of kernel, plain version and,
+              where one call computes the same function, the library;
 4. small   -- the sweep on a small input on the card against the same
               call on the CPU, under the default config (exact sort
               q-ent) and ``use_kernels=True`` (hashed q-ent kernel); at
@@ -32,8 +34,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               8 compressors of ``STUDY_2D`` on 32 slices over a 6-point
               eb grid, then UC1 (sz3-lorenzo), UC2 over the 8 models and
               UC3 over the 8 on the 8 held-out slices; every kernel's
-              launch counter must be above 0, and gram's and q-ent's
-              are also read by shape, one per timed row;
+              launch counter must be above 0, and gram's, q-ent's and
+              quality's are also read by shape, one per timed row;
 6. held-out MedAPE of predicted against measured CRs, per compressor,
    and UC2 agreement with the measured best of 8.
 
@@ -65,6 +67,7 @@ QENT_BINS = 65536
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 SPIN_CYCLES = 10_000_000    # ~5 ms at the H100's 1.98 GHz boost clock
+QUOTIENT_SPREAD = 52        # divisors beside the grid's in the quotient check
 
 
 def log(msg: str, card: str | None = None) -> None:
@@ -237,15 +240,53 @@ def check_branches(torch, test, ebs_t):
             f"eps x {bins} bins ({what}): bit-equal")
 
 
-def check_kernels(torch, train, test, ebs_t):
-    """Phase 3: every kernel against its plain version on the card.  Gram
-    and q-ent are timed at each shape the main path launches them with
-    (the 32-slice training sweep and one held-out slice) and at the
-    8-slice shape of the earlier records."""
+def quality_row(torch, flat, eps_t, reps):
+    """qdq_sse_sweep on a (k, 3 240 000) stack, the SSE and the (k, e, 2)
+    quality tensor bit-equal to the plain version, timed back to back:
+    at k = 32 the 415 MB stack exceeds the 50 MB L2, as the training
+    sweep finds it (no single PyTorch call computes it)."""
     from repro_torch.kernels.quality import ops as q_ops, ref as q_ref
+    k, nel = flat.shape
+    e = eps_t.shape[0]
+    check_quality(torch, flat, eps_t, "main-path shape")
+    b_ms, b_by = bound(4.0 * (k * nel + e + k * e), 9.0 * k * nel * e)
+    return dict(
+        name=f"qdq_sse_sweep ({k}, {nel}) x {e}", route="cuda",
+        source="src/repro_torch/csrc/quality.cu",
+        replaces="src/repro/kernels/quality/quality.py:56",
+        shape=(k, nel, e), max_abs_err=0.0, tolerance="bit-equal",
+        ms=cuda_ms(torch, lambda: q_ops.qdq_sse_sweep(flat, eps_t), reps),
+        plain_ms=cuda_ms(torch, lambda: q_ref.sse_sweep(flat, eps_t), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    k, m, n = test.shape
-    e = ebs_t.shape[0]
+
+def check_quality(torch, flat, eps_t, what):
+    """The quality SSE and the (k, e, 2) tensor of a (k, n) stack, bit
+    for bit against the plain version."""
+    from repro_torch.kernels.quality import ops as q_ops, ref as q_ref
+    k, nel = flat.shape
+    sse = q_ops.qdq_sse_sweep(flat, eps_t)
+    sse_plain = q_ref.sse_sweep(flat, eps_t)
+    if not torch.equal(sse, sse_plain):
+        raise AssertionError(f"quality SSE differs at ({k}, {nel}) x "
+                             f"{eps_t.shape[0]} ({what}) on "
+                             f"{int((sse != sse_plain).sum())} values")
+    qual = q_ops.quality_sweep(flat, eps_t)
+    qual_plain = q_ref.quality_from_stats(
+        sse_plain, nel, flat.amin(dim=1), flat.amax(dim=1))
+    if not torch.equal(qual, qual_plain):
+        raise AssertionError(f"quality tensor differs at ({k}, {nel}) "
+                             f"({what})")
+    log(f"check qdq_sse_sweep ({k}, {nel}) x {eps_t.shape[0]} eps ({what}): "
+        "SSE and quality tensor bit-equal")
+
+
+def check_kernels(torch, train, test, ebs_t):
+    """Phase 3: every kernel against its plain version on the card.  Gram,
+    q-ent and quality are timed at each shape the main path launches them
+    with (the 32-slice training sweep; gram and q-ent also one held-out
+    slice) and at the 8-slice shape of the earlier records."""
+    k = test.shape[0]
     rows = []
     xc = train - train.mean(dim=1, keepdim=True)
     rows.append(gram_row(torch, xc, 5))
@@ -254,60 +295,90 @@ def check_kernels(torch, train, test, ebs_t):
     rows.append(gram_row(torch, xc, 10))
     rows.append(gram_row(torch, xc[:1].contiguous(), 50, cold=True))
     del xc
-    rows.append(qent_row(torch, train.reshape(train.shape[0], -1), ebs_t, 5))
+    flat32 = train.reshape(train.shape[0], -1)
+    rows.append(qent_row(torch, flat32, ebs_t, 5))
     flat = test.reshape(k, -1)
-    nel = flat.shape[1]
     rows.append(qent_row(torch, flat, ebs_t, 10))
     rows.append(qent_row(torch, flat[:1], ebs_t, 50, cold=True))
     rows.append(qent_row(torch, flat[:1], ebs_t[1:2].contiguous(), 50,
                          cold=True))
     check_branches(torch, test, ebs_t)
-
-    # quality: the SSE and the full (k, e, 2) tensor, bit for bit
-    sse = q_ops.qdq_sse_sweep(flat, ebs_t)
-    sse_plain = q_ref.sse_sweep(flat, ebs_t)
-    if not torch.equal(sse, sse_plain):
-        raise AssertionError(
-            f"quality SSE differs on {int((sse != sse_plain).sum())} values")
-    qual = q_ops.quality_sweep(test, ebs_t)
-    qual_plain = q_ref.quality_from_stats(
-        sse_plain, nel, flat.amin(dim=1), flat.amax(dim=1))
-    if not torch.equal(qual, qual_plain):
-        raise AssertionError("quality tensor differs from its plain version")
-    b_ms, b_by = bound(4.0 * (k * nel + e + k * e), 9.0 * k * nel * e)
-    rows.append(dict(
-        name="qdq_sse_sweep", route="cuda",
-        source="src/repro_torch/csrc/quality.cu",
-        replaces="src/repro/kernels/quality/quality.py:56",
-        max_abs_err=0.0, tolerance="bit-equal",
-        ms=cuda_ms(torch, lambda: q_ops.qdq_sse_sweep(flat, ebs_t), 10),
-        plain_ms=cuda_ms(torch, lambda: q_ref.sse_sweep(flat, ebs_t), 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    log(f"check qdq_sse_sweep ({k}, {e}): SSE and quality tensor bit-equal")
-    del sse, sse_plain, qual, qual_plain
+    check_quotient(torch, ebs_t)
+    rows.append(quality_row(torch, flat32, ebs_t, 10))
+    rows.append(quality_row(torch, flat, ebs_t, 20))
+    check_quality_edges(torch, test, ebs_t)
     rows.append(check_lorenzo(torch, test, ebs_t))
     rows.append(check_zfp(torch, test))
     return rows
 
 
+def check_quality_edges(torch, test, ebs_t):
+    """quality's other branches: one slice; lengths that are not a
+    multiple of the 2048-element tile, 16-byte aligned (130 x 70) and
+    not (9101, so slices 1 and 2 start off a 16-byte boundary); one eps;
+    11 eps (two groups of the per-barrier fold)."""
+    flat = test.reshape(-1)
+    more = torch.cat([ebs_t, ebs_t[:5] * 3.0])
+    for x, e, what in (
+            (flat[:test.shape[1] * test.shape[2]].view(1, -1), ebs_t, "k = 1"),
+            (flat[:3 * 9100].view(3, 9100), ebs_t, "130 x 70 a slice"),
+            (flat[:3 * 9101].view(3, 9101), ebs_t, "unaligned slices"),
+            (flat[:3 * 9101].view(3, 9101), ebs_t[1:2].contiguous(), "one eps"),
+            (flat[:3 * 9100].view(3, 9100), more, "11 eps")):
+        check_quality(torch, x, e, what)
+
+
+def check_quotient(torch, ebs_t):
+    """The quotient the quality and Lorenzo kernels share
+    (``csrc/quotient.cuh``: one reciprocal per divisor, three FMAs per
+    quotient) against ``__fdiv_rn`` on every finite float32, for each grid
+    eps (quality's divisor), f32(2 eps) (Lorenzo's) and QUOTIENT_SPREAD
+    log-spaced divisors from 2^-40 to 2^40: no quotient may differ."""
+    from repro_torch.kernels.quality import ops as q_ops
+    extra = QUOTIENT_SPREAD
+    spread = np.float32(2.0) ** np.linspace(-40.0, 40.0, extra)
+    divisors = torch.tensor(np.concatenate([
+        ebs_t.cpu().numpy(), np.float32(2.0) * ebs_t.cpu().numpy(), spread
+    ]).astype(np.float32), device="cuda")
+    t = time.perf_counter()
+    bad = q_ops.quotient_mismatches(divisors).cpu()
+    secs = time.perf_counter() - t
+    if int(bad.sum()):
+        raise AssertionError(
+            "shared-reciprocal quotient differs from __fdiv_rn: " + ", ".join(
+                f"{float(d):.4g}: {int(b)}" for d, b in zip(divisors.cpu(), bad)
+                if b))
+    log(f"check quotient: every finite float32 over {divisors.shape[0]} "
+        f"divisors (grid eps, 2 eps, {extra} from 2^-40 to 2^40) equals "
+        f"__fdiv_rn ({secs:.2f} s)")
+
+
 def check_lorenzo(torch, test, ebs_t):
     """lorenzo2d on every held-out slice at every grid eb, bit-equal to
-    the plain ``lorenzo_encode``; timed on one slice, as sz3-lorenzo's
-    encode calls it."""
+    the plain ``lorenzo_encode``, and on ragged shapes (1 x 1, one row,
+    one column, n % 4 != 0, rows not a multiple of the strip, a slice
+    that starts off a 16-byte boundary); timed on one slice, as
+    sz3-lorenzo's encode calls it."""
     from repro_torch.kernels.lorenzo import ops as lor_ops, ref as lor_ref
     k, m, n = test.shape
     ebs = [float(v) for v in ebs_t.cpu()]
-    for i in range(k):
-        for eps in ebs:
-            got = lor_ops.lorenzo2d(test[i], eps)
-            want = lor_ref.lorenzo2d(test[i], eps)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"lorenzo kernel differs on {int((got != want).sum())} "
-                    f"codes (slice {i}, eps {eps:.3g})")
+    flat = test.reshape(-1)
+    ragged = [flat[:a * b].view(a, b) for a, b in (
+        (1, 1), (1, 1801), (1801, 1), (130, 70), (257, 1803), (33, 132))]
+    ragged.append(flat[1:1 + m * n].view(m, n))
+    inputs = [(test[i], eps) for i in range(k) for eps in ebs]
+    inputs += [(x, eps) for x in ragged for eps in (ebs[0], ebs[-1])]
+    for x, eps in inputs:
+        got = lor_ops.lorenzo2d(x, eps)
+        want = lor_ref.lorenzo2d(x, eps)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"lorenzo kernel differs on {int((got != want).sum())} "
+                f"codes (shape {tuple(x.shape)}, eps {eps:.3g})")
     x, eps = test[0], ebs[1]
     b_ms, b_by = bound(8.0 * m * n, 8.0 * m * n)
-    log(f"check lorenzo2d {k} x ({m}, {n}) x {len(ebs)} ebs: bit-equal")
+    log(f"check lorenzo2d {k} x ({m}, {n}) x {len(ebs)} ebs and "
+        f"{len(ragged)} ragged shapes x 2 ebs: bit-equal")
     return dict(
         name="lorenzo2d", route="cuda",
         source="src/repro_torch/csrc/lorenzo.cu",
@@ -519,8 +590,9 @@ def main(argv=None) -> int:
                 "zfp_forward2d": zfp_ops.zfp_forward2d}
     for fn in counters.values():
         fn.launches = 0
-    for fn in (gram_ops.gram_batched, qent_ops.qent_histogram_sweep):
-        fn.by_shape.clear()
+    by_shape_fns = ("gram_batched", "qent_histogram_sweep", "qdq_sse_sweep")
+    for name in by_shape_fns:
+        counters[name].by_shape.clear()
     torch.cuda.synchronize()
     prof = None
     if args.profile:
@@ -555,8 +627,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     stages["main_path_s"] = time.perf_counter() - t_main
     launches = {name: fn.launches for name, fn in counters.items()}
-    by_shape = {name: dict(counters[name].by_shape)
-                for name in ("gram_batched", "qent_histogram_sweep")}
+    by_shape = {name: dict(counters[name].by_shape) for name in by_shape_fns}
     profiled = None
     if prof is not None:
         prof.__exit__(None, None, None)

@@ -94,9 +94,9 @@ def zfp_size_bits(q: torch.Tensor, e: torch.Tensor, eps: float) -> int:
     """Embedded-coding size model: per coefficient, bits above the cutoff
     plane + sign, plus a per-block header (exponent + group tests).
 
-    Every term is a small integer, so the total is summed exactly as
-    int64 on the data's device and read once; the reference's float32
-    sum equals it wherever float32 holds the total exactly (< 2^24)."""
+    The per-block counts and the header are small integers, exact in
+    float32; their total is the reference's float32 ``jnp.sum``
+    (:func:`refmath.sum_f32`, on the host), which rounds above 2^24 bits."""
     ndim = q.ndim - 1
     k = torch.clamp(_cutoff_plane(e, eps, ndim), min=0)[(...,) + (None,) * ndim]
     mag = torch.abs(q)
@@ -104,9 +104,10 @@ def zfp_size_bits(q: torch.Tensor, e: torch.Tensor, eps: float) -> int:
                          torch.ceil(refmath.log2_f32(mag.to(torch.float32) + 1.0)),
                          torch.zeros_like(mag, dtype=torch.float32))
     kept = torch.clamp(bitlen - k.to(torch.float32), min=0.0)
-    coef_bits = (kept + (kept > 0).to(torch.float32)).to(torch.int64).sum()
-    header = 8 + 2 * (4 ** ndim) // 4         # exponent + group-test bits
-    return int(coef_bits) + header * q.shape[0]
+    per_block = (kept + (kept > 0).to(torch.float32)).sum(
+        dim=tuple(range(1, ndim + 1)))
+    header = 8.0 + 2.0 * (4 ** ndim) / 4.0    # exponent + group-test bits
+    return int(refmath.sum_f32(per_block + header))
 
 
 class ZFP(base.Compressor):

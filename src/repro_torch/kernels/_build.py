@@ -9,8 +9,9 @@ headers, so a build takes seconds, not minutes):
 
 ``--use_fast_math`` is deliberately absent: the kernels rely on IEEE
 division, ``sqrtf`` and un-flushed denormals to match the plain
-versions bit for bit.  The library name carries a hash of the source,
-so an edited source is rebuilt on its next use.  ``build()`` starts one
+versions bit for bit.  The library name carries a hash of the source
+and of the headers beside it (``csrc/*.cuh``), so an edited source is
+rebuilt on its next use.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -54,10 +55,17 @@ def nvcc() -> str:
         "repro_torch are compiled at first use")
 
 
+def source_digest(csrc: Path, name: str) -> str:
+    """Hash of ``<csrc>/<name>.cu`` and every header it may include."""
+    h = hashlib.sha256()
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by the source's hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by the sources' hash."""
+    return BUILD_DIR / f"{name}-{source_digest(CSRC, name)}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:

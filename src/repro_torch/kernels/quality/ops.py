@@ -9,6 +9,7 @@ the same order, so the (k, e, 2) tensor is bitwise the same on both.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -38,6 +39,7 @@ def _launch(flat: torch.Tensor, epss: torch.Tensor) -> torch.Tensor:
                   _build.ptr(sse), k, n, e, _build.stream(flat))
     _build.check(code, "qdq_sse_sweep")
     qdq_sse_sweep.launches += 1
+    qdq_sse_sweep.by_shape[(k, n, e)] += 1
     return sse
 
 
@@ -51,6 +53,25 @@ def qdq_sse_sweep(flat: torch.Tensor, epss: torch.Tensor) -> torch.Tensor:
 
 
 qdq_sse_sweep.launches = 0
+qdq_sse_sweep.by_shape = Counter()     # (k, n, e) -> launches
+
+
+def quotient_mismatches(divisors: torch.Tensor) -> torch.Tensor:
+    """(d,) float32 divisors on the card -> (d,) int64 counts of the finite
+    float32 v whose quotient v / d, as the quality and Lorenzo kernels
+    compute it (``csrc/quotient.cuh``), differs from ``__fdiv_rn``."""
+    _build.require_cuda(divisors, "quotient check")
+    bad = torch.zeros(divisors.shape[0], dtype=torch.int64,
+                      device=divisors.device)
+    fn = _build.load("quality").repro_quotient_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(divisors.device):
+        code = fn(_build.ptr(divisors), divisors.shape[0], _build.ptr(bad),
+                  _build.stream(divisors))
+    _build.check(code, "quotient check")
+    return bad
 
 
 def quality_sweep(x: torch.Tensor, epss) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""float32 ``log2`` and ``exp2`` with the reference's bits.
+"""float32 ``log2``, ``exp2`` and ``sum`` with the reference's bits.
 
 The reference computes ZFP's block exponent as ``ceil(log2(amax))``, its
 scale as ``exp2(24 - e)`` and the size model's bit length as
@@ -16,6 +16,10 @@ zero is read here as the smallest normal, where XLA on the CPU reads a
 subnormal as zero: the recorded subnormal difference of the port);
 integer-valued inputs in [-125, 150] for :func:`exp2_f32`, whose
 subnormal results are flushed to zero as XLA flushes them.
+
+The reference totals ZFP's per-block bit counts with a float32
+``jnp.sum``, which rounds once the total passes 2^24 (an 1800 x 1800
+slice reaches 4.5e7 bits): :func:`sum_f32` adds in XLA's CPU order.
 """
 from __future__ import annotations
 
@@ -99,3 +103,34 @@ def exp2_f32(k: torch.Tensor) -> torch.Tensor:
     pow2n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
     out = t * pow2n
     return torch.where(out.abs() < MIN_NORMAL, torch.zeros_like(out), out)
+
+
+XLA_WINDOW = 32     # the window of XLA's CPU tree-reduction rewrite
+
+
+def sum_f32(v: torch.Tensor) -> np.float32:
+    """``jnp.sum`` of a 1-D float32 tensor on the CPU, bit for bit.
+
+    While more than 32 values remain, XLA rewrites the reduction into a
+    reduce-window of 32, stride 32, over the values padded to a multiple
+    of 32 with zeros split evenly at both ends (the odd one at the
+    end); each window adds its values in order from 0.0.  The last 32
+    or fewer add in order from 0.0 as well.  The running sums start at
+    +0.0, so none is ever -0.0 and a +0.0 pad leaves it as it is.  The
+    values are read to the host once and added there: ~100 elementwise
+    adds of a few thousand values cost less as numpy calls than as
+    kernel launches."""
+    v = v.detach().to("cpu", torch.float32).reshape(-1).numpy()
+    while True:
+        n = v.size
+        if n == 0:
+            return np.float32(0.0)
+        cols = min(n, XLA_WINDOW)
+        pad = (-n) % cols
+        rows = np.pad(v, (pad // 2, pad - pad // 2)).reshape(-1, cols)
+        acc = np.zeros(rows.shape[0], np.float32)
+        for j in range(cols):
+            acc = acc + rows[:, j]
+        if n <= XLA_WINDOW:
+            return acc[0]
+        v = acc

@@ -258,3 +258,90 @@ def test_zfp_exponent_and_bit_length_rule_on_planted_powers():
     exact_len = np.ceil(np.log2(mag.astype(np.float64) + 1.0))
     assert np.count_nonzero(port_len[:8] != exact_len[:8]) == 8
     assert np.array_equal(port_len[8:], exact_len[8:])
+
+
+# ------------------------------------------------- zfp's float32 size total
+@pytest.mark.parametrize("n", [1, 7, 32, 33, 63, 1000, 1025, 32 * 32 + 1,
+                               50625, 202500, 202501])
+def test_sum_f32_is_xla_cpu_sum(n):
+    """Random floats of mixed magnitude expose any other order: the
+    port's float32 sum equals ``jnp.sum``'s bits at windows' edges, odd
+    and non-power-of-two lengths and the block counts of 900^2 and
+    1800^2 slices."""
+    rng = np.random.default_rng(n)
+    for _ in range(3):
+        v = (rng.standard_normal(n)
+             * 10.0 ** rng.integers(-3, 4, n)).astype(np.float32)
+        want = np.asarray(jnp.sum(jnp.asarray(v)))
+        got = np.float32(refmath.sum_f32(torch.from_numpy(v)))
+        assert got.view(np.int32) == want.view(np.int32)
+
+
+@pytest.fixture(scope="module")
+def cesm_1800():
+    """A full cesm-cloud slice (202 500 blocks, 1.7e7 to 4.5e7 bits
+    over the chip grid) transformed by both packages."""
+    x = np.array(JS.field_slices("cesm-cloud", count=1, n=1800, seed=0)[0])
+    jq, je, _ = JZ.zfp_transform(jnp.asarray(x))
+    tq, te, _ = TZ.zfp_transform(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    return x, (jq, je), (tq, te)
+
+
+@pytest.mark.parametrize("eps", CESM_EBS)
+def test_zfp_size_total_above_2_24_bits(eps, cesm_1800):
+    """Above 2^24 bits the reference's float32 total rounds; the port
+    totals in the same order and gives the same bits and bytes.  At
+    3.16e-6 an exact integer sum is one bit above it, a byte more."""
+    x, (jq, je), (tq, te) = cesm_1800
+    jt, tt = JZ.zfp_truncate(jq, je, eps), TZ.zfp_truncate(tq, te, eps)
+    want = float(JZ.zfp_size_bits(jt, je, eps))
+    got = TZ.zfp_size_bits(tt, te, eps)
+    assert got == want and want > 2 ** 24
+    assert TC.get("zfp").size_bytes(tt, {"e": te}, eps) == \
+        JC.get("zfp").size_bytes(jt, {"e": je}, eps)
+    if eps == CESM_EBS[0]:
+        assert TC.get("zfp").cr(torch.from_numpy(x), eps) == \
+            JC.get("zfp").cr(jnp.asarray(x), eps)
+        k = torch.clamp(TZ._cutoff_plane(te, eps, 2), min=0)[:, None, None]
+        bitlen = torch.ceil(refmath.log2_f32(tt.abs().to(torch.float32) + 1.0))
+        kept = torch.clamp(torch.where(tt != 0, bitlen, 0.0) - k, min=0.0)
+        exact = int((kept + (kept > 0)).to(torch.int64).sum()) + 16 * te.numel()
+        assert (exact, -(-exact // 8)) == (int(want) + 1, -(-int(want) // 8) + 1)
+
+
+@pytest.mark.parametrize("shape", [(4, 4), (4, 1800), (1800, 4),
+                                   (4 * 33, 4 * 65), (4 * 333, 4 * 555)])
+def test_zfp_size_total_on_block_grids(shape):
+    """One block, 1-row and 1-column block grids, odd block counts: the
+    size, the bytes and the CR follow the reference's float32 total."""
+    x = _slice("miranda-vx", shape, seed=4)
+    rng = float(np.ptp(x))
+    jq, je, _ = JZ.zfp_transform(jnp.asarray(x))
+    tq, te, _ = TZ.zfp_transform(torch.from_numpy(x))
+    for rel in (1e-6, 1e-3):
+        eps = rel * rng
+        jt, tt = JZ.zfp_truncate(jq, je, eps), TZ.zfp_truncate(tq, te, eps)
+        assert TZ.zfp_size_bits(tt, te, eps) == float(
+            JZ.zfp_size_bits(jt, je, eps))
+        assert TC.get("zfp").cr(torch.from_numpy(x), eps) == \
+            JC.get("zfp").cr(jnp.asarray(x), eps)
+
+
+def test_zfp_size_total_on_volumes():
+    """3-D: a volume through both transforms, and 3-D coefficient
+    blocks (an odd count, 2.2e7 and 2.9e7 bits) straight into the size
+    model."""
+    vol = np.array(JS.volume("miranda-vx", shape=(12, 40, 44)))
+    for eps in (1e-5, 1e-3):
+        assert TC.get("zfp").cr(torch.from_numpy(vol), eps) == \
+            JC.get("zfp").cr(jnp.asarray(vol), eps)
+    rng = np.random.default_rng(12)
+    nb = 40001
+    q = (rng.integers(-2 ** 20, 2 ** 20, (nb, 4, 4, 4))
+         >> rng.integers(0, 20, (nb, 1, 1, 1))).astype(np.int32)
+    e = rng.integers(-3, 4, nb).astype(np.int32)
+    for eps in (1e-7, 1e-5):
+        want = float(JZ.zfp_size_bits(jnp.asarray(q), jnp.asarray(e), eps))
+        got = TZ.zfp_size_bits(torch.from_numpy(q), torch.from_numpy(e), eps)
+        assert got == want and want > 2 ** 24

@@ -147,6 +147,23 @@ def test_quality_sse_bit_equal_to_pallas_kernel():
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+@pytest.mark.parametrize("k, n, n_eps", [
+    (1, 130 * 70, 3),        # one slice, not a multiple of the tile
+    (3, 9101, 3),            # an odd length: slices 1, 2 start unaligned
+    (2, 4096 + 5, 11),       # 11 eps: two groups of the CUDA fold
+])
+def test_quality_sse_ragged_bit_equal_to_pallas_kernel(k, n, n_eps):
+    from repro.kernels.quality import quality as jq
+    x = _field(11 + k, (k, n), scale=0.3)
+    epss = np.geomspace(1e-3, 0.3, n_eps).astype(np.float32)
+    pad = (-n) % 2048
+    xp = np.concatenate([x, np.zeros((k, pad), np.float32)], axis=1)
+    xb = np.swapaxes(xp.reshape(k, -1, 8), 1, 2)
+    want = np.asarray(jq.qdq_sse_sweep(jnp.asarray(xb), jnp.asarray(epss)))
+    got = tqual.qdq_sse_sweep(torch.from_numpy(x), torch.from_numpy(epss)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_quality_tensor_bit_equal(use_kernel):
     from repro.kernels.quality import ops as jq
@@ -208,6 +225,18 @@ def test_lorenzo2d_bit_equal_to_pallas_kernel(shape):
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(
             tlor_ref.lorenzo2d(torch.from_numpy(x), eps).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 37), (37, 1), (33, 131)])
+def test_lorenzo2d_ragged_shapes_bit_equal(shape):
+    """One element, one row, one column, and n % 4 != 0 with rows that
+    are not a multiple of the CUDA kernel's strip: its scalar edge path."""
+    from repro.kernels.lorenzo import ops as jlor
+    x = _field(13, shape, scale=0.05)
+    for eps in (3.7e-4, 0.05):
+        want = np.asarray(jlor.lorenzo2d(jnp.asarray(x), eps))
+        got = tlor.lorenzo2d(torch.from_numpy(x), eps).numpy()
+        np.testing.assert_array_equal(got, want)
 
 
 def test_lorenzo2d_rejects_bad_input():
@@ -305,13 +334,22 @@ def test_cuda_kernel_matches_plain_version(kernel):
             assert torch.equal(got, tqent_ref.qent_histogram_sweep(inp, e, bins))
     elif kernel == "quality":
         flat = x.reshape(3, -1)
-        got = tqual.qdq_sse_sweep(flat, epss)
-        assert torch.equal(got, tqual_ref.sse_sweep(flat, epss))
+        # a whole tile multiple, a ragged length with unaligned slices,
+        # and 11 eps (two groups of the fold)
+        more = torch.cat([epss, epss * 0.37, epss[:2] * 5.0])
+        for inp, e in ((flat, epss), (flat.reshape(-1)[:3 * 9101].view(3, 9101),
+                                      epss), (flat, more)):
+            got = tqual.qdq_sse_sweep(inp, e)
+            assert torch.equal(got, tqual_ref.sse_sweep(inp, e))
     elif kernel == "lorenzo":
-        for eps in (1e-3, 3.7e-4):
-            got = tlor.lorenzo2d(x[0], eps)
-            assert torch.equal(got, tlor_ref.lorenzo2d(x[0], eps))
-            assert torch.equal(got.cpu(), tlor.lorenzo2d(x[0].cpu(), eps))
+        flat = x.reshape(-1)
+        ragged = [flat[:a * b].view(a, b) for a, b in
+                  ((1, 1), (1, 37), (37, 1), (33, 131), (33, 132))]
+        for inp in [x[0], flat[1:1 + 130 * 68].view(130, 68)] + ragged:
+            for eps in (1e-3, 3.7e-4):
+                got = tlor.lorenzo2d(inp, eps)
+                assert torch.equal(got, tlor_ref.lorenzo2d(inp, eps))
+                assert torch.equal(got.cpu(), tlor.lorenzo2d(inp.cpu(), eps))
     else:
         planted = torch.from_numpy(_planted(128, 68, 1)).cuda()
         for inp in (x[0] * 1e-3, x[1, :129, :69], planted):
