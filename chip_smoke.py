@@ -37,7 +37,33 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               launch counter must be above 0, and gram's, q-ent's and
               quality's are also read by shape, one per timed row;
 6. held-out MedAPE of predicted against measured CRs, per compressor,
-   and UC2 agreement with the measured best of 8.
+   and UC2 agreement with the measured best of 8;
+7. bits      -- sz2's and sz3-regression's codes on the card against their
+              CPU route on a held-out slice (bit-equal), and a slice with
+              planted subnormals: the entry points read them as zeros, as
+              XLA on the CPU does, and every kernel equals its plain
+              version on the card and on the CPU (given the slice as the
+              entry points flush it; Lorenzo, which needs no flush, the
+              raw slice);
+8. Table 5   -- the prior methods (block sampling, Lu et al.'s model,
+              OptZConfig's warm-start probe) against our k-fold spline
+              on the 40 cesm-cloud slices at their eps (sz2), MedAPE each;
+9. Table 3   -- LASSO importances of [q-ent, svd/sigma, interaction] on
+              those 40 and on 24 scale-pressure slices at 1200 x 1200;
+10. Fig 5    -- Gaussian fields of types 1-4, 20 samples each at 1028 x
+              1028, eps 1e-3: k-fold MedAPE for sz2, zfp, mgard,
+              digitrounding and bitgrooming;
+11. Table 4  -- 12 miranda-vx volumes at 256 x 384 x 384: one rank-4
+              sweep on the q-ent kernel route (checked against the sort
+              route), the five STUDY_3D CRs per volume, k-fold MedAPE per
+              compressor, TTHRESH's RMSE against its eps;
+12. study kernels -- the kernels at every new shape phases 8-11 launched
+              them with, against their plain versions, timed.
+Phases 5 and 8-11 each set the kernels' launch counters to 0 just before
+they run and read them just after; a kernel a phase needs that it did
+not launch fails the run.  A kernel row's ``launches`` is the count of
+the first of these paths that launched its shape (the main path where it
+did), and ``launches_by_path`` gives each path's own count.
 
 ``--profile`` traces the main path with ``torch.profiler`` (a separate
 run: tracing slows the host side) and reports the device's busy time.
@@ -62,6 +88,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FIELD = "cesm-cloud"
 N_TRAIN, N_TEST = 32, 8
+# the studies after the main path (counts may be cut, widths never)
+SCALE_FIELD, N_SCALE = "scale-pressure", 24        # Table 3, at full_n
+GAUSS_N, N_GAUSS, GAUSS_EPS = 1028, 20, 1e-3        # Fig 5, the paper's size
+GAUSS_COMPRESSORS = ["sz2", "zfp", "mgard", "digitrounding", "bitgrooming"]
+VOL_FIELD, N_VOL, VOL_SHAPE = "miranda-vx", 12, (256, 384, 384)   # Table 4
+VOL_EB_REL = 1e-2
+PLANT_EBS = (1e-5, 1e-3, 256.0)     # 256: quotients of tiny normals underflow
 QENT_BINS = 65536
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
@@ -129,41 +162,60 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
-def gram_row(torch, x, reps, cold=False):
-    """gram_batched on a (k, 1800, 1800) stack of mean-corrected slices
-    (what svd_trunc_batch hands it): within rtol 2e-5 / atol 2e-3 of
-    the float64 plain version, the same bits on two launches, timed
-    beside the library product (``torch.bmm``, ``torch.mm`` at k = 1)."""
+def gram_row(torch, x, reps, cold=False, transpose=True, scaled=False):
+    """gram_batched on a (k, m, n) stack as its callers hand it (mean-
+    corrected slices, X^T X; a volume's mode unfoldings, X X^T): within
+    rtol 2e-5 / atol 2e-3 of the float64 plain version, the same bits on
+    two launches, timed beside the library product (``torch.bmm``,
+    ``torch.mm`` at k = 1), whose own max abs error against the plain
+    version is logged beside the kernel's.  ``scaled``: an entry's rtol is taken of its
+    Cauchy-Schwarz scale sqrt(G_ii G_jj), the size of the terms it sums,
+    not of itself: a mean-corrected unfolding of 147 456 columns leaves
+    off-diagonal entries that cancel to near 0 with a float32 rounding
+    error of that scale, in any order of the sums."""
     from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
     k, m, n = x.shape
-    got = gram_ops.gram_batched(x)
-    again = gram_ops.gram_batched(x)
-    want = gram_ref.gram_xtx_batched(x)
+    got = gram_ops.gram_batched(x, transpose)
+    again = gram_ops.gram_batched(x, transpose)
+    want = (gram_ref.gram_xtx_batched(x) if transpose
+            else gram_ref.gram_xxt_batched(x))
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=2e-5, atol=2e-3):
-        raise AssertionError(f"gram kernel disagrees at {(k, m, n)}: "
-                             f"max abs err {err}")
+    ref = want.abs()
+    if scaled:
+        d = torch.diagonal(want, dim1=1, dim2=2).clamp(min=0).sqrt()
+        ref = d[:, :, None] * d[:, None, :]
+    if not bool(((got - want).abs() <= 2e-3 + 2e-5 * ref).all()):
+        raise AssertionError(f"gram kernel disagrees at {(k, m, n)} "
+                             f"transpose={transpose}: max abs err {err}")
     if not torch.equal(got, again):
         raise AssertionError(f"gram kernel bits differ between launches "
-                             f"at {(k, m, n)}")
-    del got, again, want
-    b_ms, b_by = bound(4.0 * (k * m * n + k * n * n), k * m * n * (n + 1.0))
+                             f"at {(k, m, n)} transpose={transpose}")
     xt = x.transpose(1, 2)
-    library = ((lambda: torch.mm(xt[0], x[0])) if k == 1
-               else (lambda: torch.bmm(xt, x)))
+    a, b = (xt, x) if transpose else (x, xt)
+    library = ((lambda: torch.mm(a[0], b[0])[None]) if k == 1
+               else (lambda: torch.bmm(a, b)))
+    lib_err = float((library() - want).abs().max())
+    del got, again, want
+    out, inner = (n, m) if transpose else (m, n)
+    b_ms, b_by = bound(4.0 * (k * m * n + k * out * out),
+                       k * inner * out * (out + 1.0))
     timer = cold_cuda_ms if cold else cuda_ms
-    log(f"check gram_batched ({k}, {m}, {n}): max abs err {err:.3g}, "
-        "same bits on two launches")
+    what = "X^T X" if transpose else "X X^T"
+    log(f"check gram_batched ({k}, {m}, {n}) {what}: max abs err {err:.3g} "
+        f"(the library product's: {lib_err:.3g}), same bits on two launches")
     return dict(
-        name=f"gram_batched ({k}, {m}, {n})", route="cuda",
-        source="src/repro_torch/csrc/gram.cu",
+        name=f"gram_batched ({k}, {m}, {n})" + ("" if transpose else " X X^T"),
+        route="cuda", source="src/repro_torch/csrc/gram.cu",
         replaces=("src/repro/kernels/gram/gram.py:42" if k == 1
                   else "src/repro/kernels/gram/gram.py:82"),
-        shape=(k, m, n, True), max_abs_err=err,
-        tolerance="rtol 2e-5, atol 2e-3",
-        ms=timer(torch, lambda: gram_ops.gram_batched(x), reps),
-        plain_ms=timer(torch, lambda: gram_ref.gram_xtx_batched(x), 2),
+        shape=(k, m, n, transpose), max_abs_err=err,
+        library_max_abs_err=lib_err,
+        tolerance=("2e-5 sqrt(G_ii G_jj) + 2e-3" if scaled
+                   else "rtol 2e-5, atol 2e-3"),
+        ms=timer(torch, lambda: gram_ops.gram_batched(x, transpose), reps),
+        plain_ms=timer(torch, lambda: (gram_ref.gram_xtx_batched(x) if transpose
+                                       else gram_ref.gram_xxt_batched(x)), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timer(torch, library, reps))
 
@@ -383,7 +435,7 @@ def check_lorenzo(torch, test, ebs_t):
         name="lorenzo2d", route="cuda",
         source="src/repro_torch/csrc/lorenzo.cu",
         replaces="src/repro/kernels/lorenzo/lorenzo.py:61",
-        max_abs_err=0.0, tolerance="bit-equal",
+        shape=(m, n), max_abs_err=0.0, tolerance="bit-equal",
         ms=cold_cuda_ms(torch, lambda: lor_ops.lorenzo2d(x, eps), 50),
         plain_ms=cold_cuda_ms(torch, lambda: lor_ref.lorenzo2d(x, eps), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -427,15 +479,22 @@ def check_zfp(torch, test):
                 f"zfp kernel differs on input {i}: "
                 f"{int((coef != coef_p).sum())} coefficients, "
                 f"{int((exps != exps_p).sum())} exponents")
-    x = test[0]
-    b_ms, b_by = bound((8.0 + 0.25) * m * n, 8.0 * m * n)
     log(f"check zfp_forward2d {len(inputs)} x ({m}, {n}) (the last with "
         "planted powers of two): coefficients and exponents bit-equal")
+    return zfp_row(torch, test[0])
+
+
+def zfp_row(torch, x):
+    """zfp_forward2d timed cold on one (m, n) slice, as a zfp encode of a
+    slice calls it, beside its plain version."""
+    from repro_torch.kernels.zfp_block import ops as zfp_ops, ref as zfp_ref
+    m, n = x.shape
+    b_ms, b_by = bound((8.0 + 0.25) * m * n, 8.0 * m * n)
     return dict(
-        name="zfp_forward2d", route="cuda",
-        source="src/repro_torch/csrc/zfp_block.cu",
+        name="zfp_forward2d" + ("" if m == 1800 else f" ({m}, {n})"),
+        route="cuda", source="src/repro_torch/csrc/zfp_block.cu",
         replaces="src/repro/kernels/zfp_block/zfp_block.py:80",
-        max_abs_err=0.0, tolerance="bit-equal",
+        shape=(m, n), max_abs_err=0.0, tolerance="bit-equal",
         ms=cold_cuda_ms(torch, lambda: zfp_ops.zfp_forward2d(x), 50),
         plain_ms=cold_cuda_ms(torch, lambda: zfp_ref.zfp_forward2d(x), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -516,6 +575,285 @@ def check_qent_routes(torch, P, test, ebs):
     return dict(zip(map(float, ebs), diff))
 
 
+# ---------------------------------------------------------------------------
+# launch windows and the studies after the main path
+# ---------------------------------------------------------------------------
+
+def kernel_fns():
+    """name -> the wrapper whose counters (``launches``, ``by_shape``)
+    count its kernel's launches."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.lorenzo import ops as lor_ops
+    from repro_torch.kernels.qent import ops as qent_ops
+    from repro_torch.kernels.quality import ops as q_ops
+    from repro_torch.kernels.zfp_block import ops as zfp_ops
+    return {"gram_batched": gram_ops.gram_batched,
+            "qent_histogram_sweep": qent_ops.qent_histogram_sweep,
+            "qdq_sse_sweep": q_ops.qdq_sse_sweep,
+            "lorenzo2d": lor_ops.lorenzo2d,
+            "zfp_forward2d": zfp_ops.zfp_forward2d}
+
+
+def zero_counts(torch):
+    torch.cuda.synchronize()
+    for fn in kernel_fns().values():
+        fn.launches = 0
+        fn.by_shape.clear()
+
+
+def read_counts(torch, phase: str, needs) -> dict:
+    """The launches of a phase just run, by kernel and by shape; raises
+    if a kernel the phase runs was launched no time."""
+    torch.cuda.synchronize()
+    counts = {name: {"launches": fn.launches, "by_shape": dict(fn.by_shape)}
+              for name, fn in kernel_fns().items()}
+    missing = [n for n in needs if counts[n]["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"{phase} never launched {missing}")
+    log(f"{phase}: launches " + json.dumps(
+        {n: {str(k): v for k, v in c["by_shape"].items()}
+         for n, c in counts.items() if c["launches"]}))
+    return counts
+
+
+def check_regression_bits(torch, C, x, eps):
+    """sz2 and sz3-regression on the card against their CPU route on one
+    slice: codes, plane codes and block choices bit-equal, the same CR."""
+    host = x.cpu()
+    for name in ("sz2", "sz3-regression"):
+        comp = C.get(name)
+        codes, aux = comp.encode(x, eps)
+        codes_h, aux_h = comp.encode(host, eps)
+        pairs = [(codes, codes_h), (aux["coef_codes"], aux_h["coef_codes"])]
+        if "use_reg" in aux:
+            pairs.append((aux["use_reg"], aux_h["use_reg"]))
+        for got, want in pairs:
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(
+                    f"{name} on the card differs from the CPU on "
+                    f"{int((got.cpu() != want).sum())} codes")
+        cr, cr_h = comp.cr(x, eps), comp.cr(host, eps)
+        if cr != cr_h:
+            raise AssertionError(f"{name} CR {cr} on the card, {cr_h} on the CPU")
+        log(f"check {name} {tuple(x.shape)} at eps {eps:.3g}: codes, plane "
+            f"codes and CR ({cr:.6f}) bit-equal on the card and the CPU")
+
+
+def planted_subnormals(torch, x):
+    """(2, m, n): ``x`` with planted +-subnormals, +-values in [1e-22,
+    1e-19] (squares subnormal) and +-values just above the smallest
+    normal (quotients by 256 subnormal), and a slice of zeros holding a
+    few of each."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    m, n = x.shape
+    flat = x.reshape(-1).clone()
+    third = min(9600, m * n // 8)
+    idx = torch.randperm(m * n, generator=g, device="cuda")[:3 * third]
+
+    def signs(k):
+        return torch.where(torch.rand(k, generator=g, device="cuda") < 0.5,
+                           -1.0, 1.0)
+
+    sub = torch.randint(1, 2 ** 23, (third,), generator=g, device="cuda",
+                        dtype=torch.int32).view(torch.float32)
+    tiny = 10.0 ** (-22.0 + 3.0 * torch.rand(third, generator=g, device="cuda"))
+    low = 2.0 ** (-126.0 + 7.0 * torch.rand(third, generator=g, device="cuda"))
+    vals = torch.cat([sub * signs(third), tiny * signs(third),
+                      low * signs(third)])
+    flat[idx] = vals
+    zeros = torch.zeros_like(flat)
+    few = third // 16
+    keep = torch.cat([idx[:few], idx[third:third + few],
+                      idx[2 * third:2 * third + few]])
+    zeros[keep] = flat[keep]
+    return torch.stack([flat.view(m, n), zeros.view(m, n)])
+
+
+def check_planted(torch, x):
+    """Every kernel against its plain version on the planted slices, on
+    the card and (the plain version) on the CPU: q-ent histograms, the
+    quality SSE and tensor and the ZFP transform of the slices as the
+    entry points flush them, Lorenzo codes (which need no flush, and
+    ``baselines.lu_model`` does not flush) of the raw slices."""
+    from repro_torch.kernels.lorenzo import ops as lor_ops, ref as lor_ref
+    from repro_torch.kernels.qent import ops as qent_ops, ref as qent_ref
+    from repro_torch.kernels.quality import ops as q_ops, ref as q_ref
+    from repro_torch.kernels.zfp_block import ops as zfp_ops, ref as zfp_ref
+    from repro_torch.core import predictors
+    from repro_torch.quant import flush_subnormals
+    planted = planted_subnormals(torch, x)
+    host = planted.cpu()
+    k = planted.shape[0]
+    flushed, flushed_h = flush_subnormals(planted), flush_subnormals(host)
+    flat, flat_h = flushed.reshape(k, -1), flushed_h.reshape(k, -1)
+    ebs = torch.tensor(PLANT_EBS, dtype=torch.float32, device="cuda")
+    ebs_h = ebs.cpu()
+
+    def same(what, got, *wants):
+        for want in wants:
+            if not torch.equal(got.cpu(), want.cpu()):
+                raise AssertionError(f"planted subnormals: {what} differs on "
+                                     f"{int((got.cpu() != want.cpu()).sum())} "
+                                     "values")
+
+    same("q-ent histograms", qent_ops.qent_histogram_sweep(flat, ebs, QENT_BINS),
+         qent_ref.qent_histogram_sweep(flat, ebs, QENT_BINS),
+         qent_ref.qent_histogram_sweep(flat_h, ebs_h, QENT_BINS))
+    same("quality SSE", q_ops.qdq_sse_sweep(flat, ebs),
+         q_ref.sse_sweep(flat, ebs), q_ref.sse_sweep(flat_h, ebs_h))
+    same("quality tensor", q_ops.quality_sweep(flat, ebs),
+         q_ops.quality_sweep(flat_h, ebs_h))
+    same("quality tensor from the raw slices through the entry point",
+         predictors.quality_sweep(planted, ebs),
+         predictors.quality_sweep(host, ebs_h))
+    for i in range(k):
+        for eps in PLANT_EBS[:2]:
+            same("Lorenzo codes", lor_ops.lorenzo2d(planted[i], eps),
+                 lor_ref.lorenzo2d(planted[i], eps),
+                 lor_ref.lorenzo2d(host[i], eps))
+        for got, want, want_h in zip(zfp_ops.zfp_forward2d(flushed[i]),
+                                     zfp_ref.zfp_forward2d(flushed[i]),
+                                     zfp_ref.zfp_forward2d(flushed_h[i])):
+            same("ZFP transform", got, want, want_h)
+    log(f"check planted subnormals {tuple(planted.shape)} at eps {PLANT_EBS}: "
+        "q-ent histograms, quality SSE and tensor (also through the entry "
+        "point), Lorenzo codes and ZFP transform of every kernel equal to "
+        "the plain version on the card and on the CPU")
+
+
+def medape(pred, true) -> float:
+    return float(np.median(100.0 * np.abs(np.asarray(pred) - np.asarray(true))
+                           / np.asarray(true)))
+
+
+def study_table5(torch, data, eps, cfg, card):
+    """Table 5 on sz2: our k-fold spline on every slice against block
+    sampling and Lu et al.'s model on every third slice and OptZConfig's
+    probe on every third from the second, warm-started on the slice half
+    the stack away (benchmarks/bench_prior.py's choices)."""
+    from repro_torch import compressors as C
+    from repro_torch.core import baselines as B, pipeline as PL
+    from repro_torch.core import predictors as P
+    from repro_torch.dist import sweep as DS
+    count = data.shape[0]
+    feats = P.get_engine(cfg).features(data, eps)
+    crs = DS.training_crs(C.get("sz2"), data, [eps])[:, 0]
+    out = {"ours": PL.kfold_evaluate(feats.cpu(), crs, "spline", 8).medape}
+    sample = range(0, count, 3)
+    out["block_sampling"] = medape(
+        [B.block_sampling(data[i], eps) for i in sample], crs[list(sample)])
+    out["lu_model"] = medape([B.lu_model(data[i], eps) for i in sample],
+                             crs[list(sample)])
+    probe = range(1, count, 3)
+    out["optzconfig"] = medape(
+        [B.optzconfig_probe(data[(i + count // 2) % count], eps) for i in probe],
+        crs[list(probe)])
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"Table 5: non-finite MedAPE {out}")
+    log(f"Table 5 ({FIELD} {tuple(data.shape)}, sz2, eps {eps:.3g}) MedAPE % "
+        + json.dumps({k: round(v, 3) for k, v in out.items()}), card)
+    return out, feats, crs
+
+
+def study_table3(torch, feats, crs, cfg, card):
+    """Table 3: LASSO importances (k = 6) on the cesm-cloud slices and on
+    N_SCALE scale-pressure slices at their Table-1 edge, sz2's CRs."""
+    from repro_torch import compressors as C
+    from repro_torch.core import predictors as P, regression as R
+    from repro_torch.data import scientific as TS
+    from repro_torch.dist import sweep as DS
+    out = {FIELD: R.lasso_importance(feats, crs, k=6).cpu().tolist()}
+    spec = TS.FIELDS[SCALE_FIELD]
+    scale = TS.field_slices(SCALE_FIELD, count=N_SCALE, n=spec.full_n, seed=0,
+                            device="cuda")
+    eps = spec.eps * float(scale.amax() - scale.amin())
+    sfeats = P.get_engine(cfg).features(scale, eps)
+    scrs = DS.training_crs(C.get("sz2"), scale, [eps])[:, 0]
+    out[SCALE_FIELD] = R.lasso_importance(sfeats, scrs, k=6).cpu().tolist()
+    for v in out.values():
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"Table 3: non-finite importance {out}")
+    log("Table 3 LASSO |coef| [q-ent, svd/sigma, interaction] " + json.dumps(
+        {k: [round(x, 4) for x in v] for k, v in out.items()})
+        + f" (scale-pressure {tuple(scale.shape)}, eps {eps:.3g})", card)
+    return out, scale, eps
+
+
+def study_fig5(torch, cfg, card):
+    """Fig 5: per Gaussian type, N_GAUSS samples at GAUSS_N, one sweep,
+    the five compressors' CRs and their k-fold spline MedAPE."""
+    from repro_torch import compressors as C
+    from repro_torch.core import pipeline as PL, predictors as P
+    from repro_torch.data import gaussian as G
+    from repro_torch.dist import sweep as DS
+    out = {}
+    for stype in (1, 2, 3, 4):
+        slices = G.sample_batch(stype, N_GAUSS, GAUSS_N, seed=stype,
+                                device="cuda")
+        feats = P.get_engine(cfg).features(slices, GAUSS_EPS).cpu()
+        for name in GAUSS_COMPRESSORS:
+            crs = DS.training_crs(C.get(name), slices, [GAUSS_EPS])[:, 0]
+            out[f"type{stype}|{name}"] = PL.kfold_evaluate(
+                feats, crs, "spline", 8).medape
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"Fig 5: non-finite MedAPE {out}")
+    log(f"Fig 5 ({N_GAUSS} x {GAUSS_N}^2 per type, eps {GAUSS_EPS}) MedAPE % "
+        + json.dumps({k: round(v, 3) for k, v in out.items()}), card)
+    return out, slices
+
+
+def study_table4(torch, cfg, card):
+    """Table 4: N_VOL miranda-vx volumes of VOL_SHAPE, one rank-4 sweep on
+    the q-ent kernel route (checked against the exact sort route), the
+    five STUDY_3D CRs per volume, k-fold MedAPE, TTHRESH's RMSE."""
+    from repro_torch import compressors as C
+    from repro_torch.core import pipeline as PL, predictors as P
+    from repro_torch.data import scientific as TS
+    from repro_torch.dist import sweep as DS
+    vols = torch.stack([TS.volume(VOL_FIELD, VOL_SHAPE, seed=s, device="cuda")
+                        for s in range(N_VOL)])
+    eps = VOL_EB_REL * float(vols.amax() - vols.amin())
+    feats = P.features_sweep(vols, [eps], cfg)[:, 0]
+    exact = P.features_sweep(vols, [eps], P.PredictorConfig())[:, 0]
+    diff = float((feats - exact).abs().max())
+    if diff > 1e-5:
+        raise AssertionError(f"Table 4: q-ent kernel route differs from the "
+                             f"sort route by {diff}")
+    out, crs_all = {}, {}
+    for name in C.STUDY_3D:
+        crs = DS.training_crs(C.get(name), vols, [eps])[:, 0]
+        crs_all[name] = crs.tolist()
+        out[name] = PL.kfold_evaluate(feats.cpu(), crs, "spline", 8).medape
+    rmse = C.get("tthresh").roundtrip_error(vols[0], eps)
+    if not rmse <= 1.05 * eps:
+        raise AssertionError(f"TTHRESH RMSE {rmse} above 1.05 eps ({eps})")
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"Table 4: non-finite MedAPE {out}")
+    log(f"Table 4 ({VOL_FIELD} {tuple(vols.shape)}, eps {eps:.4g}; kernel vs "
+        f"sort route {diff:.2g}) MedAPE % "
+        + json.dumps({k: round(v, 3) for k, v in out.items()})
+        + f"; mean CR " + json.dumps({k: round(float(np.mean(v)), 3)
+                                      for k, v in crs_all.items()})
+        + f"; TTHRESH RMSE / eps {rmse / eps:.4f}", card)
+    return out, vols, eps, {"crs": crs_all, "tthresh_rmse_over_eps": rmse / eps,
+                            "route_diff": diff}
+
+
+def study_rows(torch, inputs):
+    """Phase 12: gram, q-ent and zfp at the shapes the studies launched
+    them with, each against its plain version and timed."""
+    rows = []
+    for x, transpose in inputs["gram"]:
+        rows.append(gram_row(torch, x, 5, transpose=transpose,
+                             scaled=not transpose))
+    for flat, eps_t in inputs["qent"]:
+        rows.append(qent_row(torch, flat, eps_t, 5))
+    for x in inputs["zfp"]:
+        rows.append(zfp_row(torch, x))
+    return rows
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -536,11 +874,6 @@ def main(argv=None) -> int:
     from repro_torch.data import scientific as TS
     from repro_torch.dist import sweep as DS
     from repro_torch.kernels import _build
-    from repro_torch.kernels.gram import ops as gram_ops
-    from repro_torch.kernels.lorenzo import ops as lor_ops
-    from repro_torch.kernels.qent import ops as qent_ops
-    from repro_torch.kernels.quality import ops as q_ops
-    from repro_torch.kernels.zfp_block import ops as zfp_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -583,17 +916,7 @@ def main(argv=None) -> int:
     qent_routes = check_qent_routes(torch, P, train, ebs)
 
     # ---- phase 5: the main path, counters read around it
-    counters = {"gram_batched": gram_ops.gram_batched,
-                "qent_histogram_sweep": qent_ops.qent_histogram_sweep,
-                "qdq_sse_sweep": q_ops.qdq_sse_sweep,
-                "lorenzo2d": lor_ops.lorenzo2d,
-                "zfp_forward2d": zfp_ops.zfp_forward2d}
-    for fn in counters.values():
-        fn.launches = 0
-    by_shape_fns = ("gram_batched", "qent_histogram_sweep", "qdq_sse_sweep")
-    for name in by_shape_fns:
-        counters[name].by_shape.clear()
-    torch.cuda.synchronize()
+    zero_counts(torch)
     prof = None
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -626,29 +949,12 @@ def main(argv=None) -> int:
     stages["uc3_s"] = time.perf_counter() - t
     torch.cuda.synchronize()
     stages["main_path_s"] = time.perf_counter() - t_main
-    launches = {name: fn.launches for name, fn in counters.items()}
-    by_shape = {name: dict(counters[name].by_shape) for name in by_shape_fns}
+    counts = {"main path": read_counts(torch, "main path", kernel_fns())}
     profiled = None
     if prof is not None:
         prof.__exit__(None, None, None)
         profiled = profile_summary(torch, prof, stages["main_path_s"], smi)
-    log(f"main path: {stages['main_path_s']:.2f} s; launches {launches}; "
-        f"by shape {by_shape}", smi)
-    missing = [name for name, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    for row in kernels:
-        shape = row.pop("shape", None)
-        kernel = row["name"].split(" ")[0]
-        row["launches"] = (launches[kernel] if shape is None
-                           else by_shape[kernel].get(shape, 0))
-        lib = row["library_ms"]
-        log(f"kernel {row['name']}: max abs err {row['max_abs_err']:.3g} "
-            f"({row['tolerance']}); {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
-            f"{row['launches']} launches on the main path", smi)
+    log(f"main path: {stages['main_path_s']:.2f} s", smi)
 
     # ---- phase 6: held-out MedAPE (measured CRs run the compressors)
     t = time.perf_counter()
@@ -697,6 +1003,83 @@ def main(argv=None) -> int:
     log(f"UC3 PSNR >= {psnr_floor:.2f} dB and CR >= 2: feasible on "
         f"{feasible}/{N_TEST} slices, picks "
         f"{sorted({s.compressor for s in uc3})}")
+
+    # ---- phase 7: sz2/sz3-regression card vs CPU; planted subnormals
+    eps = float(ebs[1])
+    t = time.perf_counter()
+    check_regression_bits(torch, C, test[0], eps)
+    check_planted(torch, test[0])
+    stages["bits_checks_s"] = time.perf_counter() - t
+
+    # ---- phases 8-11: the paper's studies, counters read around each
+    studies = {}
+    zero_counts(torch)
+    t = time.perf_counter()
+    studies["table5"], feats40, crs40 = study_table5(torch, data, eps,
+                                                     kernel_cfg, smi)
+    stages["table5_s"] = time.perf_counter() - t
+    counts["Table 5"] = read_counts(torch, "Table 5", (
+        "gram_batched", "qent_histogram_sweep", "lorenzo2d"))
+    zero_counts(torch)
+    t = time.perf_counter()
+    studies["table3"], scale, scale_eps = study_table3(torch, feats40, crs40,
+                                                       kernel_cfg, smi)
+    stages["table3_s"] = time.perf_counter() - t
+    counts["Table 3"] = read_counts(torch, "Table 3", (
+        "gram_batched", "qent_histogram_sweep"))
+    zero_counts(torch)
+    t = time.perf_counter()
+    studies["fig5"], gauss = study_fig5(torch, kernel_cfg, smi)
+    stages["fig5_s"] = time.perf_counter() - t
+    counts["Fig 5"] = read_counts(torch, "Fig 5", (
+        "gram_batched", "qent_histogram_sweep", "zfp_forward2d"))
+    zero_counts(torch)
+    t = time.perf_counter()
+    studies["table4"], vols, vol_eps, studies["table4_detail"] = study_table4(
+        torch, kernel_cfg, smi)
+    stages["table4_s"] = time.perf_counter() - t
+    counts["Table 4"] = read_counts(torch, "Table 4", (
+        "gram_batched", "qent_histogram_sweep"))
+
+    # ---- phase 12: the kernels at the studies' shapes
+    t = time.perf_counter()
+
+    def centred(x):
+        return x - x.mean(dim=1, keepdim=True)
+
+    vc = vols - vols.mean(dim=(1, 2, 3), keepdim=True)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    kernels += study_rows(torch, {
+        "gram": [(centred(data), True), (centred(scale), True),
+                 (centred(gauss), True), (vc.reshape(N_VOL, VOL_SHAPE[0], -1),
+                                          False),
+                 (torch.movedim(vc, 2, 1).reshape(N_VOL, VOL_SHAPE[1], -1),
+                  False)],
+        "qent": [(data.reshape(data.shape[0], -1), torch.tensor([eps], **f32)),
+                 (scale.reshape(N_SCALE, -1), torch.tensor([scale_eps], **f32)),
+                 (gauss.reshape(N_GAUSS, -1), torch.tensor([GAUSS_EPS], **f32)),
+                 (vols.reshape(N_VOL, -1), torch.tensor([vol_eps], **f32))],
+        "zfp": [gauss[0]]})
+    stages["study_kernels_s"] = time.perf_counter() - t
+
+    # every row's launches in each path that launched its shape; its
+    # `launches` is the count of the first of them (the main path where it
+    # launched the shape), never a sum over paths
+    for row in kernels:
+        shape = row.pop("shape")
+        kernel = row["name"].split(" ")[0]
+        row["launches_by_path"] = {
+            p: c[kernel]["by_shape"][shape] for p, c in counts.items()
+            if c[kernel]["by_shape"].get(shape, 0)}
+        row["launches"] = next(iter(row["launches_by_path"].values()), 0)
+        lib = row["library_ms"]
+        log(f"kernel {row['name']}: max abs err {row['max_abs_err']:.3g} "
+            f"({row['tolerance']}); {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"launches by path {json.dumps(row['launches_by_path'])}", smi)
+
     log("stages s " + json.dumps({k: round(v, 3) for k, v in stages.items()}),
         smi)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -712,12 +1095,17 @@ def main(argv=None) -> int:
             uc1_target=target, uc2_agree=uc2_agree, uc2_best=best_true,
             uc2_pick=[p for p, _ in uc2], uc2_loss_pct=uc2_loss,
             measured_crs=measured.tolist(),
-            uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled),
+            uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
+            studies=studies, launches_by_path={
+                p: {n: {"launches": c["launches"],
+                        "by_shape": {str(k): v for k, v in c["by_shape"].items()}}
+                    for n, c in cs.items()} for p, cs in counts.items()}),
             indent=1))
     log(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms",
-                             "bound_ms", "bound_by", "library_ms")}
+                             "launches", "launches_by_path", "max_abs_err",
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}
         for row in kernels]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,11 @@ Every compressor exposes:
 
 Decorrelation and quantization run on the data's device; the entropy
 stage runs on the host (``lossless``), as real compressor pipelines do.
+``encode`` reads a subnormal value as a zero of its sign, as the
+reference's float32 operations do (``quant.flush_subnormals``), unless
+the compressor codes the data's bit patterns themselves
+(``reads_bits``), which the reference's integer operations leave as
+they are.  Subclasses implement ``_encode``.
 """
 from __future__ import annotations
 
@@ -16,15 +21,23 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.quant import flush_subnormals
 from repro_torch.quant import scalar  # noqa: F401  (its callers' name)
 
 
 class Compressor(abc.ABC):
     name: str = "base"
     supports_3d: bool = True
+    reads_bits: bool = False
+
+    def encode(self, data: torch.Tensor, eps: float) -> Tuple[Any, Dict[str, Any]]:
+        """Decorrelate and quantize: (codes, aux)."""
+        data = data.to(torch.float32)
+        return self._encode(data if self.reads_bits
+                            else flush_subnormals(data), eps)
 
     @abc.abstractmethod
-    def encode(self, data: torch.Tensor, eps: float) -> Tuple[Any, Dict[str, Any]]:
+    def _encode(self, data: torch.Tensor, eps: float) -> Tuple[Any, Dict[str, Any]]:
         ...
 
     @abc.abstractmethod
@@ -42,9 +55,11 @@ class Compressor(abc.ABC):
         return float(data.numel() * 4) / max(size, 1)
 
     def roundtrip_error(self, data: torch.Tensor, eps: float) -> float:
+        """Max abs error of the reconstruction, subnormals read as zeros."""
         codes, aux = self.encode(data, eps)
-        recon = self.decode(codes, aux, eps)
-        return float(torch.max(torch.abs(recon - data)))
+        recon = flush_subnormals(self.decode(codes, aux, eps))
+        data = flush_subnormals(data.to(torch.float32))
+        return float(torch.max(torch.abs(flush_subnormals(recon - data))))
 
 
 def error_bound_slack(data: torch.Tensor) -> float:

@@ -45,8 +45,7 @@ class MGARD(base.Compressor):
     name = "mgard"
     levels = 4
 
-    def encode(self, data, eps):
-        data = data.to(torch.float32)
+    def _encode(self, data, eps):
         fines, shapes = [], []
         cur = data
         for _ in range(self.levels):

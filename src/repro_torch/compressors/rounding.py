@@ -21,6 +21,7 @@ class BitGrooming(base.Compressor):
     mantissa bits; the number of kept bits is global, derived from eps and
     the field's max exponent."""
     name = "bitgrooming"
+    reads_bits = True
 
     def _mask_bits(self, data: torch.Tensor, eps: float) -> torch.Tensor:
         amax = torch.max(torch.abs(data))
@@ -31,8 +32,7 @@ class BitGrooming(base.Compressor):
             23 + torch.floor(refmath.log2_f32(base.scalar(eps, data))) - emax,
             0, 23).to(torch.int32)
 
-    def encode(self, data, eps):
-        data = data.to(torch.float32)
+    def _encode(self, data, eps):
         k = self._mask_bits(data, eps)
         b = data.contiguous().view(torch.int32)
         mask = torch.bitwise_left_shift(
@@ -57,8 +57,7 @@ class DigitRounding(base.Compressor):
     binary digit: a grid of step exp2(floor(log2(eps)))."""
     name = "digitrounding"
 
-    def encode(self, data, eps):
-        data = data.to(torch.float32)
+    def _encode(self, data, eps):
         step = refmath.exp2_f32(
             torch.floor(refmath.log2_f32(base.scalar(eps, data))))
         rounded = torch.round(data / step) * step

@@ -17,8 +17,10 @@ in ``kernels.lorenzo.ref``; a 2-D slice's codes go through
 Every float32 step is the reference's own operation in its order; the
 error-bound scalars (``2 eps``, ``eps / BLOCK``) are float64 values
 rounded once to float32, as the reference's Python scalars are.  The
-one library step whose float32 bits differ from the reference is the
-regression fit (``pinv`` and the ``y @ pinv.T`` product).
+regression fit takes the reference's float32 pseudo-inverse
+(``_sz_design``) and forms ``y @ pinv.T`` in the order of XLA's CPU
+dot, so the codes and CRs of sz2 and sz3-regression are the
+reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.compressors import base, lossless
+from repro_torch.compressors import _sz_design, base, lossless
 from repro_torch.kernels.lorenzo import ops as lorenzo_ops
 from repro_torch.kernels.lorenzo.ref import (  # noqa: F401  (also sz's API)
     lorenzo_encode, quantize_bounded)
@@ -87,19 +89,37 @@ def _block_coords(b: int, ndim: int, device=None) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _design_pinv(b: int, ndim: int, device: torch.device) -> torch.Tensor:
-    """The pseudo-inverse of the fixed design matrix, taken once per
-    (block size, rank, device) in float64 and rounded once to float32,
-    so it is the same on every device."""
-    x = _block_coords(b, ndim).to(torch.float64)
-    return torch.linalg.pinv(x).to(torch.float32).to(device)
+    """The reference's float32 pseudo-inverse of the fixed design matrix,
+    (ndim + 1, b^ndim), from the committed bits of ``_sz_design``."""
+    return torch.from_numpy(_sz_design.TABLES[(b, ndim)].copy()).to(device)
+
+
+# XLA's CPU dot takes a plain FMA chain below these block counts (per
+# block rank) and four interleaved accumulators from them on; both
+# orders, and the thresholds, were found by search against ``jnp``.
+DOT_CHAIN_MAX_BLOCKS = {2: 3, 3: 1}
+DOT_ACCUMULATORS = 4
 
 
 def _fit_planes(blocks: torch.Tensor) -> torch.Tensor:
-    """Least-squares hyperplane per block: (nb, b..b) -> (nb, ndim+1),
-    the library's float32 matmul with :func:`_design_pinv`."""
-    pinv = _design_pinv(blocks.shape[1], blocks.ndim - 1, blocks.device)
-    y = blocks.reshape(blocks.shape[0], -1)                 # (nb, p)
-    return y @ pinv.T                                       # (nb, ndim+1)
+    """Least-squares hyperplane per block, (nb, b..b) -> (nb, ndim+1):
+    ``y @ pinv.T`` in XLA's CPU order, each term one exact float32 FMA.
+    Up to ``DOT_CHAIN_MAX_BLOCKS`` blocks, ``acc = fma(y_t, pinv_t, acc)``
+    over the terms t in order; above, term t goes to accumulator t % 4
+    and the result is ``(a0 + a1) + (a2 + a3)``."""
+    nb, ndim = blocks.shape[0], blocks.ndim - 1
+    pinv_t = _design_pinv(blocks.shape[1], ndim, blocks.device).T  # (p, c)
+    y = blocks.reshape(nb, -1)                               # (nb, p)
+    p, c = pinv_t.shape
+    lanes = 1 if nb <= DOT_CHAIN_MAX_BLOCKS.get(ndim, 0) else DOT_ACCUMULATORS
+    acc = torch.zeros((nb, lanes, c), dtype=torch.float32, device=y.device)
+    for t in range(0, p, lanes):
+        r = min(lanes, p - t)
+        acc[:, :r] = fma32(y[:, t:t + r, None].expand(-1, -1, c),
+                           pinv_t[None, t:t + r], acc[:, :r])
+    if lanes == 1:
+        return acc[:, 0]
+    return (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
 
 
 def _plane_values(coefs: torch.Tensor, b: int, ndim: int) -> torch.Tensor:
@@ -157,7 +177,7 @@ class SZLorenzo(base.Compressor):
     """SZ3 with the exclusive Lorenzo scheme (dual-quantization form)."""
     name = "sz3-lorenzo"
 
-    def encode(self, data, eps):
+    def _encode(self, data, eps):
         codes = (lorenzo_ops.lorenzo2d(data, eps) if data.ndim == 2
                  else lorenzo_encode(data, eps))
         return codes, {"shape": tuple(data.shape)}
@@ -173,8 +193,8 @@ class SZRegression(base.Compressor):
     """SZ3 with the exclusive regression scheme (per-block hyperplane)."""
     name = "sz3-regression"
 
-    def encode(self, data, eps):
-        padded, shape = pad_to_multiple(data.to(torch.float32), BLOCK)
+    def _encode(self, data, eps):
+        padded, shape = pad_to_multiple(data, BLOCK)
         blocks = _to_blocks(padded, BLOCK)
         # SZ2 quantizes regression coefficients; they are stored with a
         # fine bin (eps/BLOCK keeps the plane-evaluation error within eps/2)
@@ -240,8 +260,8 @@ class SZInterp(base.Compressor):
         recon[:, 1::2] = pred_c + _dequantize(codes_c, eps)
         return ("level", sub_codes, codes_c, codes_r, (m, n)), recon
 
-    def encode(self, data, eps):
-        codes, _ = self._encode_rec(data.to(torch.float32), eps, self.levels)
+    def _encode(self, data, eps):
+        codes, _ = self._encode_rec(data, eps, self.levels)
         return codes, {"shape": tuple(data.shape)}
 
     def _decode_rec(self, codes, eps):
@@ -281,8 +301,8 @@ class SZ2(base.Compressor):
     """
     name = "sz2"
 
-    def encode(self, data, eps):
-        padded, shape = pad_to_multiple(data.to(torch.float32), BLOCK)
+    def _encode(self, data, eps):
+        padded, shape = pad_to_multiple(data, BLOCK)
         blocks = _to_blocks(padded, BLOCK)
         ndim = data.ndim
         lor_codes = _block_lorenzo_codes(quantize_bounded(blocks, eps))

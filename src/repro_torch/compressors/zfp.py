@@ -113,7 +113,7 @@ def zfp_size_bits(q: torch.Tensor, e: torch.Tensor, eps: float) -> int:
 class ZFP(base.Compressor):
     name = "zfp"
 
-    def encode(self, data, eps):
+    def _encode(self, data, eps):
         if data.ndim == 2:
             coef, exps = zfp_ops.zfp_forward2d(data)
             padded = tuple(coef.shape)

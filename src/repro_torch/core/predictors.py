@@ -14,6 +14,10 @@ The paper's section 3.1, as the batched sweep engine of
                            ``qent_bins`` bins by the fused histogram kernel
                            (``use_kernels=True``).
 
+and the reference's looped entry points, one slice at a time:
+``features_2d``/``features_3d``/``features_batch`` and the scalar
+``quantized_codes``, ``quantized_entropy`` and ``entropy``.
+
 ``PredictorConfig.use_kernels`` keeps the reference's meaning for
 results: it chooses between the two q-ent routes, which differ once the
 code range outgrows the bins.  The Gram products (``kernels.gram``) and
@@ -21,7 +25,9 @@ the quality SSE (``kernels.quality``) compute the same function either
 way, so they take their kernels under both values.  A kernel runs for a
 tensor on the card, its plain version for a tensor on the CPU.
 ``eigvalsh`` and the sort stay library calls, as the reference also
-makes them outside any kernel.
+makes them outside any kernel.  Every entry point reads a subnormal
+value as a zero of its sign, as the reference does
+(``quant.flush_subnormals``), but ``entropy``, which codes bit patterns.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ import torch
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.qent import ops as qent_ops
 from repro_torch.kernels.quality import ops as quality_ops
-from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN
+from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN, flush_subnormals
+from repro_torch.quant import scalar as _scalar
 from repro_torch.quant import validate_eps_positive as _validate_eps_positive
 
 DEFAULT_VARIANCE_FRACTION_2D = 0.99
@@ -133,7 +140,7 @@ def _sorted_entropy(xs: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     replaces any per-run reduction.  g is float32 as in the reference;
     its sum and the last step are taken in float64."""
     k, n = xs.shape
-    codes = torch.clamp(torch.floor(xs / eps), INT32_CODE_MIN,
+    codes = torch.clamp(torch.floor(flush_subnormals(xs / eps)), INT32_CODE_MIN,
                         INT32_CODE_MAX).to(torch.int32)
     iota = torch.arange(n, dtype=torch.int32, device=xs.device)
     start = torch.ones((k, n), dtype=torch.bool, device=xs.device)
@@ -161,14 +168,107 @@ def quantized_entropy_sweep(slices: torch.Tensor, epss,
     range fits the bins."""
     _validate_eps_positive(epss)
     k = slices.shape[0]
-    flat = slices.to(torch.float32).reshape(k, -1)
-    eps_t = _eps_tensor(epss, flat)
+    flat = flush_subnormals(slices.to(torch.float32).reshape(k, -1))
+    return _qent_sweep(flat, _eps_tensor(epss, flat), num_bins, use_kernel)
+
+
+def _qent_sweep(flat: torch.Tensor, eps_t: torch.Tensor, num_bins: int,
+                use_kernel: bool) -> torch.Tensor:
+    """``quantized_entropy_sweep`` of a flushed (k, n) stack."""
     if use_kernel:
         return qent_ops.quantized_entropy_sweep(flat, eps_t, num_bins)
     # -0.0 and +0.0 give the same code, so their order does not matter
     xs = torch.sort(flat, dim=1).values
     return torch.stack([_sorted_entropy(xs, eps_t[i])
                         for i in range(eps_t.shape[0])], dim=1)
+
+
+def _entropy_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Entropy (bits/symbol) of a histogram, float32 as in the reference."""
+    n = torch.clamp(counts.sum(), min=1).to(torch.float32)
+    p = counts.to(torch.float32) / n
+    return -torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)),
+                        torch.zeros_like(p)).sum()
+
+
+def quantized_codes(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Linear quantization codes ``floor(d / eps)`` as int32, clamped to
+    the int32 range before the cast (paper section 3.1.5).  Raises
+    ``ValueError`` for a non-positive or non-finite eps."""
+    _validate_eps_positive(eps)
+    return _codes(flush_subnormals(x.to(torch.float32)), eps)
+
+
+def _codes(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``quantized_codes`` of flushed data."""
+    scaled = torch.floor(flush_subnormals(x / _scalar(eps, x)))
+    return torch.clamp(scaled, INT32_CODE_MIN, INT32_CODE_MAX).to(torch.int32)
+
+
+def quantized_entropy(x: torch.Tensor, eps: float, num_bins: int = 65536,
+                      use_kernel: bool = False) -> torch.Tensor:
+    """Shannon entropy (bits/symbol) of the linearly quantized data.
+
+    ``use_kernel=False``: the codes shifted by their minimum and hashed
+    (mod) into ``num_bins`` bins, the reference's jnp route;
+    ``use_kernel=True``: the q-ent kernel's histogram of the codes mod
+    ``num_bins``.  Both are exact while the code range fits the bins."""
+    _validate_eps_positive(eps)
+    return _quantized_entropy(flush_subnormals(x.to(torch.float32)), eps,
+                              num_bins, use_kernel)
+
+
+def _quantized_entropy(x: torch.Tensor, eps: float, num_bins: int,
+                       use_kernel: bool) -> torch.Tensor:
+    """``quantized_entropy`` of flushed data."""
+    x = x.reshape(-1)
+    if use_kernel:
+        return _qent_sweep(x[None], _eps_tensor([eps], x), num_bins, True)[0, 0]
+    codes = _codes(x, eps)
+    shifted = torch.remainder(codes - codes.min(), num_bins)
+    return _entropy_from_counts(torch.bincount(shifted.to(torch.int64),
+                                               minlength=num_bins))
+
+
+def entropy(x: torch.Tensor, num_bins: int = 65536) -> torch.Tensor:
+    """Entropy of the raw float32 bit patterns, binned mod ``num_bins``
+    (lossless-style entropy); a subnormal keeps its bits here."""
+    bits = x.to(torch.float32).reshape(-1).contiguous().view(torch.int32)
+    idx = torch.remainder(bits.to(torch.int64) & 0xFFFFFFFF, num_bins)
+    return _entropy_from_counts(torch.bincount(idx, minlength=num_bins))
+
+
+def _looped_features(x: torch.Tensor, eps: float, cfg: "PredictorConfig",
+                     trunc) -> torch.Tensor:
+    _validate_eps_positive(eps)
+    x = flush_subnormals(x.to(torch.float32))
+    sigma = torch.std(x, correction=0)
+    qe = _quantized_entropy(x, eps, cfg.qent_bins, cfg.use_kernels)
+    return torch.stack([torch.log(torch.clamp(qe, min=1e-3)),
+                        _log_ratio(trunc(x), sigma)])
+
+
+def features_2d(x: torch.Tensor, eps: float,
+                cfg: "PredictorConfig" = None) -> torch.Tensor:
+    """The paper's predictor vector for one 2-D slice at error bound
+    ``eps``: ``[log(q-ent), log(svd_trunc / sigma)]``."""
+    cfg = cfg or PredictorConfig()
+    return _looped_features(
+        x, eps, cfg, lambda v: svd_trunc(v, cfg.variance_fraction_2d))
+
+
+def features_3d(x: torch.Tensor, eps: float,
+                cfg: "PredictorConfig" = None) -> torch.Tensor:
+    """``features_2d`` for one volume, with ``hosvd_trunc``."""
+    cfg = cfg or PredictorConfig()
+    return _looped_features(
+        x, eps, cfg, lambda v: hosvd_trunc(v, cfg.variance_fraction_3d))
+
+
+def features_batch(slices: torch.Tensor, eps: float,
+                   cfg: "PredictorConfig" = None) -> torch.Tensor:
+    """``features_2d`` over a (k, m, n) stack, slice by slice -> (k, 2)."""
+    return torch.stack([features_2d(s, eps, cfg) for s in slices])
 
 
 def variance_fraction_for(cfg: PredictorConfig, stack_ndim: int) -> float:
@@ -210,7 +310,7 @@ def _features_sweep_impl(slices: torch.Tensor, epss: torch.Tensor, *,
         sv = (svd_trunc_batch(x, vf) if x.ndim == 3
               else hosvd_trunc_batch(x, vf))
         log_ratio = _log_ratio(sv, sigma)
-        qe = quantized_entropy_sweep(x, epss, bins, use_kernels)
+        qe = _qent_sweep(x.reshape(x.shape[0], -1), epss, bins, use_kernels)
         log_qe = torch.log(torch.clamp(qe, min=1e-3))            # (k, e)
         outs.append(torch.stack(
             [log_qe, log_ratio[:, None].expand_as(log_qe)], dim=-1))
@@ -226,6 +326,7 @@ def _sweep(slices, epss, cfg: PredictorConfig, mode: str) -> torch.Tensor:
             f"(k, d, m, n) volume stack, got {tuple(slices.shape)}; wrap a "
             f"single slice/volume as x[None]")
     _validate_eps_positive(epss)
+    slices = flush_subnormals(slices.to(torch.float32))
     return _features_sweep_impl(
         slices, _eps_tensor(epss, slices),
         vf=variance_fraction_for(cfg, slices.ndim), bins=cfg.qent_bins,
@@ -270,7 +371,7 @@ class SliceCache:
     fills the memo for a whole eb grid with one fused sweep."""
 
     def __init__(self, x: torch.Tensor, cfg: PredictorConfig):
-        self._x = x
+        self._x = flush_subnormals(x.to(torch.float32))
         self._cfg = cfg
         self._memo: dict = {}
         self._log_ratio = None
@@ -289,7 +390,11 @@ class SliceCache:
 
     def prefetch(self, epss) -> torch.Tensor:
         """Featurize the whole eb grid in one sweep; returns (e, 2)."""
-        feats = features_sweep(self._x[None], epss, self._cfg)[0]
+        _validate_eps_positive(epss)
+        feats = _features_sweep_impl(
+            self._x[None], _eps_tensor(epss, self._x),
+            vf=variance_fraction_for(self._cfg, self._x.ndim + 1),
+            bins=self._cfg.qent_bins, use_kernels=self._cfg.use_kernels)[0]
         return self.seed(epss, feats)
 
     def seed(self, epss, feats) -> torch.Tensor:
@@ -310,9 +415,9 @@ class SliceCache:
         _validate_eps_positive(eps)
         key = self._key(eps)
         if key not in self._memo:
-            qe = quantized_entropy_sweep(self._x[None], [key],
-                                         self._cfg.qent_bins,
-                                         self._cfg.use_kernels)[0, 0]
+            qe = _qent_sweep(self._x.reshape(1, -1),
+                             _eps_tensor([key], self._x),
+                             self._cfg.qent_bins, self._cfg.use_kernels)[0, 0]
             self._memo[key] = torch.stack(
                 [torch.log(torch.clamp(qe, min=1e-3)), self._ratio()])
         return self._memo[key]
@@ -357,3 +462,9 @@ def get_engine(cfg: PredictorConfig = None) -> FeaturizationEngine:
     if cfg is None or cfg == _DEFAULT_ENGINE.cfg:
         return _DEFAULT_ENGINE
     return FeaturizationEngine(cfg)
+
+
+def features_2d_cached(x: torch.Tensor) -> SliceCache:
+    """Per-slice cache from the default engine: a callable giving the
+    feature vector at any error bound, the eps-independent part once."""
+    return _DEFAULT_ENGINE.cached(x)

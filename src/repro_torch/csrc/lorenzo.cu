@@ -21,7 +21,11 @@
 // contract or reorder anything else.  two_eps and eps are the float32
 // values the plain version computes (f32(2 eps), f32(eps)).  The
 // four-term difference is taken modulo 2^32, as int32 arithmetic wraps
-// in the reference.
+// in the reference.  Subnormals need no flush here (flush.cuh): the
+// reference reads a subnormal v, quotient or error as a signed zero, but
+// rint of a subnormal quotient is +-0 either way and the error only
+// meets the comparisons with +-eps, which see a subnormal as they see
+// its zero, so no code changes.
 //
 // Bound on the card: bytes.  Each element is read once (4 bytes) and one
 // int32 code written, against ~25 instructions of quantizer.  The TPU

@@ -12,7 +12,10 @@
 //   hist[s, e, bin] += 1
 // The division is __fdiv_rn (IEEE, correctly rounded), matching the
 // reference's jitted x / eps bit for bit; a reciprocal multiply would
-// move floor codes.
+// move floor codes.  x holds no subnormal (the port's entry points flush
+// the data, quant.flush_subnormals); a subnormal quotient reads as a
+// signed zero, as in the reference (flush.cuh): a negative one would
+// otherwise floor to code -1.
 //
 // Bound on the card: bytes, by the data sheet (4 bytes read per element,
 // a handful of operations per eps); in practice the rate of the
@@ -63,6 +66,8 @@
 
 #include <algorithm>
 
+#include "flush.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -93,7 +98,7 @@ struct Plan {
 template <bool POW2>
 __device__ __forceinline__ int slot_of(float v, float eps, int bins,
                                        int lo_bin, int width, int ei) {
-  float q = floorf(__fdiv_rn(v, eps));
+  float q = floorf(ftz(__fdiv_rn(v, eps)));
   q = fminf(fmaxf(q, CODE_MIN), CODE_MAX);
   const int code = (int)q;
   int b;

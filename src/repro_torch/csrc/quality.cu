@@ -18,7 +18,14 @@
 //     xor-16 shuffles inside a warp, then across the 2 warps;
 //   * tile sums are added in tile order starting from 0.0f.
 // Every operation is an __f*_rn intrinsic, so nvcc cannot contract or
-// reassociate any of it.  Elements past the end of the slice count as
+// reassociate any of it.  x holds no subnormal (the port's entry points
+// flush the data, quant.flush_subnormals); the rest follows the
+// reference (flush.cuh): the quotients of the __fdiv_rn path, each
+// square and each multiply-add of the column fold are flushed to zero
+// where subnormal
+// (the fast path's quotients are normal; a subnormal error squares to
+// exactly 0 and cannot move a multiply-add with a normal addend, so
+// the error itself needs no flush).  Elements past the end of the slice count as
 // 0.0f, the reference's zero padding: their error is exactly +0.
 //
 // x / eps is the correctly rounded quotient of quotient.cuh (eps's
@@ -50,6 +57,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flush.cuh"
 #include "quotient.cuh"
 
 namespace {
@@ -84,7 +92,8 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ xs,
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < NV; ++j) v[j] = base + j < n ? xs[base + j] : 0.0f;
+    for (int j = 0; j < NV; ++j)
+      v[j] = base + j < n ? xs[base + j] : 0.0f;
   }
 }
 
@@ -100,7 +109,7 @@ __device__ __forceinline__ float columns_sse(const float (&v)[NV], float eps,
   if (slow) {
 #pragma unroll
     for (int j = 0; j < NV; ++j)
-      if (slow >> j & 1u) q[j] = __fdiv_rn(v[j], eps);
+      if (slow >> j & 1u) q[j] = ftz(__fdiv_rn(v[j], eps));
   }
   float e[NV];
 #pragma unroll
@@ -113,10 +122,13 @@ __device__ __forceinline__ float columns_sse(const float (&v)[NV], float eps,
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const float* ec = e + 8 * c;
-    const float p01 = __fmaf_rn(ec[0], ec[0], __fmul_rn(ec[1], ec[1]));
-    const float p23 = __fmaf_rn(ec[2], ec[2], __fmul_rn(ec[3], ec[3]));
-    const float p45 = __fmaf_rn(ec[4], ec[4], __fmul_rn(ec[5], ec[5]));
-    const float p67 = __fmaf_rn(ec[6], ec[6], __fmul_rn(ec[7], ec[7]));
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = ftz_nonneg(__fmaf_rn(ec[2 * i], ec[2 * i],
+                                  ftz_nonneg(__fmul_rn(ec[2 * i + 1],
+                                                       ec[2 * i + 1]))));
+    const float p01 = p[0], p23 = p[1], p45 = p[2], p67 = p[3];
     col[c] = __fadd_rn(__fadd_rn(p01, p23), __fadd_rn(p45, p67));
   }
 #pragma unroll

@@ -19,6 +19,8 @@
 // some k, and exp2(k) misses 2^k by up to ~30 ulp, so an exact frexp or
 // ldexp would not give the reference's exponents and coefficients.  Every
 // step is an __f*_rn intrinsic, so nvcc cannot contract or reorder it.
+// x holds no subnormal: the port's entry points flush the data
+// (quant.flush_subnormals), as XLA on the CPU reads it.
 //
 // Bound on the card: bytes.  Each element is read once (4 bytes) and one
 // int32 coefficient written, plus one int32 exponent per 16 elements,

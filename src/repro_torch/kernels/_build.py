@@ -7,11 +7,13 @@ headers, so a build takes seconds, not minutes):
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <name>.cu
 
-``--use_fast_math`` is deliberately absent: the kernels rely on IEEE
-division, ``sqrtf`` and un-flushed denormals to match the plain
-versions bit for bit.  The library name carries a hash of the source
-and of the headers beside it (``csrc/*.cuh``), so an edited source is
-rebuilt on its next use.  ``build()`` starts one
+``--use_fast_math`` and ``-ftz=true`` are deliberately absent: the
+kernels rely on IEEE division and ``sqrtf``, and flush subnormal
+intermediates themselves where the reference does (``csrc/flush.cuh``;
+their input is flushed by the entry points, ``quant.flush_subnormals``),
+to match the plain versions bit for bit.  The library name carries a hash of the flags, the source and
+the headers beside it (``csrc/*.cuh``), so an edited source is rebuilt
+on its next use.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -56,8 +58,9 @@ def nvcc() -> str:
 
 
 def source_digest(csrc: Path, name: str) -> str:
-    """Hash of ``<csrc>/<name>.cu`` and every header it may include."""
-    h = hashlib.sha256()
+    """Hash of the nvcc flags, ``<csrc>/<name>.cu`` and every header it
+    may include."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

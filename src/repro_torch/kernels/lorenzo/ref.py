@@ -4,6 +4,7 @@ quantizer and N-D Lorenzo codes that the SZ-family compressors
 import torch
 
 from repro_torch.kernels.quality.ref import fma32
+from repro_torch.quant import flush_subnormals as _ftz
 from repro_torch.quant import scalar
 
 
@@ -20,13 +21,19 @@ def quantize_bounded(vals: torch.Tensor, eps: float, *,
     takes it as one ``fma(-q, 2 eps, vals)``: inside the reference's
     jitted ``_prequant`` XLA drops the ``optimization_barrier`` before
     code generation and the CPU contracts the pair into an FMA.
+
+    Subnormal quotients and residuals read as signed zeros, as in the
+    reference (``quant.flush_subnormals``).  A subnormal value needs no
+    flush: its quotient rounds to code 0 and its residual meets only the
+    comparisons with +-eps, which see it as they see its zero.
     """
     two_eps = scalar(2.0 * eps, vals)
     eps_t = scalar(eps, vals)
-    q = torch.round(vals / two_eps).to(torch.int32)
+    q = torch.round(_ftz(vals / two_eps)).to(torch.int32)
     for _ in range(2):
         qf = q.to(torch.float32)
-        err = fma32(-qf, two_eps, vals) if fused else vals - qf * two_eps
+        err = _ftz(fma32(-qf, two_eps, vals) if fused
+                   else vals - qf * two_eps)
         q = q + (err > eps_t).to(torch.int32) - (err < -eps_t).to(torch.int32)
     return q
 

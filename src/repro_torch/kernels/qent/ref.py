@@ -2,13 +2,17 @@
 import torch
 
 from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN
+from repro_torch.quant import flush_subnormals as _ftz
 
 
 def hash_codes(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
     """(n,) values x (e,) error bounds -> (e, n) int64 bins in [0, bins):
     ``floor(x / eps)`` saturated to the int32 range, then positive mod.
-    The division is tensor by tensor, so it is IEEE on every device."""
-    codes = torch.clamp(torch.floor(x[None, :] / epss[:, None]),
+    The division is tensor by tensor, so it is IEEE on every device.
+    ``x`` holds no subnormal (the entry points flush the data); a
+    subnormal quotient reads as a signed zero (code 0), as in the
+    reference and the kernel."""
+    codes = torch.clamp(torch.floor(_ftz(x[None, :] / epss[:, None])),
                         INT32_CODE_MIN, INT32_CODE_MAX).to(torch.int32)
     return torch.remainder(codes, bins).to(torch.int64)
 

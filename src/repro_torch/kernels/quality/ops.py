@@ -81,7 +81,8 @@ def quality_sweep(x: torch.Tensor, epss) -> torch.Tensor:
     slice at every error bound and score it against the original.
     Exactly representable slices report ``PSNR_CAP``; zero-range slices
     with nonzero error report ``-PSNR_CAP`` and an ``NRMSE_CAP``-clipped
-    NRMSE, so every value is finite."""
+    NRMSE, so every value is finite.  ``x`` holds no subnormal: the
+    entry points (``core.predictors``) flush it, as XLA reads it."""
     _check_eps(epss)
     k = x.shape[0]
     flat = x.to(torch.float32).reshape(k, -1)

@@ -14,14 +14,19 @@ the CPU, so this module spells out every fused operation with
 - ``quality_from_stats``: ``sse * f32(1/n)``, no contraction in
   ``20a - 10b``, and a correctly rounded square root (taken in float64).
 
-Known difference: XLA on the CPU flushes float32 subnormals to zero;
-PyTorch and the card keep them, so values below 1.2e-38 may differ.
+Subnormals follow XLA's CPU rule (``quant.flush_subnormals``).  The
+data holds none: the entry points flush it.  The quotient ``x / eps``,
+each error, square and multiply-add of the tree, the mean square and
+range fed to ``det_log10`` and the NRMSE quotient are flushed to a
+signed zero where they are subnormal, as the kernel flushes them
+(``csrc/flush.cuh``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN
+from repro_torch.quant import flush_subnormals as _ftz
 
 # The tile is part of the numerical spec: the reduction tree and the
 # accumulation boundaries follow it (8 sublanes x 256 lanes).
@@ -62,21 +67,19 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
 def qdq_err(x: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     """Quantize-dequantize error ``x - code * eps`` (one rounding), with
     the saturating int32 quantizer of the q-ent predictor.  ``eps`` is a
-    tensor that broadcasts against ``x``."""
-    codes = torch.clamp(torch.floor(x / eps), INT32_CODE_MIN,
+    tensor that broadcasts against ``x``; ``x`` holds no subnormal."""
+    codes = torch.clamp(torch.floor(_ftz(x / eps)), INT32_CODE_MIN,
                         INT32_CODE_MAX).to(torch.int32).to(torch.float32)
-    return fma32(-codes, eps, x)
+    return _ftz(fma32(-codes, eps, x))
 
 
 def tile_sse(err: torch.Tensor) -> torch.Tensor:
     """(..., c, 8) errors of a tile (column-major: 8 sublanes per column,
     c a power of two) -> (...) SSE by the fixed balanced tree."""
-    sq = err * err
-    p01 = fma32(err[..., 0], err[..., 0], sq[..., 1])
-    p23 = fma32(err[..., 2], err[..., 2], sq[..., 3])
-    p45 = fma32(err[..., 4], err[..., 4], sq[..., 5])
-    p67 = fma32(err[..., 6], err[..., 6], sq[..., 7])
-    v = (p01 + p23) + (p45 + p67)
+    sq = _ftz(err * err)
+    p01, p23, p45, p67 = (_ftz(fma32(err[..., i], err[..., i], sq[..., i + 1]))
+                          for i in (0, 2, 4, 6))
+    v = (p01 + p23) + (p45 + p67)      # sums of non-negative normals
     while v.shape[-1] > 1:
         v = v[..., 0::2] + v[..., 1::2]
     return v[..., 0]
@@ -107,8 +110,8 @@ def sse_sweep(flat: torch.Tensor, epss: torch.Tensor,
 def det_log10(x: torch.Tensor) -> torch.Tensor:
     """Deterministic elementwise log10 of float32 inputs, the reference's
     bitcast + atanh-series construction with its contraction pattern;
-    x <= 0 maps to -1e4."""
-    x = x.to(torch.float32)
+    x <= 0 (a subnormal reads as zero) maps to -1e4."""
+    x = _ftz(x.to(torch.float32))
     small = x < 2.0 ** -100
     xs = torch.where(small, x * 2.0 ** 64, x)
     bits = xs.view(torch.int32)
@@ -134,9 +137,9 @@ def quality_from_stats(sse: torch.Tensor, n: int, vmin: torch.Tensor,
     ``n`` is the unpadded element count; ``abs`` on the range kills the
     -0.0 hazard of mixed-sign-zero slices."""
     f32 = dict(dtype=torch.float32, device=sse.device)
-    rng = (vmax - vmin).abs()[:, None]
+    rng = _ftz(vmax - vmin).abs()[:, None]
     inv_n = torch.tensor(1.0, **f32) / torch.tensor(float(n), **f32)
-    mse = sse * inv_n
+    mse = _ftz(sse * inv_n)
     exact = sse == 0.0
     cap = torch.tensor(PSNR_CAP, **f32)
     psnr = torch.where(
@@ -146,6 +149,6 @@ def quality_from_stats(sse: torch.Tensor, n: int, vmin: torch.Tensor,
     root = torch.sqrt(mse.to(torch.float64)).to(torch.float32)
     nrmse = torch.where(
         exact, torch.zeros_like(mse),
-        torch.minimum(torch.clamp(root / rng, min=0.0),
+        torch.minimum(torch.clamp(_ftz(root / rng), min=0.0),
                       torch.tensor(NRMSE_CAP, **f32)))
     return torch.stack([psnr, nrmse], dim=-1)

@@ -7,6 +7,7 @@ reference's wrapper pads it; the kernel needs no further tile padding.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -35,6 +36,7 @@ def _launch(x: torch.Tensor):
                   _build.stream(x))
     _build.check(code, "zfp_forward2d")
     zfp_forward2d.launches += 1
+    zfp_forward2d.by_shape[(m, n)] += 1
     return coef, exps
 
 
@@ -53,3 +55,4 @@ def zfp_forward2d(x: torch.Tensor):
 
 
 zfp_forward2d.launches = 0
+zfp_forward2d.by_shape = Counter()     # (m, n) -> launches

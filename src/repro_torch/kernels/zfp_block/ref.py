@@ -9,7 +9,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import refmath
-from repro_torch.quant import pad_to_multiple
+from repro_torch.quant import pad_to_multiple, to_int32
 
 INTPREC = 26          # fixed-point precision for fp32 inputs
 EXP_FLOOR = 1e-38     # the reference's guard inside log2(max(amax, .))
@@ -68,14 +68,17 @@ def zfp_transform(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Tuple
     """Blocked block-floating-point + forward lifting, in plain PyTorch.
 
     Returns (coeff int32 blocks, per-block exponent, padded_shape).
+    ``data`` holds no subnormal: ``Compressor.encode`` flushes it.
     """
-    padded, _ = pad_to_multiple(data, 4)
+    padded, _ = pad_to_multiple(data.to(torch.float32), 4)
     blocks = to_blocks4(padded.to(torch.float32))
     ndim = blocks.ndim - 1
     amax = torch.amax(torch.abs(blocks), dim=tuple(range(1, ndim + 1)))
     e = block_exponent(amax)
     scale = refmath.exp2_f32(INTPREC - 2 - e)
-    q = torch.round(blocks * scale[(...,) + (None,) * ndim]).to(torch.int32)
+    # a block of tiny normals overflows its scale to inf: the conversion
+    # saturates (NaN -> 0) as in the reference and on the card
+    q = to_int32(torch.round(blocks * scale[(...,) + (None,) * ndim]))
     for axis in range(1, ndim + 1):
         q = fwd_lift4(q, axis)
     return q, e, tuple(padded.shape)

@@ -1,5 +1,6 @@
 """Shared quantization plumbing: code-range saturation, eps validation,
-the float32 error-bound scalars and edge padding to whole blocks.
+the float32 error-bound scalars, edge padding to whole blocks and the
+reference's reading of subnormals.
 
 The constants and helpers every quantizing route (the q-ent histogram,
 the quality SSE, the compressors, the kernels' plain versions) must
@@ -17,6 +18,34 @@ import torch
 # 2147483520.0, so casting the clamped value can never wrap.
 INT32_CODE_MIN = -2147483648.0
 INT32_CODE_MAX = 2147483520.0
+
+MIN_NORMAL = 2.0 ** -126     # the smallest normal float32
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every float32 subnormal replaced by a zero of its sign.
+
+    XLA on the CPU computes with denormals-are-zero and flush-to-zero:
+    every float32 operation of the reference reads a subnormal operand
+    as a signed zero and writes a subnormal result as one.  The port's
+    entry points apply this once to the data they take, so the kernels
+    and their plain versions are never handed a subnormal; both flush
+    each intermediate where the reference can make one (the kernels with
+    ``csrc/flush.cuh``).  One elementwise pass; infinities and NaNs pass
+    through."""
+    return torch.where(x.abs() < MIN_NORMAL, x * 0.0, x)
+
+
+def to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA and the card convert: toward zero,
+    saturating at the int32 range, NaN -> 0 (a plain cast on the CPU
+    gives INT32_MIN for every value out of range)."""
+    big = x >= 2.0 ** 31
+    small = x < -2.0 ** 31
+    out = torch.where(big | small | torch.isnan(x), torch.zeros_like(x),
+                      x).to(torch.int32)
+    out = torch.where(big, torch.full_like(out, 2 ** 31 - 1), out)
+    return torch.where(small, torch.full_like(out, -2 ** 31), out)
 
 
 def validate_eps_positive(epss) -> None:

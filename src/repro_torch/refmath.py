@@ -11,15 +11,17 @@ So a bit-equal port spells out the same sequence of float32 operations
 here, with :func:`fma32` where XLA fuses, and the CUDA kernel of
 ``csrc/zfp_block.cu`` repeats it with ``__f*_rn`` intrinsics.
 
-Domain: positive normal inputs for :func:`log2_f32` (a subnormal or
-zero is read here as the smallest normal, where XLA on the CPU reads a
-subnormal as zero: the recorded subnormal difference of the port);
-integer-valued inputs in [-125, 150] for :func:`exp2_f32`, whose
-subnormal results are flushed to zero as XLA flushes them.
+Domain: non-negative inputs for :func:`log2_f32`, a zero or subnormal
+giving ``-inf`` as XLA on the CPU (which reads a subnormal as zero)
+gives it; finite inputs for :func:`exp2_f32` (integer exponents for
+ZFP's scale, real ones for TTHRESH's decode), whose subnormal results
+are flushed to zero as XLA flushes them.
 
 The reference totals ZFP's per-block bit counts with a float32
 ``jnp.sum``, which rounds once the total passes 2^24 (an 1800 x 1800
 slice reaches 4.5e7 bits): :func:`sum_f32` adds in XLA's CPU order.
+TTHRESH's energy threshold runs a float32 ``jnp.cumsum`` over every core
+coefficient: :func:`cumsum_f32` adds in XLA's CPU order too.
 """
 from __future__ import annotations
 
@@ -57,9 +59,12 @@ EXP_P = tuple(float(np.float32(v)) for v in (
 
 
 def log_f32(x: torch.Tensor) -> torch.Tensor:
-    """Natural log of positive float32 values, bit-equal to XLA's CPU
-    ``log``.  Every ``*`` and ``+`` below is one float32 operation."""
-    x = torch.clamp(x.to(torch.float32), min=MIN_NORMAL)
+    """Natural log of non-negative float32 values, bit-equal to XLA's CPU
+    ``log``; ``-inf`` at a zero or subnormal.  Every ``*`` and ``+``
+    below is one float32 operation."""
+    x = x.to(torch.float32)
+    zero = x < MIN_NORMAL
+    x = torch.clamp(x, min=MIN_NORMAL)
     bits = x.view(torch.int32)
     e = ((bits >> 23) - 127).to(torch.float32) + 1.0
     m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)   # [0.5, 1)
@@ -76,7 +81,8 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     y = fma32(y, t3, y2)
     y = fma32(y, t3, e * LN2_LO)
     r = fma32(t2, -0.5, t) + y
-    return fma32(e, LN2_HI, r)
+    out = fma32(e, LN2_HI, r)
+    return torch.where(zero, torch.full_like(out, float("-inf")), out)
 
 
 def log2_f32(x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +96,9 @@ def ceil_log2(x: torch.Tensor) -> torch.Tensor:
 
 
 def exp2_f32(k: torch.Tensor) -> torch.Tensor:
-    """``jnp.exp2`` of integer-valued exponents on the CPU, bit for bit."""
+    """``jnp.exp2`` of float32 exponents on the CPU, bit for bit:
+    ``exp(k * f32(ln 2))`` by XLA's Cephes polynomial.  Held to
+    ``jnp.exp2`` at every integer exponent and on sampled reals."""
     a = k.to(torch.float32) * LN2
     a = torch.clamp(a, EXP_LO, EXP_HI)
     fx = torch.clamp(torch.floor(fma32(a, LOG2E, 0.5)), -127.0, 127.0)
@@ -134,3 +142,33 @@ def sum_f32(v: torch.Tensor) -> np.float32:
         if n <= XLA_WINDOW:
             return acc[0]
         v = acc
+
+
+CUMSUM_BASE = 16    # the row of XLA's CPU rewrite of a long prefix sum
+
+
+def cumsum_f32(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum`` of a 1-D float32 tensor on the CPU, bit for bit, on
+    the tensor's device.
+
+    XLA rewrites a prefix sum longer than 16 into rows of 16 (the input
+    zero-padded at its end): each row's prefix sums are added in order
+    from 0.0, the rows' totals are prefix-summed the same way
+    (recursively), and the total of the rows before a row is added to
+    each of its prefix sums.  Found by search against ``jnp.cumsum`` and
+    held to it in the tests at lengths 0-19, 31-33, 255-257, 4097,
+    100000 and 1000003."""
+    v = v.to(torch.float32).reshape(-1)
+    n = v.numel()
+    pad = (-n) % CUMSUM_BASE if n > CUMSUM_BASE else 0
+    rows = torch.nn.functional.pad(v, (0, pad)).reshape(-1, min(n, CUMSUM_BASE)
+                                                      if n else 1)
+    out = torch.empty_like(rows)
+    acc = torch.zeros(rows.shape[0], dtype=torch.float32, device=v.device)
+    for j in range(rows.shape[1]):
+        acc = acc + rows[:, j]
+        out[:, j] = acc
+    if rows.shape[0] > 1:
+        carry = cumsum_f32(acc)[:-1]
+        out[1:] = out[1:] + carry[:, None]
+    return out.reshape(-1)[:n]

@@ -1,13 +1,14 @@
 """The port's compressor suite against the reference's.
 
 Slices are made by the reference's generators and handed to both
-packages as numpy arrays.  Compressors whose every float32 step is
-reproduced are held bit for bit (codes, exponents and CR); sz2 and
-sz3-regression fit their block planes through a library ``pinv`` and
-matmul whose float32 bits differ, and are held to a CR rtol of 1e-3.
-The reference's float32 ``log2``/``exp2`` (XLA's CPU polynomials, which
-are not exact) are pinned here too: ZFP's block exponent and bit length
-and Digit Rounding's grid follow them.
+packages as numpy arrays.  Every compressor of the 2-D study reproduces
+each float32 step and is held bit for bit (codes, exponents and CR):
+sz2 and sz3-regression fit their block planes with the reference's
+float32 ``pinv`` (``_sz_design``) in the order of XLA's CPU dot.  The
+reference's float32 ``log2``/``exp2``/``cumsum`` (XLA's CPU polynomials
+and summation orders, which are not exact) are pinned here too: ZFP's
+block exponent and bit length, Digit Rounding's grid and TTHRESH's
+decode and threshold follow them.
 """
 import numpy as np
 import pytest
@@ -22,10 +23,11 @@ from repro.data import scientific as JS  # noqa: E402
 from repro_torch import compressors as TC  # noqa: E402
 from repro_torch import refmath  # noqa: E402
 from repro_torch.compressors import base as TB  # noqa: E402
+from repro_torch.compressors import sz as TSZ  # noqa: E402
 from repro_torch.compressors import zfp as TZ  # noqa: E402
 
-LIBRARY_FIT = ("sz2", "sz3-regression")     # pinv + matmul: CR rtol 1e-3
-BIT_EQUAL = tuple(n for n in JC.STUDY_2D if n not in LIBRARY_FIT)
+BIT_EQUAL = tuple(JC.STUDY_2D)
+REGRESSION_FIT = ("sz2", "sz3-regression")
 # the chip smoke's grid on cesm-cloud (eps 1e-5): 3.16e-6 ... 1e-3
 CESM_EBS = (1e-5 * 10.0 ** np.linspace(-0.5, 2.0, 6)).tolist()
 
@@ -72,38 +74,45 @@ def test_codes_and_cr_bit_equal(name, cases):
             name, x.shape, eps)
 
 
-@pytest.mark.parametrize("name", LIBRARY_FIT)
-def test_library_fit_cr_within_rtol(name, cases):
+@pytest.mark.parametrize("name", REGRESSION_FIT)
+def test_regression_fit_bit_equal_on_ragged_miranda(name):
+    """The ragged miranda slice, where the library pinv and matmul of
+    earlier versions moved 9 residual and 3 plane codes."""
     mir = _slice("miranda-vx", (100, 200))
-    for x, eps in cases + [(mir, 1e-3 * float(np.ptp(mir)))]:
-        want = JC.get(name).cr(jnp.asarray(x), eps)
-        got = TC.get(name).cr(torch.from_numpy(x), eps)
-        np.testing.assert_allclose(got, want, rtol=1e-3)
+    eps = 1e-3 * float(np.ptp(mir))
+    jcodes, jaux = JC.get(name).encode(jnp.asarray(mir), eps)
+    tcodes, taux = TC.get(name).encode(torch.from_numpy(mir), eps)
+    np.testing.assert_array_equal(tcodes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(taux["coef_codes"].numpy(),
+                                  np.asarray(jaux["coef_codes"]))
+    assert (TC.get(name).cr(torch.from_numpy(mir), eps)
+            == JC.get(name).cr(jnp.asarray(mir), eps))
 
 
-# codes that differ from the reference's, per case of ``cases`` and the
-# ragged miranda slice: (residual codes, plane-coefficient codes).  Only
-# cesm-cloud at the grid's smallest eb and the miranda slice move.
-LIBRARY_FIT_DIFFS = {
-    "sz2": [(0, 0), (0, 0), (0, 0), (51, 55), (0, 0), (9, 3)],
-    "sz3-regression": [(0, 0), (0, 0), (0, 0), (211, 55), (0, 0), (9, 3)],
-}
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_design_pinv_is_the_reference_pinv(ndim):
+    from repro.compressors import sz as JSZ
+    want = np.asarray(jnp.linalg.pinv(JSZ._block_coords(6, ndim)))
+    got = TSZ._design_pinv(6, ndim, torch.device("cpu")).numpy()
+    assert got.shape == want.shape == (ndim + 1, 6 ** ndim)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
-@pytest.mark.parametrize("name", LIBRARY_FIT)
-def test_library_fit_differing_codes_pinned(name, cases):
-    """The float32 bits of the library ``pinv``/matmul plane fit move a
-    few codes next to bin edges; their number is pinned, case by case."""
-    mir = _slice("miranda-vx", (100, 200))
-    got = []
-    for x, eps in cases + [(mir, 1e-3 * float(np.ptp(mir)))]:
-        jcodes, jaux = JC.get(name).encode(jnp.asarray(x), eps)
-        tcodes, taux = TC.get(name).encode(torch.from_numpy(x), eps)
-        pairs = [(np.asarray(jcodes), tcodes.numpy()),
-                 (np.asarray(jaux["coef_codes"]), taux["coef_codes"].numpy())]
-        assert all(a.shape == b.shape for a, b in pairs)
-        got.append(tuple(int(np.count_nonzero(a != b)) for a, b in pairs))
-    assert got == LIBRARY_FIT_DIFFS[name]
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("counts", [tuple(range(1, 17)), (64,), (90000,)],
+                         ids=["1-16", "64", "90000"])
+def test_plane_fit_bit_equal(ndim, counts):
+    """``y @ pinv.T`` in XLA's order at every block count: the FMA chain
+    below ``DOT_CHAIN_MAX_BLOCKS``, four accumulators above."""
+    from repro.compressors import sz as JSZ
+    rng = np.random.default_rng(ndim)
+    for nb in counts:
+        y = (rng.standard_normal((nb,) + (6,) * ndim)
+             * 10.0 ** rng.uniform(-3, 3, (nb,) + (1,) * ndim)).astype(np.float32)
+        want = np.asarray(JSZ._fit_planes(jnp.asarray(y)))
+        got = TSZ._fit_planes(torch.from_numpy(y)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32),
+                                      err_msg=f"{nb} blocks")
 
 
 @pytest.mark.parametrize("name", JC.STUDY_2D)
@@ -136,7 +145,7 @@ def test_sz2_regression_fraction_and_registry():
             TC.get("sz2").regression_fraction(torch.from_numpy(x), eps),
             JC.get("sz2").regression_fraction(jnp.asarray(x), eps), atol=0.02)
     assert TC.STUDY_2D == JC.STUDY_2D and TC.STUDY_3D == JC.STUDY_3D
-    assert TC.names() == sorted(JC.STUDY_2D)
+    assert TC.names() == JC.names()
     assert not TC.get("sz3-interp").supports_3d
 
 
@@ -222,6 +231,40 @@ def test_exp2_bit_equal_at_integer_exponents():
     # XLA's exp2(k) misses 2^k at most integer k (up to ~30 ulp)
     assert np.count_nonzero(got[inside] != exact[inside]) > 100
     np.testing.assert_allclose(got[inside], exact[inside], rtol=5e-6)
+
+
+@pytest.mark.parametrize("lo, hi", [(-40.0, 0.0), (-150.0, -120.0),
+                                     (-126.0, 130.0)])
+def test_exp2_bit_equal_on_sampled_reals(lo, hi):
+    """TTHRESH's decode takes exp2 of non-integer exponents; the subnormal
+    end is flushed and the top overflows as in XLA."""
+    x = np.random.default_rng(int(-lo)).uniform(lo, hi, 200000).astype(np.float32)
+    want = np.asarray(jnp.exp2(jnp.asarray(x)))
+    got = refmath.exp2_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_log2_of_zero_and_subnormals_is_minus_inf():
+    x = np.array([0.0, -0.0, 1e-45, 1e-40, 1.1e-38, 2.0 ** -126, 1.2e-38,
+                  1e-30], np.float32)
+    want = np.asarray(jnp.log2(jnp.asarray(x)))
+    got = refmath.log2_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.isneginf(got[:5]).all() and np.isfinite(got[5:]).all()
+
+
+@pytest.mark.parametrize(
+    "lengths", [tuple(range(0, 20)) + (31, 32, 33, 255, 256, 257),
+                (4097, 100000, 1000003)], ids=["short", "long"])
+def test_cumsum_f32_is_xla_cpu_cumsum(lengths):
+    rng = np.random.default_rng(len(lengths))
+    for n in lengths:
+        v = (rng.random(n) ** 4 * rng.choice([1.0, 1e-3, 1e3], n)).astype(np.float32)
+        want = np.asarray(jnp.cumsum(jnp.asarray(v)))
+        got = refmath.cumsum_f32(torch.from_numpy(v)).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32),
+                                      err_msg=f"length {n}")
 
 
 def test_zfp_exponent_and_bit_length_rule_on_planted_powers():

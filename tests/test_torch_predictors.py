@@ -249,6 +249,61 @@ def test_crpredictor_train_predict_matches(stacks):
         tp.predict(torch.from_numpy(x[0]))
 
 
+# ------------------------------------------------ the looped predictors
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_quantized_entropy_and_codes_match(stacks, use_kernel):
+    x, ebs = stacks[3]
+    for eps in ebs:
+        np.testing.assert_array_equal(
+            TP.quantized_codes(torch.from_numpy(x[0]), eps).numpy(),
+            np.asarray(JP.quantized_codes(jnp.asarray(x[0]), eps)))
+        want = float(JP.quantized_entropy(jnp.asarray(x[0]), eps, 4096,
+                                          use_kernel=use_kernel))
+        got = float(TP.quantized_entropy(torch.from_numpy(x[0]), eps, 4096,
+                                         use_kernel=use_kernel))
+        assert abs(got - want) <= 1e-4, (eps, got, want)
+    with pytest.raises(ValueError):
+        TP.quantized_codes(torch.from_numpy(x[0]), 0.0)
+
+
+def test_raw_entropy_matches(stacks):
+    x, _ = stacks[3]
+    for bins in (65536, 3000):
+        want = float(JP.entropy(jnp.asarray(x[1]), bins))
+        got = float(TP.entropy(torch.from_numpy(x[1]), bins))
+        assert abs(got - want) <= 1e-4, (bins, got, want)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_looped_features_match(stacks, use_kernels):
+    jcfg = JP.PredictorConfig(use_kernels=use_kernels, qent_bins=4096)
+    tcfg = TP.PredictorConfig(use_kernels=use_kernels, qent_bins=4096)
+    x2, ebs2 = stacks[3]
+    x4, ebs4 = stacks[4]
+    eps = float(ebs2[1])
+    np.testing.assert_allclose(
+        TP.features_batch(torch.from_numpy(x2), eps, tcfg).numpy(),
+        np.asarray(JP.features_batch(jnp.asarray(x2), eps, jcfg)),
+        rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        TP.features_2d(torch.from_numpy(x2[0]), eps, tcfg).numpy(),
+        np.asarray(JP.features_2d(jnp.asarray(x2[0]), eps, jcfg)),
+        rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        TP.features_3d(torch.from_numpy(x4[0]), float(ebs4[1]), tcfg).numpy(),
+        np.asarray(JP.features_3d(jnp.asarray(x4[0]), float(ebs4[1]), jcfg)),
+        rtol=0, atol=1e-5)
+
+
+def test_features_2d_cached_matches(stacks):
+    x, ebs = stacks[3]
+    jc = JP.features_2d_cached(jnp.asarray(x[2]))
+    tc = TP.features_2d_cached(torch.from_numpy(x[2]))
+    for eps in ebs:
+        np.testing.assert_allclose(tc(eps).numpy(), np.asarray(jc(eps)),
+                                   rtol=0, atol=1e-5)
+
+
 # --------------------------------------------------------------- boundaries
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))

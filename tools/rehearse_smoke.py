@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py`` on the CPU at small sizes, without a card.
+
+    python3 tools/rehearse_smoke.py [--out build/rehearse.json]
+
+Writes a copy of ``chip_smoke.py`` to ``build/rehearse/`` with the sizes
+cut (12 + 4 slices of 128 x 128, 10 Gaussian samples of 64 x 64, 8
+volumes of 16 x 24 x 32), every tensor on the CPU, the kernel build,
+the quotient proof and the launch-count checks left out and the
+kernel-check phase cut to ZFP's, then runs it with ``torch.cuda``'s
+timing calls replaced by host-clock stand-ins.  Every wrapper takes
+its plain version there, so this finds wrong paths, shapes and control
+flow in all phases (a few minutes); it measures nothing about the card.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CUTS = [
+    ('ROOT = Path(__file__).resolve().parent', f'ROOT = Path({str(ROOT)!r})'),
+    ('N_TRAIN, N_TEST = 32, 8', 'N_TRAIN, N_TEST = 12, 4'),
+    ('n=spec.full_n', 'n=128'),
+    ('GAUSS_N, N_GAUSS, GAUSS_EPS = 1028, 20, 1e-3',
+     'GAUSS_N, N_GAUSS, GAUSS_EPS = 64, 10, 1e-3'),
+    ('N_VOL, VOL_SHAPE = "miranda-vx", 12, (256, 384, 384)',
+     'N_VOL, VOL_SHAPE = "miranda-vx", 8, (16, 24, 32)'),
+    ('"cuda"', '"cpu"'),
+    ('_build.build()', 'pass'),
+    ('    check_quotient(torch, ebs_t)\n', ''),
+    ('    missing = [n for n in needs if counts[n]["launches"] <= 0]',
+     '    missing = []'),
+    ('x.cpu()', 'x.clone()'),
+    ('kernels = check_kernels(torch, train, test, ebs_t)',
+     'kernels = [check_zfp(torch, test)]'),
+]
+
+
+class _Event:
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return 1e3 * (other.t - self.t)
+
+
+def main(argv=None) -> int:
+    src = (ROOT / "chip_smoke.py").read_text()
+    for old, new in CUTS:
+        if old not in src:
+            raise SystemExit(f"rehearse_smoke: chip_smoke.py no longer has {old!r}")
+        src = src.replace(old, new)
+    out_dir = ROOT / "build" / "rehearse"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "smoke_cpu.py").write_text(src)
+
+    import torch
+    cuda = torch.cuda
+    cuda.is_available = lambda: True
+    cuda.synchronize = lambda *a, **k: None
+    cuda.Event = _Event
+    cuda._sleep = lambda cycles: None
+    cuda.max_memory_allocated = lambda *a, **k: 0
+    cuda.get_device_name = lambda *a: "cpu rehearsal"
+    cuda.device_count = lambda: 1
+    sys.path.insert(0, str(out_dir))
+    import smoke_cpu
+    smoke_cpu.nvidia_smi_line = lambda: "cpu rehearsal (no card)"
+    return smoke_cpu.main(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
