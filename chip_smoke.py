@@ -58,15 +58,50 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               route), the five STUDY_3D CRs per volume, k-fold MedAPE per
               compressor, TTHRESH's RMSE against its eps;
 12. study kernels -- the kernels at every new shape phases 8-11 launched
-              them with, against their plain versions, timed.
-Phases 5 and 8-11 each set the kernels' launch counters to 0 just before
-they run and read them just after; a kernel a phase needs that it did
-not launch fails the run.  A kernel row's ``launches`` is the count of
+              them with, against their plain versions, timed;
+13. batch independence -- ``features_sweep`` (features and quality,
+              both q-ent routes) of a few slices alone, bit-equal to the
+              same slices inside their batch and inside a
+              ``sweep_padded`` bucket, at 1800^2 (4 of the 40), 1200^2 (3
+              of the 24), 1028^2 (3 of a Gaussian 20) and 256 x 384 x
+              384 (2 of the 12 volumes); the Gram alone equal to the Gram
+              in its batch at each shape (volumes: both unfoldings); and,
+              reported only, which library reductions the sweep used to
+              run over the batch (std, mean, eigvalsh, cumsum, a float64
+              sum, the entropy sum) give a row other bits in the batch;
+14. stream   -- the port's ``write_dataset`` writes a memmap dataset
+              under ``build/`` (removed at the end, pass or fail): 96
+              cesm-cloud slices of 1800^2 as float64 and 7 miranda-vx
+              volumes of 256 x 384 x 384 as float32.  ``stream_features``
+              at a 512 MiB budget (chunks 41 + 41 + 14 and 3 + 3 + 1):
+              the slices with quality under the default config at
+              prefetch 2, 0, 0 and 2 (timed in turns) and under
+              ``use_kernels=True``, the volumes under the default config,
+              each bit-equal to one in-memory sweep of the variable on
+              the card, the streaming digest (the last two streams hash
+              their chunks) equal to ``slice_digest``; wall time, rows/s, GB/s
+              read and peak device memory beside the in-memory sweep's.
+              Gram, q-ent and quality at the shapes the streams launched
+              them with (a chunk of 41 slices, one of 3 volumes, read
+              from the dataset), against their plain versions and timed,
+              as in phase 12.  Then the advise CLI on the dataset in a
+              subprocess (its ``main``, as ``python -m
+              repro_torch.launch.advise`` runs it, with the launches of
+              each variable's training and stream counted around the two
+              calls): a finite report, launches of Lorenzo and ZFP in its
+              training and of Gram, q-ent and quality in its stream, and
+              the 2-D variable's CRs equal to ``AdviseMethod.cr_table`` on
+              the in-memory features.  The tensors of phases 1-13 are
+              freed before it.
+Phases 5, 8-11 and 14 each set the kernels' launch counters to 0 just
+before they run and read them just after; a kernel a phase needs that
+it did not launch fails the run.  A kernel row's ``launches`` is the count of
 the first of these paths that launched its shape (the main path where it
 did), and ``launches_by_path`` gives each path's own count.
 
-``--profile`` traces the main path with ``torch.profiler`` (a separate
-run: tracing slows the host side) and reports the device's busy time.
+``--profile`` traces the main path and one stream of phase 14 with
+``torch.profiler`` (a separate run: tracing slows the host side) and
+reports the device's busy time.
 
 The last two lines of standard output are the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -75,9 +110,13 @@ per-kernel JSON record.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,6 +133,11 @@ GAUSS_N, N_GAUSS, GAUSS_EPS = 1028, 20, 1e-3        # Fig 5, the paper's size
 GAUSS_COMPRESSORS = ["sz2", "zfp", "mgard", "digitrounding", "bitgrooming"]
 VOL_FIELD, N_VOL, VOL_SHAPE = "miranda-vx", 12, (256, 384, 384)   # Table 4
 VOL_EB_REL = 1e-2
+# phase 14: a dataset on disk streamed within a chunk budget
+STREAM_FIELD, N_STREAM, STREAM_N = "cesm-cloud", 96, 1800   # float64 on disk
+N_STREAM_VOL = 7                                # miranda-vx, float32 on disk
+STREAM_BUDGET_MB = 512
+ADVISE_TIMEOUT_S = 600
 PLANT_EBS = (1e-5, 1e-3, 256.0)     # 256: quotients of tiny normals underflow
 QENT_BINS = 65536
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
@@ -101,6 +145,32 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 SPIN_CYCLES = 10_000_000    # ~5 ms at the H100's 1.98 GHz boost clock
 QUOTIENT_SPREAD = 52        # divisors beside the grid's in the quotient check
+# the advise CLI's main in a child process, with the kernel launches of
+# each variable's training and stream counted around the two calls and
+# written as JSON to argv[1]; the rest of argv is the CLI's
+ADVISE_CHILD = """
+import json, sys
+from repro_torch.core import stream as ST
+from repro_torch.kernels import wrappers
+from repro_torch.launch import advise as ADV
+launches = {}
+def counts():
+    return {k: fn.launches for k, fn in wrappers().items()}
+def counted(fn, phase):
+    def run(source, name, *args, **kwargs):
+        before = counts()
+        out = fn(source, name, *args, **kwargs)
+        after = counts()
+        launches.setdefault(name, {})[phase] = {
+            k: after[k] - before[k] for k in before}
+        return out
+    return run
+ADV.train_models = counted(ADV.train_models, "train")
+ST.stream_features = counted(ST.stream_features, "stream")
+ADV.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump(launches, f)
+"""
 
 
 def log(msg: str, card: str | None = None) -> None:
@@ -579,37 +649,30 @@ def check_qent_routes(torch, P, test, ebs):
 # launch windows and the studies after the main path
 # ---------------------------------------------------------------------------
 
-def kernel_fns():
-    """name -> the wrapper whose counters (``launches``, ``by_shape``)
-    count its kernel's launches."""
-    from repro_torch.kernels.gram import ops as gram_ops
-    from repro_torch.kernels.lorenzo import ops as lor_ops
-    from repro_torch.kernels.qent import ops as qent_ops
-    from repro_torch.kernels.quality import ops as q_ops
-    from repro_torch.kernels.zfp_block import ops as zfp_ops
-    return {"gram_batched": gram_ops.gram_batched,
-            "qent_histogram_sweep": qent_ops.qent_histogram_sweep,
-            "qdq_sse_sweep": q_ops.qdq_sse_sweep,
-            "lorenzo2d": lor_ops.lorenzo2d,
-            "zfp_forward2d": zfp_ops.zfp_forward2d}
-
-
 def zero_counts(torch):
+    from repro_torch.kernels import wrappers
     torch.cuda.synchronize()
-    for fn in kernel_fns().values():
+    for fn in wrappers().values():
         fn.launches = 0
         fn.by_shape.clear()
+
+
+def require_launches(what: str, launches: dict, needs) -> None:
+    """Raise if a kernel of ``needs`` has no launch in ``launches``."""
+    missing = [n for n in needs if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}")
 
 
 def read_counts(torch, phase: str, needs) -> dict:
     """The launches of a phase just run, by kernel and by shape; raises
     if a kernel the phase runs was launched no time."""
+    from repro_torch.kernels import wrappers
     torch.cuda.synchronize()
     counts = {name: {"launches": fn.launches, "by_shape": dict(fn.by_shape)}
-              for name, fn in kernel_fns().items()}
-    missing = [n for n in needs if counts[n]["launches"] <= 0]
-    if missing:
-        raise AssertionError(f"{phase} never launched {missing}")
+              for name, fn in wrappers().items()}
+    require_launches(phase, {n: c["launches"] for n, c in counts.items()},
+                     needs)
     log(f"{phase}: launches " + json.dumps(
         {n: {str(k): v for k, v in c["by_shape"].items()}
          for n, c in counts.items() if c["launches"]}))
@@ -853,6 +916,344 @@ def study_rows(torch, inputs):
     return rows
 
 
+def probe_batched_reductions(torch, batch, picks) -> dict:
+    """The library reductions the sweep used to run over a whole batch
+    (before ``quant.per_row``): for each, the number of picked rows
+    whose batched result differs from the row's result alone.  Reported,
+    not asserted: it says which steps depended on the batch."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.qent import ops as qent_ops, ref as qent_ref
+    k = batch.shape[0]
+    dims = tuple(range(1, batch.ndim))
+    flat = batch.reshape(k, -1)
+
+    def differ(fn, x):
+        whole = fn(x)
+        return sum(not torch.equal(fn(x[i:i + 1].clone())[0], whole[i])
+                   for i in picks)
+
+    if batch.ndim == 3:
+        u = batch - batch.mean(dim=1, keepdim=True)
+        g = gram_ops.gram_batched(u, True)
+    else:
+        u = (batch - batch.mean(dim=dims, keepdim=True)).reshape(
+            k, batch.shape[1], -1)
+        g = gram_ops.gram_batched(u, False)
+    ev = torch.clamp(torch.linalg.eigvalsh(g), min=0.0).flip(-1)
+    eps = torch.tensor([float(flat[0].amax() - flat[0].amin()) * 1e-3],
+                       device=batch.device)
+    hist = qent_ops.qent_histogram_sweep(flat, eps, QENT_BINS)
+    out = {"std": differ(lambda x: torch.std(x, dim=dims, correction=0),
+                         batch),
+           "mean (columns)" if batch.ndim == 3 else "mean (volume)": differ(
+               (lambda x: x.mean(dim=1)) if batch.ndim == 3
+               else (lambda x: x.mean(dim=dims)), batch),
+           "eigvalsh": differ(torch.linalg.eigvalsh, g),
+           "cumsum": differ(lambda x: torch.cumsum(x, dim=1), ev),
+           "float64 sum": differ(lambda x: x.sum(dim=1, dtype=torch.float64),
+                                 flat),
+           "entropy sum": differ(qent_ref._entropy_bits, hist)}
+    del u, g, ev, hist
+    return out
+
+
+def check_batch_independence(torch, cases, card):
+    """Phase 13: for each (what, batch, eb grid, picks), the sweep
+    (features and quality, sort and kernel q-ent) of each picked row
+    alone is bit-equal to its row in the batch's sweep and in a
+    ``sweep_padded`` bucket of the picked rows; the Gram of each picked
+    row alone equals its Gram in the batch (a 2-D batch mean-corrected
+    by columns, X^T X; a volume batch by its mean, both unfoldings'
+    X X^T)."""
+    from repro_torch.core import predictors as P
+    from repro_torch.dist import sweep as DS
+    from repro_torch.kernels.gram import ops as gram_ops
+    t = time.perf_counter()
+    probes = {}
+    for what, batch, epss, picks in cases:
+        k_pad = len(picks) + 3
+        for cfg in (P.PredictorConfig(), P.PredictorConfig(use_kernels=True)):
+            whole = torch.cat(P.features_sweep(batch, epss, cfg, quality=True),
+                              dim=-1)
+            bucket = DS.sweep_padded(batch[picks], epss, cfg, k_pad=k_pad,
+                                     mode="both")
+            for j, i in enumerate(picks):
+                alone = torch.cat(P.features_sweep(batch[i:i + 1], epss, cfg,
+                                                   quality=True), dim=-1)[0]
+                for got, where in ((whole[i], "its batch"),
+                                   (bucket[j], "a padded bucket")):
+                    if not torch.equal(alone, got):
+                        raise AssertionError(
+                            f"{what}: row {i} alone differs from the row in "
+                            f"{where} (use_kernels={cfg.use_kernels}) on "
+                            f"{int((alone != got).sum())} values")
+            del whole, bucket
+        if batch.ndim == 3:
+            x = batch - batch.mean(dim=1, keepdim=True)
+            grams = [(x, True)]
+        else:
+            x = batch - batch.mean(dim=(1, 2, 3), keepdim=True)
+            k, d, m, n = x.shape
+            grams = [(x.reshape(k, d, -1), False),
+                     (torch.movedim(x, 2, 1).reshape(k, m, -1), False)]
+        for u, tr in grams:
+            g = gram_ops.gram_batched(u, tr)
+            for i in picks:
+                if not torch.equal(gram_ops.gram_batched(u[i:i + 1], tr)[0],
+                                   g[i]):
+                    raise AssertionError(f"{what}: gram of row {i} alone "
+                                         f"differs from its batch's "
+                                         f"({tuple(u.shape)})")
+            del g
+        del x, grams
+        log(f"batch independence {what} {tuple(batch.shape)}: rows {picks} "
+            f"alone == in the batch == in a bucket of {k_pad}, features and "
+            "quality under both q-ent routes, and gram alone == in the batch")
+        probes[what] = probe_batched_reductions(torch, batch, picks)
+        log(f"batched library reductions, {what}: rows of {len(picks)} whose "
+            f"result in the batch differs from alone "
+            f"{json.dumps(probes[what])}")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, probes
+
+
+def stream_run(torch, ST, src, name, epss, cfg, prefetch, quality,
+               digest=None):
+    """One streamed sweep of a variable: (result, wall s, peak device
+    bytes above what was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = ST.stream_features(
+        src, name, epss, cfg, digest=digest, quality=quality, device="cuda",
+        stream=ST.StreamConfig(budget_bytes=int(STREAM_BUDGET_MB * 2 ** 20),
+                               prefetch=prefetch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return out, wall, torch.cuda.max_memory_allocated() - base
+
+
+def in_memory_run(torch, P, src, name, epss, cfg, quality):
+    """The whole variable read, put on the card and swept at once."""
+    x = torch.from_numpy(src.read(name)).to("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = P.features_sweep(x, epss, cfg, quality=quality)
+    out = (tuple(o.cpu().numpy() for o in out) if quality
+           else out.cpu().numpy())
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    del x
+    return out, wall, peak
+
+
+def same_bits(what, got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not np.array_equal(g.view(np.int32),
+                                                    w.view(np.int32)):
+            raise AssertionError(f"{what}: streamed result differs from the "
+                                 "in-memory sweep")
+
+
+def stream_rows(torch, src, name2d, vol_name, ebs):
+    """Gram, q-ent and quality at the shapes phase 14's streams launch
+    them with: a chunk of slices (the ragged last one is padded to it)
+    and a chunk of volumes at the stream budget, the first of each read
+    from the dataset, each against its plain version and timed as in
+    phase 12."""
+    budget = int(STREAM_BUDGET_MB * 2 ** 20)
+    ebs_t = torch.tensor(ebs, dtype=torch.float32, device="cuda")
+    x = torch.from_numpy(src.read_rows(
+        name2d, 0, src.chunk_rows(name2d, budget))).to("cuda")
+    rows = [gram_row(torch, x - x.mean(dim=1, keepdim=True), 5)]
+    flat = x.reshape(x.shape[0], -1)
+    rows.append(qent_row(torch, flat, ebs_t, 5))
+    rows.append(quality_row(torch, flat, ebs_t, 10))
+    del x, flat
+    v = torch.from_numpy(src.read_rows(
+        vol_name, 0, src.chunk_rows(vol_name, budget))).to("cuda")
+    vc = v - v.mean(dim=(1, 2, 3), keepdim=True)
+    del v
+    k, d, m, _ = vc.shape
+    for u in (vc.reshape(k, d, -1), torch.movedim(vc, 2, 1).reshape(k, m, -1)):
+        rows.append(gram_row(torch, u, 5, transpose=False, scaled=True))
+    del vc
+    return rows
+
+
+def phase_stream(torch, ebs, vol_eps, card, profile):
+    """Phase 14: a memmap dataset on disk, streamed and advised on.
+    Returns (record, launch counts of the streams, kernel rows at the
+    streams' shapes)."""
+    from repro_torch.core import predictors as P
+    from repro_torch.core import stream as ST
+    from repro_torch.data import source as SRC
+    from repro_torch.launch import advise as ADV
+    from repro_torch.serve.method import AdviseMethod, slice_digest
+    out = {}
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="stream_", dir=build)
+    try:
+        vol_name = VOL_FIELD + "-vol"
+        gen = SRC.GeneratorSource(
+            [SRC.FieldVariable(STREAM_FIELD, N_STREAM, (STREAM_N,)),
+             SRC.FieldVariable(VOL_FIELD, N_STREAM_VOL, VOL_SHAPE)],
+            device="cuda")
+        t = time.perf_counter()
+        path = SRC.write_dataset(
+            os.path.join(tmp, "ds"), gen,
+            dtype={STREAM_FIELD: "float64", vol_name: "float32"})
+        out["write_s"] = time.perf_counter() - t
+        src = SRC.open_dataset(path)
+        disk = {n: os.path.getsize(os.path.join(path, n + ".bin"))
+                for n in src.variables()}
+        log(f"stream dataset: {dict(zip(src.variables(), (src.meta(n).shape for n in src.variables())))}, "
+            f"{sum(disk.values()) / 1e9:.3f} GB on disk, written in "
+            f"{out['write_s']:.2f} s", card)
+        kernel_cfg = P.PredictorConfig(use_kernels=True)
+        budget = int(STREAM_BUDGET_MB * 2 ** 20)
+        chunks = {n: [min(src.chunk_rows(n, budget), src.meta(n).rows - lo)
+                      for lo in range(0, src.meta(n).rows,
+                                      src.chunk_rows(n, budget))]
+                  for n in src.variables()}
+        log(f"stream chunks at {STREAM_BUDGET_MB} MiB: {chunks}")
+
+        # the streams, counters read around them
+        zero_counts(torch)
+        runs = {}
+        # prefetch 2 and 0 in turns (2, 0, 0, 2), none hashing its chunks
+        for key, depth in (("2d_prefetch2", 2), ("2d_prefetch0", 0),
+                           ("2d_prefetch0_again", 0),
+                           ("2d_prefetch2_again", 2)):
+            runs[key] = stream_run(torch, ST, src, STREAM_FIELD, ebs,
+                                   P.PredictorConfig(), depth, True)
+        digest = SRC.StreamingDigest()
+        runs["2d_kernels_digest"] = stream_run(
+            torch, ST, src, STREAM_FIELD, ebs, kernel_cfg, 2, True, digest)
+        vdigest = SRC.StreamingDigest()
+        runs["vol"] = stream_run(torch, ST, src, vol_name, [vol_eps],
+                                 P.PredictorConfig(), 2, False, vdigest)
+        counts = read_counts(torch, "Stream", (
+            "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                _, wall, _ = stream_run(torch, ST, src, STREAM_FIELD, ebs,
+                                        P.PredictorConfig(), 2, True)
+            out["profile"] = profile_summary(torch, prof, wall, card)
+
+        # the in-memory sweeps they must equal, bit for bit
+        want2d, mem_s, mem_peak = in_memory_run(torch, P, src, STREAM_FIELD,
+                                                ebs, P.PredictorConfig(), True)
+        for key in ("2d_prefetch2", "2d_prefetch0", "2d_prefetch0_again",
+                    "2d_prefetch2_again"):
+            same_bits(f"2-D, {key}", runs[key][0], want2d)
+        want_k, mem_k_s, _ = in_memory_run(torch, P, src, STREAM_FIELD, ebs,
+                                           kernel_cfg, True)
+        same_bits("2-D, use_kernels", runs["2d_kernels_digest"][0], want_k)
+        want_v, mem_v_s, mem_v_peak = in_memory_run(
+            torch, P, src, vol_name, [vol_eps], P.PredictorConfig(), False)
+        same_bits("volumes", runs["vol"][0], want_v)
+        for n, d in ((STREAM_FIELD, digest), (vol_name, vdigest)):
+            if d.digest() != slice_digest(src.read(n)):
+                raise AssertionError(f"{n}: streaming digest != slice_digest")
+        log("stream: every streamed result bit-equal to the in-memory sweep "
+            "(2-D with quality at prefetch 2 and 0 and under use_kernels; "
+            "volumes); streaming digests == slice_digest (hashed in the "
+            "use_kernels and volume streams)")
+        for key, (_, wall, peak) in runs.items():
+            name = vol_name if key == "vol" else STREAM_FIELD
+            meta = src.meta(name)
+            out[key] = {"wall_s": wall, "rows_per_s": meta.rows / wall,
+                        "gb_read_per_s": disk[name] / wall / 1e9,
+                        "peak_gib": peak / 2 ** 30}
+            log(f"stream {key}: {wall:.3f} s, {meta.rows / wall:.2f} rows/s, "
+                f"{disk[name] / wall / 1e9:.3f} GB/s read, peak device "
+                f"memory {peak / 2 ** 30:.2f} GiB", card)
+        out["in_memory"] = {"2d_s": mem_s, "2d_kernels_s": mem_k_s,
+                            "vol_s": mem_v_s, "2d_peak_gib": mem_peak / 2 ** 30,
+                            "vol_peak_gib": mem_v_peak / 2 ** 30}
+        log(f"in-memory sweeps: 2-D {mem_s:.3f} s (use_kernels {mem_k_s:.3f} "
+            f"s), volumes {mem_v_s:.3f} s; peak device memory 2-D "
+            f"{mem_peak / 2 ** 30:.2f} GiB, volumes "
+            f"{mem_v_peak / 2 ** 30:.2f} GiB", card)
+        del want_k, want_v
+        rows = stream_rows(torch, src, STREAM_FIELD, vol_name, ebs)
+
+        # the advise CLI as a user runs it, launches counted around it
+        report_path = os.path.join(tmp, "report.json")
+        launches_path = os.path.join(tmp, "launches.json")
+        cmd = [sys.executable, "-c", ADVISE_CHILD, launches_path, path,
+               "--targets", "4,8,16", "--compressors", "sz2,sz3-lorenzo,zfp",
+               "--psnr-floor", "60", "--budget-mb", str(STREAM_BUDGET_MB),
+               "--use-kernels", "--device", "cuda", "--out", report_path]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        # the subprocess's compressor runs need tens of GiB of the card:
+        # hand back what this process's allocator holds cached
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"advise starts with {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
+            f"GiB of the card free ({torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+            " GiB allocated by this process)")
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=ADVISE_TIMEOUT_S)
+        out["advise_s"] = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"advise exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(report_path) as f:
+            report = json.load(f)
+        with open(launches_path) as f:
+            launches = json.load(f)
+        for line in proc.stdout.strip().splitlines():
+            log(f"advise | {line}")
+        for name, var in report["variables"].items():
+            nums = [c for cs in var["cr_by_compressor"].values() for c in cs]
+            nums += var["psnr_by_eb"]
+            for rec in var["targets"].values():
+                nums += [rec["eb"], rec["predicted_cr"], rec["predicted_psnr"]]
+            if not np.all(np.isfinite(nums)):
+                raise AssertionError(f"advise: non-finite report for {name}")
+            require_launches(f"advise's stream of {name}",
+                             launches[name]["stream"],
+                             ("gram_batched", "qent_histogram_sweep",
+                              "qdq_sse_sweep"))
+        require_launches(f"advise's training on {STREAM_FIELD}",
+                         launches[STREAM_FIELD]["train"],
+                         ("lorenzo2d", "zfp_forward2d"))
+        log("advise launches " + json.dumps(launches))
+        # its 2-D CRs from the same models on the in-memory features
+        var = report["variables"][STREAM_FIELD]
+        models, aebs, _ = ADV.train_models(
+            src, STREAM_FIELD, compressors=["sz2", "sz3-lorenzo", "zfp"],
+            grid_rels=ADV.DEFAULT_GRID_RELS, train_rows=6, cfg=kernel_cfg,
+            device="cuda")
+        feats = P.features_sweep(torch.from_numpy(src.read(STREAM_FIELD)).to(
+            "cuda"), aebs, kernel_cfg).cpu().numpy()
+        var_cr = ADV.harmonic_cr(AdviseMethod.cr_table(models, feats))
+        for ci, comp in enumerate(models):
+            if var["cr_by_compressor"][comp] != [float(c) for c in var_cr[ci]]:
+                raise AssertionError(
+                    f"advise {comp}: CRs {var['cr_by_compressor'][comp]} != "
+                    f"cr_table on the in-memory features {var_cr[ci].tolist()}")
+        log(f"advise: {out['advise_s']:.2f} s wall; report finite; "
+            f"{STREAM_FIELD} CRs == cr_table on the in-memory features", card)
+        out["advise_report"] = report
+        out["advise_launches"] = launches
+        return out, counts, rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -873,7 +1274,7 @@ def main(argv=None) -> int:
     from repro_torch.core import usecases as UC
     from repro_torch.data import scientific as TS
     from repro_torch.dist import sweep as DS
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, wrappers
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -949,7 +1350,7 @@ def main(argv=None) -> int:
     stages["uc3_s"] = time.perf_counter() - t
     torch.cuda.synchronize()
     stages["main_path_s"] = time.perf_counter() - t_main
-    counts = {"main path": read_counts(torch, "main path", kernel_fns())}
+    counts = {"main path": read_counts(torch, "main path", wrappers())}
     profiled = None
     if prof is not None:
         prof.__exit__(None, None, None)
@@ -1062,6 +1463,34 @@ def main(argv=None) -> int:
         "zfp": [gauss[0]]})
     stages["study_kernels_s"] = time.perf_counter() - t
 
+    # ---- phase 13: a row's bits do not depend on its batch
+    def picks(x, n):
+        return sorted({int(i) for i in np.linspace(0, x.shape[0] - 1, n)})
+
+    stages["batch_independence_s"], batch_probes = check_batch_independence(
+        torch, [
+        (f"{FIELD} slices", data, ebs, picks(data, 4)),
+        (f"{SCALE_FIELD} slices", scale, [scale_eps], picks(scale, 3)),
+        ("Gaussian type-4 samples", gauss, [GAUSS_EPS], picks(gauss, 3)),
+        (f"{VOL_FIELD} volumes", vols, [vol_eps], picks(vols, 2))], smi)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # ---- phase 14: a dataset on disk, streamed and advised on; the
+    # tensors of phases 1-13 go first, so that it and the advise
+    # subprocess find the card free
+    data_shape = list(data.shape)
+    del data, train, test, caches, models, lorenzo, feats40, scale, gauss
+    del vols, vc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14 starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        "GiB allocated")
+    t = time.perf_counter()
+    streamed, counts["Stream"], stream_kernels = phase_stream(
+        torch, ebs, vol_eps, smi, args.profile)
+    kernels += stream_kernels
+    stages["stream_phase_s"] = time.perf_counter() - t
+
     # every row's launches in each path that launched its shape; its
     # `launches` is the count of the first of them (the main path where it
     # launched the shape), never a sum over paths
@@ -1082,21 +1511,21 @@ def main(argv=None) -> int:
 
     log("stages s " + json.dumps({k: round(v, 3) for k, v in stages.items()}),
         smi)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"peak device memory {peak_gb:.2f} GiB")
+    log(f"peak device memory {peak_gb:.2f} GiB (phases 1-13)")
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             device=smi, torch=torch.__version__, lossless=lossless.BACKEND,
-            field=FIELD, shape=list(data.shape), ebs=list(map(float, ebs)),
+            field=FIELD, shape=data_shape, ebs=list(map(float, ebs)),
             compressors=names, stages=stages, kernels=kernels,
             qent_routes=qent_routes, medape=medape, uc1_err=uc1_err,
             uc1_target=target, uc2_agree=uc2_agree, uc2_best=best_true,
             uc2_pick=[p for p, _ in uc2], uc2_loss_pct=uc2_loss,
             measured_crs=measured.tolist(),
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
-            studies=studies, launches_by_path={
+            studies=studies, stream=streamed, batch_probes=batch_probes,
+            launches_by_path={
                 p: {n: {"launches": c["launches"],
                         "by_shape": {str(k): v for k, v in c["by_shape"].items()}}
                     for n, c in cs.items()} for p, cs in counts.items()}),

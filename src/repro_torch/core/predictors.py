@@ -28,6 +28,14 @@ tensor on the card, its plain version for a tensor on the CPU.
 makes them outside any kernel.  Every entry point reads a subnormal
 value as a zero of its sign, as the reference does
 (``quant.flush_subnormals``), but ``entropy``, which codes bit patterns.
+
+A row's features do not depend on the batch it is swept in: the Gram
+kernel fixes its numerics from the slice's shape, ``eigvalsh`` solves
+each matrix alone, and every library reduction whose batched form adds
+a row in another order (the means, sigma, the trunc-fraction sums, the
+float64 and the histogram entropy sums) runs on each row alone
+(``quant.per_row``).  So a slice gets the same bits alone, in its batch
+and in a padded bucket, which streaming and serving rely on.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.qent import ops as qent_ops
 from repro_torch.kernels.quality import ops as quality_ops
 from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN, flush_subnormals
+from repro_torch.quant import SQRT_MIN_NORMAL, per_row
 from repro_torch.quant import scalar as _scalar
 from repro_torch.quant import validate_eps_positive as _validate_eps_positive
 
@@ -61,10 +70,14 @@ class PredictorConfig:
 def _trunc_fraction(g: torch.Tensor, variance_fraction: float) -> torch.Tensor:
     """(k, p, p) Gram stack -> (k,) fraction of eigenvalues (descending)
     needed to reach ``variance_fraction`` of the total; a zero-variance
-    matrix yields 1/p."""
+    matrix yields 1/p.  ``eigvalsh`` solves each matrix of the batch on
+    its own (one LAPACK / cuSOLVER call per matrix, bit-equal alone and
+    in any batch at the sweep's sizes); the total and the ``cumsum``
+    are summed row by row, since their batched forms add a row in an
+    order that depends on the batch."""
     ev = torch.clamp(torch.linalg.eigvalsh(g), min=0.0).flip(-1)
-    total = ev.sum(dim=1, keepdim=True)
-    cum = torch.cumsum(ev, dim=1)
+    total = per_row(lambda r: r.sum(dim=1, keepdim=True), ev)
+    cum = per_row(lambda r: torch.cumsum(r, dim=1), ev)
     frac = torch.where(total > 0, cum / torch.clamp(total, min=1e-30),
                        torch.ones_like(cum))
     needed = 1 + (frac < variance_fraction).sum(dim=1)
@@ -78,8 +91,9 @@ def svd_trunc_batch(slices: torch.Tensor,
     if slices.ndim != 3:
         raise ValueError(f"svd_trunc_batch expects (k, m, n), got "
                          f"{tuple(slices.shape)}")
-    x = slices.to(torch.float32)
-    x = x - x.mean(dim=1, keepdim=True)          # mean-corrected columns
+    x = slices.to(torch.float32).contiguous()
+    # mean-corrected columns
+    x = x - per_row(lambda r: r.mean(dim=1, keepdim=True), x)
     _, m, n = x.shape
     return _trunc_fraction(gram_ops.gram_batched(x, transpose=m >= n),
                            variance_fraction)
@@ -110,8 +124,9 @@ def hosvd_trunc_batch(vols: torch.Tensor,
         raise ValueError(
             f"hosvd_trunc_batch expects a (k, d, m, n) volume stack "
             f"(rank >= 4), got {tuple(vols.shape)}; wrap one volume as x[None]")
-    x = vols.to(torch.float32)
-    x = x - x.mean(dim=tuple(range(1, x.ndim)), keepdim=True)
+    x = vols.to(torch.float32).contiguous()
+    mean = per_row(lambda r: r.mean().reshape(1), x)
+    x = x - mean.reshape((-1,) + (1,) * (x.ndim - 1))
     fracs = []
     for mode in range(x.ndim - 1):
         u = _unfold_batch(x, mode)
@@ -151,7 +166,7 @@ def _sorted_entropy(xs: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     j = (iota - run_start + 1).to(torch.float32)
     del run_start
     g = j * torch.log2(j) - (j - 1) * torch.log2(torch.clamp(j - 1, min=1))
-    s = g.sum(dim=1, dtype=torch.float64)
+    s = per_row(lambda r: r.sum(dim=1, dtype=torch.float64), g)
     return (np.log2(float(n)) - s / n).to(torch.float32)
 
 
@@ -238,11 +253,22 @@ def entropy(x: torch.Tensor, num_bins: int = 65536) -> torch.Tensor:
     return _entropy_from_counts(torch.bincount(idx, minlength=num_bins))
 
 
+def _sigma(x: torch.Tensor) -> torch.Tensor:
+    """(k, ...) stack -> (k,) population standard deviations, each row
+    alone.  XLA's CPU reads a subnormal square or variance as zero, so
+    the reference's sigma is 0 wherever the variance is below 2^-126
+    (a row whose centred values all lie below 2^-63); elsewhere the
+    squares it flushes move the variance by less than its rounding."""
+    s = per_row(lambda r: torch.std(r, correction=0).reshape(1),
+                x.contiguous())
+    return torch.where(s < SQRT_MIN_NORMAL, 0.0, s)
+
+
 def _looped_features(x: torch.Tensor, eps: float, cfg: "PredictorConfig",
                      trunc) -> torch.Tensor:
     _validate_eps_positive(eps)
     x = flush_subnormals(x.to(torch.float32))
-    sigma = torch.std(x, correction=0)
+    sigma = _sigma(x[None])[0]
     qe = _quantized_entropy(x, eps, cfg.qent_bins, cfg.use_kernels)
     return torch.stack([torch.log(torch.clamp(qe, min=1e-3)),
                         _log_ratio(trunc(x), sigma)])
@@ -303,10 +329,10 @@ def _features_sweep_impl(slices: torch.Tensor, epss: torch.Tensor, *,
     if mode not in SWEEP_MODE_WIDTHS:
         raise ValueError(f"unknown sweep mode {mode!r}; expected one of "
                          f"{sorted(SWEEP_MODE_WIDTHS)}")
-    x = slices.to(torch.float32)
+    x = slices.to(torch.float32).contiguous()
     outs = []
     if mode in ("features", "both"):
-        sigma = torch.std(x, dim=tuple(range(1, x.ndim)), correction=0)
+        sigma = _sigma(x)
         sv = (svd_trunc_batch(x, vf) if x.ndim == 3
               else hosvd_trunc_batch(x, vf))
         log_ratio = _log_ratio(sv, sigma)
@@ -361,7 +387,7 @@ def _svd_sigma(x: torch.Tensor, vf: float):
     xf = x.to(torch.float32)
     sv = (svd_trunc_batch(xf[None], vf) if x.ndim == 2
           else hosvd_trunc_batch(xf[None], vf))[0]
-    return sv, torch.std(xf, correction=0)
+    return sv, _sigma(xf[None])[0]
 
 
 class SliceCache:
@@ -430,6 +456,8 @@ class FeaturizationEngine:
     * ``sweep(slices, epss)``  -- (k, m, n) x (e,) -> (k, e, 2), one pass.
     * ``features(slices, eps)`` -- (k, 2): the e=1 column of the sweep.
     * ``quality(slices, epss)`` -- (k, e, 2) PSNR/NRMSE.
+    * ``stream(source, name, epss)`` -- the sweep of a dataset variable,
+                                  chunk by chunk (``core.stream``).
     * ``cached(x)``            -- per-slice :class:`SliceCache`.
 
     Volumes are first-class: every entry point also accepts a (k, d, m, n)
@@ -446,6 +474,19 @@ class FeaturizationEngine:
 
     def features(self, slices: torch.Tensor, eps: float) -> torch.Tensor:
         return self.sweep(slices, [eps])[:, 0, :]
+
+    def stream(self, source, name: str, epss, *, stream=None, digest=None,
+               quality: bool = False, device="cuda"):
+        """Out-of-core sweep of one ``data.source.DatasetSource``
+        variable: chunked, staged ahead, bit-equal to
+        ``sweep(source.read(name), epss)`` on ``device`` with at most a
+        few budgeted chunks resident (``core.stream.stream_features``).
+        ``quality=True`` returns the streamed ``(features, quality)``
+        pair from the same chunk launches."""
+        from repro_torch.core import stream as ST
+        return ST.stream_features(source, name, epss, self.cfg,
+                                  stream=stream, digest=digest,
+                                  quality=quality, device=device)
 
     def cached(self, x: torch.Tensor, *, features=None, epss=None) -> SliceCache:
         c = SliceCache(x, self.cfg)

@@ -33,32 +33,40 @@
 //     hit 32 distinct banks.  The ragged edge (1800 = 14 * 128 + 8) is
 //     zero-filled by cp.async's source size, so nothing is padded or
 //     cropped;
-//   * few tiles (a k = 1 slice of a small edge, or a volume unfolding
-//     with N <= 512 and T >= 65536) split the contraction over a thread
-//     block cluster of 2, 4 or 8 CTAs, until the grid fills the SMs.
-//     Each CTA leaves its partial tile in its own shared memory, and
-//     after a cluster barrier CTA r sums rows r * 128/S ... of all S
-//     partials, over distributed shared memory, in rank order: no float
-//     atomics, so every run gives the same bits;
+//   * the contraction is cut into chunks of chunk_t (a multiple of the
+//     32-deep stage) by a rule of the slice's own (N, T) that the wrapper
+//     computes (kernels/gram/ops.py: contraction_chunks), never of the
+//     batch or the card: so a slice gets the same bits alone, in its
+//     batch or in a padded bucket.  One chunk (every slice edge up to a
+//     few thousand) writes its tile of G directly.  Several chunks (a
+//     volume's mode unfolding, T ~ 10^5) give each (chunk, tile, slice)
+//     its own CTA, which writes its partial tile to global memory; a
+//     second kernel sums each entry's partials in chunk order: no float
+//     atomics, and 24-36 chunks a tile fill the 132 SMs where a cluster
+//     of at most 8 left them idle;
 //   * numerics: each 32-deep stage of the contraction is summed into a
 //     fresh register partial (its first product a multiply) and then
 //     added to the running sum (the TPU kernel's bk blocking), which
 //     keeps the rounding error of a long sum well below one sequential
-//     chain.  Every product is __fmul_rn / __fmaf_rn and every sum
-//     __fadd_rn, so on a diagonal tile (i, j) and (j, i) are the same
-//     bits, and elsewhere the mirror writes one value twice.
+//     chain.  Every product and sum is PTX's mul/fma/add.rn.ftz.f32:
+//     round to nearest, and a subnormal operand or result reads as a
+//     zero, as XLA's CPU dot reads and writes it (a slice whose centred
+//     values all lie below 2^-63 has a zero Gram there, and here).  The
+//     .ftz forms time the same as __fmul_rn / __fmaf_rn / __fadd_rn
+//     (tools/ab_kernels.py --gram-rn); nvcc's -ftz=true is not used,
+//     since it would move the other kernels' operations.  So on
+//     a diagonal tile (i, j) and (j, i) are the same bits, and elsewhere
+//     the mirror writes one value twice.
 //
 // On the H100 80GB HBM3 at 700 W this reaches about half the FP32 bound
-// at (32, 1800, 1800) and beats torch.bmm / torch.mm at every main-path
-// shape (PERF.md, from chip_smoke.py).  Registers (233 a thread on the
-// main path's 16-byte route) allow one 256-thread CTA per SM, so a
-// k = 8 stack takes 8 waves for 7.3 waves of tiles.
+// at (32, 1800, 1800) and beats torch.bmm / torch.mm at every slice
+// shape; at Table 4's volume unfoldings it reaches ~30 % (its X X^T
+// copies are 4 bytes wide) and beats torch.bmm at (12, 256, 147456) but
+// not at (12, 384, 98304) (PERF.md, from chip_smoke.py).  Registers
+// (185-223 a thread) allow one 256-thread CTA per SM.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -70,13 +78,30 @@ constexpr int THREADS = 256;       // 16 x 16 threads, 8 x 8 outputs each
 constexpr int LD = BM + 4;         // padded row, still 16-byte aligned
 constexpr int STAGE_FLOATS = 2 * BK * LD;
 constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
-constexpr int MAX_SPLIT = 8;
-constexpr int MIN_SPLIT_T = 256;   // contraction a split CTA keeps at least
-
-static_assert(SMEM_BYTES >= BM * BM * (int)sizeof(float),
-              "the split reduction reuses the staging ring");
+constexpr int TILE_FLOATS = BM * BM;
+constexpr int REDUCE_THREADS = 256;
 
 enum Mode { VEC_ROWS = 0, ROWS = 1, COLS = 2 };
+
+// round-to-nearest float32 arithmetic that reads a subnormal operand and
+// writes a subnormal result as a zero of its sign (XLA's CPU rule)
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float r;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(r) : "f"(a), "f"(b), "f"(c));
+  return r;
+}
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool valid) {
@@ -150,13 +175,18 @@ __device__ __forceinline__ void store4(float* g, int N, int i, int j,
   }
 }
 
-// grid: (splits, upper tiles, k); a cluster of `splits` CTAs along x
-// shares one output tile when splits > 1.
-template <int MODE>
+// grid: (chunks, upper tiles, k).  With one chunk (PARTIAL false) the
+// CTA writes its tile of G (and the mirror); with several it writes its
+// partial tile to partial[((s * upper + tile) * chunks + chunk) * BM * BM],
+// which gram_reduce_kernel sums in chunk order.  PARTIAL is a template
+// argument, so the one-chunk kernel of every slice shape holds no code of
+// the partial path.
+template <int MODE, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS, 1)
-gram_kernel(const float* __restrict__ x, float* __restrict__ g, int T, int N,
-            int tiles, long long slice_stride, long long stride_t,
-            long long stride_a, int splits, int t_per_split, int vec_out) {
+gram_kernel(const float* __restrict__ x, float* __restrict__ g,
+            float* __restrict__ partial, int T, int N, int tiles,
+            long long slice_stride, long long stride_t, long long stride_a,
+            int chunks, int chunk_t, int vec_out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -164,12 +194,12 @@ gram_kernel(const float* __restrict__ x, float* __restrict__ g, int T, int N,
   while (idx >= tiles - bi) { idx -= tiles - bi; ++bi; }
   const int bj = bi + idx;
   const int s = blockIdx.z;
-  const int rank = blockIdx.x;               // == cluster block rank
+  const int chunk = blockIdx.x;
   const float* xs = x + (long long)s * slice_stride;
   float* gs = g + (long long)s * N * N;
   const int i0 = bi * BM, j0 = bj * BM;
-  const int t_lo = rank * t_per_split;
-  const int t_hi = min(T, t_lo + t_per_split);
+  const int t_lo = chunk * chunk_t;
+  const int t_hi = min(T, t_lo + chunk_t);
   const int ntiles = t_hi > t_lo ? (t_hi - t_lo + BK - 1) / BK : 0;
 
   const int tid = threadIdx.x;
@@ -221,96 +251,105 @@ gram_kernel(const float* __restrict__ x, float* __restrict__ g, int T, int N,
       for (int r = 0; r < 8; ++r)
 #pragma unroll
         for (int c = 0; c < 8; ++c)
-          part[r][c] = kk == 0 ? __fmul_rn(a[r], b[c])
-                               : __fmaf_rn(a[r], b[c], part[r][c]);
+          part[r][c] = kk == 0 ? mul_ftz(a[r], b[c])
+                               : fma_ftz(a[r], b[c], part[r][c]);
     }
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = __fadd_rn(acc[r][c], part[r][c]);
+      for (int c = 0; c < 8; ++c) acc[r][c] = add_ftz(acc[r][c], part[r][c]);
   }
   cp_async_wait<0>();
 
-  const bool mirror = bi != bj;
-  if (splits == 1) {
+  if (PARTIAL) {          // partial tile, row-major, for the reduction
+    float* pt = partial +
+        (((long long)s * gridDim.y + blockIdx.y) * chunks + chunk) * TILE_FLOATS;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
-      for (int hc = 0; hc < 2; ++hc) {
-        const int ib = i0 + hr * 64 + ty * 4;
-        const int jb = j0 + hc * 64 + tx * 4;
+      for (int hc = 0; hc < 2; ++hc)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          store4(gs, N, ib + r, jb, acc[hr * 4 + r][hc * 4 + 0],
-                 acc[hr * 4 + r][hc * 4 + 1], acc[hr * 4 + r][hc * 4 + 2],
-                 acc[hr * 4 + r][hc * 4 + 3], vec_out);
-        if (mirror) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            store4(gs, N, jb + c, ib, acc[hr * 4 + 0][hc * 4 + c],
-                   acc[hr * 4 + 1][hc * 4 + c], acc[hr * 4 + 2][hc * 4 + c],
-                   acc[hr * 4 + 3][hc * 4 + c], vec_out);
-        }
-      }
+          *reinterpret_cast<float4*>(
+              pt + (hr * 64 + ty * 4 + r) * BM + hc * 64 + tx * 4) =
+              make_float4(acc[hr * 4 + r][hc * 4 + 0],
+                          acc[hr * 4 + r][hc * 4 + 1],
+                          acc[hr * 4 + r][hc * 4 + 2],
+                          acc[hr * 4 + r][hc * 4 + 3]);
     return;
   }
-
-  // split contraction: partial tile -> own shared memory, then CTA
-  // `rank` sums its rows of all partials in rank order
-  cg::cluster_group cluster = cg::this_cluster();
-  __syncthreads();                           // ring no longer read
+  const bool mirror = bi != bj;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
-    for (int hc = 0; hc < 2; ++hc)
+    for (int hc = 0; hc < 2; ++hc) {
+      const int ib = i0 + hr * 64 + ty * 4;
+      const int jb = j0 + hc * 64 + tx * 4;
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        *reinterpret_cast<float4*>(
-            smem + (hr * 64 + ty * 4 + r) * BM + hc * 64 + tx * 4) =
-            make_float4(acc[hr * 4 + r][hc * 4 + 0], acc[hr * 4 + r][hc * 4 + 1],
-                        acc[hr * 4 + r][hc * 4 + 2], acc[hr * 4 + r][hc * 4 + 3]);
-  cluster.sync();
-  const int rows = BM / splits;
-  for (int e = tid; e < rows * BM; e += THREADS) {
-    const int il = rank * rows + e / BM;
-    const int jl = e % BM;
-    float sum = *cluster.map_shared_rank(smem + il * BM + jl, 0);
-    for (int q = 1; q < splits; ++q)
-      sum = __fadd_rn(sum, *cluster.map_shared_rank(smem + il * BM + jl, q));
-    const int i = i0 + il, j = j0 + jl;
-    if (i < N && j < N) {
-      gs[(long long)i * N + j] = sum;
-      if (mirror) gs[(long long)j * N + i] = sum;
+        store4(gs, N, ib + r, jb, acc[hr * 4 + r][hc * 4 + 0],
+               acc[hr * 4 + r][hc * 4 + 1], acc[hr * 4 + r][hc * 4 + 2],
+               acc[hr * 4 + r][hc * 4 + 3], vec_out);
+      if (mirror) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          store4(gs, N, jb + c, ib, acc[hr * 4 + 0][hc * 4 + c],
+                 acc[hr * 4 + 1][hc * 4 + c], acc[hr * 4 + 2][hc * 4 + c],
+                 acc[hr * 4 + 3][hc * 4 + c], vec_out);
+      }
     }
-  }
-  cluster.sync();                            // partials read by all
+}
+
+// grid: (BM * BM / REDUCE_THREADS, upper tiles, k).  Entry e of a tile is
+// the sum of its chunks' partials, added in chunk order from the first;
+// consecutive threads read consecutive entries of each partial tile.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+gram_reduce_kernel(const float* __restrict__ partial, float* __restrict__ g,
+                   int N, int tiles, int chunks) {
+  int idx = blockIdx.y, bi = 0;
+  while (idx >= tiles - bi) { idx -= tiles - bi; ++bi; }
+  const int bj = bi + idx;
+  const int e = blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  const int i = bi * BM + e / BM, j = bj * BM + e % BM;
+  if (i >= N || j >= N) return;
+  const float* p = partial +
+      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * chunks * TILE_FLOATS + e;
+  float sum = p[0];
+  for (int c = 1; c < chunks; ++c)
+    sum = add_ftz(sum, p[(long long)c * TILE_FLOATS]);
+  float* gs = g + (long long)blockIdx.z * N * N;
+  gs[(long long)i * N + j] = sum;
+  if (bi != bj) gs[(long long)j * N + i] = sum;
 }
 
 template <int MODE>
-int launch(const float* x, float* g, int k, int T, int N, int tiles,
-           long long upper, long long slice_stride, long long stride_t,
-           long long stride_a, int splits, int t_per_split, int vec_out,
-           cudaStream_t stream) {
+int launch(const float* x, float* g, float* partial, int k, int T, int N,
+           int tiles, long long upper, long long slice_stride,
+           long long stride_t, long long stride_a, int chunks, int chunk_t,
+           int vec_out, cudaStream_t stream) {
+  const dim3 grid(chunks, (unsigned)upper, k);
+  if (chunks == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gram_kernel<MODE, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    gram_kernel<MODE, false><<<grid, THREADS, SMEM_BYTES, stream>>>(
+        x, g, partial, T, N, tiles, slice_stride, stride_t, stride_a, chunks,
+        chunk_t, vec_out);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      gram_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_kernel<MODE, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (unsigned)upper, k);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, gram_kernel<MODE>, x, g, T, N, tiles,
-                           slice_stride, stride_t, stride_a, splits,
-                           t_per_split, vec_out);
+  gram_kernel<MODE, true><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      x, g, partial, T, N, tiles, slice_stride, stride_t, stride_a, chunks,
+      chunk_t, vec_out);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  gram_reduce_kernel<<<dim3(TILE_FLOATS / REDUCE_THREADS, (unsigned)upper, k),
+                       REDUCE_THREADS, 0, stream>>>(partial, g, N, tiles,
+                                                    chunks);
   return (int)cudaGetLastError();
 }
 
@@ -318,10 +357,15 @@ int launch(const float* x, float* g, int k, int T, int N, int tiles,
 
 // x: k slices of (m, n) float32, row-major, contiguous.
 // g: k outputs of (N, N) float32, N = n if xtx else m.
-// Returns cudaGetLastError() after the launch (or the error that
-// refused it: no fallback).
-extern "C" int repro_gram_batched(const float* x, float* g, int k, int m,
-                                  int n, int xtx, void* stream) {
+// chunks, chunk_t: the contraction T (m if xtx else n) in `chunks` pieces
+// of chunk_t, a multiple of 32, the last one ragged; the wrapper's rule.
+// partial: k * upper * chunks * 128 * 128 float32 scratch when chunks > 1
+// (upper = tiles * (tiles + 1) / 2, tiles = ceil(N / 128)), else unused.
+// Returns cudaGetLastError() after the launches (or the error that
+// refused one: no fallback).
+extern "C" int repro_gram_batched(const float* x, float* g, float* partial,
+                                  int k, int m, int n, int xtx, int chunks,
+                                  int chunk_t, void* stream) {
   const int T = xtx ? m : n;
   const int N = xtx ? n : m;
   const long long stride_t = xtx ? n : 1;
@@ -329,19 +373,11 @@ extern "C" int repro_gram_batched(const float* x, float* g, int k, int m,
   if (k <= 0 || N <= 0) return (int)cudaGetLastError();
   const int tiles = (N + BM - 1) / BM;
   const long long upper = (long long)tiles * (tiles + 1) / 2;
-  if (upper > 65535 || k > 65535) return (int)cudaErrorInvalidValue;
-
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // split the contraction while the CTAs (one per SM) stay under one
-  // wave and each keeps at least MIN_SPLIT_T of it
-  int splits = 1;
-  while (splits < MAX_SPLIT && upper * k * splits * 2 <= sms &&
-         T / (splits * 2) >= MIN_SPLIT_T)
-    splits *= 2;
-  const int t_per_split =
-      splits == 1 ? T : ((T + splits - 1) / splits + BK - 1) / BK * BK;
+  if (upper > 65535 || k > 65535 || chunks < 1 || chunk_t % BK != 0 ||
+      (long long)chunks * chunk_t < T ||
+      (long long)(chunks - 1) * chunk_t >= (T > 0 ? T : 1))
+    return (int)cudaErrorInvalidValue;
+  if (chunks > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
 
   const int vec_out = N % 4 == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
   const bool vec_in = xtx && n % 4 == 0 &&
@@ -349,11 +385,11 @@ extern "C" int repro_gram_batched(const float* x, float* g, int k, int m,
   const cudaStream_t st = (cudaStream_t)stream;
   const long long ss = (long long)m * n;
   if (!xtx)
-    return launch<COLS>(x, g, k, T, N, tiles, upper, ss, stride_t, stride_a,
-                        splits, t_per_split, vec_out, st);
+    return launch<COLS>(x, g, partial, k, T, N, tiles, upper, ss, stride_t,
+                        stride_a, chunks, chunk_t, vec_out, st);
   if (vec_in)
-    return launch<VEC_ROWS>(x, g, k, T, N, tiles, upper, ss, stride_t,
-                            stride_a, splits, t_per_split, vec_out, st);
-  return launch<ROWS>(x, g, k, T, N, tiles, upper, ss, stride_t, stride_a,
-                      splits, t_per_split, vec_out, st);
+    return launch<VEC_ROWS>(x, g, partial, k, T, N, tiles, upper, ss,
+                            stride_t, stride_a, chunks, chunk_t, vec_out, st);
+  return launch<ROWS>(x, g, partial, k, T, N, tiles, upper, ss, stride_t,
+                      stride_a, chunks, chunk_t, vec_out, st);
 }

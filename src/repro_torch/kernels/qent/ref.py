@@ -3,6 +3,7 @@ import torch
 
 from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN
 from repro_torch.quant import flush_subnormals as _ftz
+from repro_torch.quant import per_row
 
 
 def hash_codes(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
@@ -33,10 +34,22 @@ def qent_histogram_sweep(x: torch.Tensor, epss: torch.Tensor,
 
 
 def entropy_bits_rows(hist: torch.Tensor) -> torch.Tensor:
-    """Entropy (bits/symbol) along the last (bins) axis of a histogram
-    stack, float32 like the reference's ``entropy_bits_rows``."""
+    """Entropy (bits/symbol) along the last (bins) axis of a (k, ...,
+    bins) histogram stack, float32 like the reference's
+    ``entropy_bits_rows``.  The terms are elementwise (and the counts'
+    total an integer sum), the same bits in any batch; each slice's
+    float32 sum of its terms is taken alone, since a batched sum adds
+    them in an order that depends on the batch."""
+    return per_row(lambda t: -t.sum(dim=-1), _entropy_terms(hist))
+
+
+def _entropy_bits(hist: torch.Tensor) -> torch.Tensor:
+    """:func:`entropy_bits_rows` summed over the whole batch at once."""
+    return -_entropy_terms(hist).sum(dim=-1)
+
+
+def _entropy_terms(hist: torch.Tensor) -> torch.Tensor:
     n = torch.clamp(hist.sum(dim=-1, keepdim=True), min=1)
     p = hist.to(torch.float32) / n.to(torch.float32)
-    terms = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)),
-                        torch.zeros_like(p))
-    return -terms.sum(dim=-1)
+    return torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)),
+                       torch.zeros_like(p))

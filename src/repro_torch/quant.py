@@ -1,6 +1,6 @@
 """Shared quantization plumbing: code-range saturation, eps validation,
-the float32 error-bound scalars, edge padding to whole blocks and the
-reference's reading of subnormals.
+the float32 error-bound scalars, edge padding to whole blocks, the
+reference's reading of subnormals and per-row reductions.
 
 The constants and helpers every quantizing route (the q-ent histogram,
 the quality SSE, the compressors, the kernels' plain versions) must
@@ -20,6 +20,7 @@ INT32_CODE_MIN = -2147483648.0
 INT32_CODE_MAX = 2147483520.0
 
 MIN_NORMAL = 2.0 ** -126     # the smallest normal float32
+SQRT_MIN_NORMAL = 2.0 ** -63  # below it a square or product is subnormal
 
 
 def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +35,25 @@ def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
     ``csrc/flush.cuh``).  One elementwise pass; infinities and NaNs pass
     through."""
     return torch.where(x.abs() < MIN_NORMAL, x * 0.0, x)
+
+
+def per_row(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of each row ``x[i:i + 1]`` alone, concatenated along dim 0.
+
+    PyTorch's reductions choose how to split a sum from the number of
+    outputs and from the address's alignment, so a reduction over a
+    batch can add a row in another order when the batch changes.  A row
+    reduced alone, at a 16-byte aligned address, has the same shape,
+    strides and alignment in any batch, so its result is the same bits
+    alone, in its batch or in a padded bucket, as the reference's sweep
+    body is.  Streaming and serving rely on this."""
+    if x.shape[0] == 0:
+        return fn(x)
+    outs = []
+    for i in range(x.shape[0]):
+        row = x[i:i + 1]
+        outs.append(fn(row if row.data_ptr() % 16 == 0 else row.clone()))
+    return torch.cat(outs)
 
 
 def to_int32(x: torch.Tensor) -> torch.Tensor:

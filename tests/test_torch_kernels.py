@@ -36,9 +36,9 @@ def _field(seed, shape, scale=1.0):
 _GRAM_SHAPES = [(3, 64, 64), (2, 130, 70), (3, 70, 130), (1, 100, 97)]
 _GRAM_CASES = [pytest.param(s, t, id=f"{t}-shape{i}")
                for t in (True, False) for i, s in enumerate(_GRAM_SHAPES)] + [
-    # a volume unfolding's X X^T (long contraction, few output tiles: the
-    # CUDA kernel's split-contraction path) and a ragged edge both ways
-    pytest.param((2, 16, 4096), False, id="False-tall_skinny"),
+    # a volume unfolding's X X^T (a contraction of three CUDA-kernel
+    # chunks, summed by its second pass) and a ragged edge both ways
+    pytest.param((2, 16, 9000), False, id="False-tall_skinny"),
     pytest.param((1, 257, 129), True, id="True-ragged"),
     pytest.param((1, 257, 129), False, id="False-ragged"),
 ]
@@ -52,6 +52,35 @@ def test_gram_batched_matches_reference(shape, transpose):
     got = tgram.gram_batched(torch.from_numpy(x), transpose).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("m, n, transpose, chunks", [
+    (1800, 1800, True, 1), (1200, 1200, True, 1), (1028, 1028, True, 1),
+    (4096, 64, True, 1), (4097, 64, True, 2), (16, 9000, False, 3),
+    (256, 147456, False, 36), (384, 98304, False, 24)])
+def test_gram_chunk_rule_depends_on_the_slice_only(m, n, transpose, chunks):
+    """The kernel's contraction chunks are a function of the slice's
+    (N, T) alone: the same for any batch, every slice edge up to 1800
+    unsplit, a volume unfolding cut into 4096-long chunks."""
+    plans = {tgram.launch_plan((k, m, n), transpose) for k in (1, 5, 12, 40)}
+    assert plans == {((n, m) if transpose else (m, n)) + (chunks,)}
+    assert tgram.contraction_chunks(plans.pop()[1]) == chunks
+
+
+def test_gram_plain_version_flushes_subnormal_products():
+    """The plain version reads subnormal products as zeros, as XLA's CPU
+    dot does: a slice below 2^-63 has a zero Gram, and a column of
+    ordinary values keeps its (normal) products with the tiny ones."""
+    from repro.kernels.gram import ops as jgram
+    rng = np.random.default_rng(4)
+    tiny = (rng.standard_normal((2, 40, 48)) * 2.0 ** -66).astype(np.float32)
+    tiny[1, :, 0] = 1.0 + rng.standard_normal(40).astype(np.float32)
+    for tr in (True, False):
+        want = np.asarray(jgram.gram_batched(jnp.asarray(tiny), transpose=tr))
+        got = tgram.gram_batched(torch.from_numpy(tiny), tr).numpy()
+        assert not got[0].any() and not want[0].any()
+        np.testing.assert_array_equal(got == 0, want == 0)
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-3)
 
 
 def test_gram_unbatched_is_k1_case():
@@ -314,8 +343,8 @@ def test_cuda_kernel_matches_plain_version(kernel):
     x = torch.rand((3, 130, 70), generator=g, device="cuda") * 2 - 0.5
     epss = torch.tensor([1e-3, 1e-2, 0.1], device="cuda")
     if kernel == "gram":
-        # the last input splits its long contraction over a cluster
-        vol = torch.rand((2, 16, 4096), generator=g, device="cuda") - 0.3
+        # the last input's contraction is three chunks (two passes)
+        vol = torch.rand((2, 16, 9000), generator=g, device="cuda") - 0.3
         for inp in (x, x[:1, :129, :69].contiguous(), vol):
             for tr in (True, False):
                 got = tgram.gram_batched(inp, tr)

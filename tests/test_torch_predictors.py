@@ -304,6 +304,56 @@ def test_features_2d_cached_matches(stacks):
                                    rtol=0, atol=1e-5)
 
 
+# ------------------------------------------------- batch independence
+@pytest.mark.parametrize("rank", [3, 4])
+def test_tiny_slice_matches_reference(rank):
+    """A slice (or volume) whose centred values all lie below 2^-63: its
+    products and squares are subnormal, so XLA's CPU reads a zero Gram
+    and sigma 0; the port's trunc, sigma and sweep row agree."""
+    rng = np.random.default_rng(5)
+    shape = (2, 40, 48) if rank == 3 else (2, 6, 12, 10)
+    x = (rng.standard_normal(shape) * 2.0 ** -66).astype(np.float32)
+    x[1] = rng.standard_normal(shape[1:]).astype(np.float32)
+    ebs = [1e-3, 1e-2]
+    jtrunc = (JP.svd_trunc_batch if rank == 3 else JP.hosvd_trunc_batch)
+    ttrunc = (TP.svd_trunc_batch if rank == 3 else TP.hosvd_trunc_batch)
+    want = np.asarray(jtrunc(jnp.asarray(x)))
+    got = ttrunc(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert float(TP._sigma(torch.from_numpy(x))[0]) == 0.0 == float(
+        jnp.std(jnp.asarray(x[0])))
+    np.testing.assert_allclose(
+        TP._sigma(torch.from_numpy(x)).numpy()[1], np.std(x[1]), rtol=1e-5)
+    want = np.asarray(JP.features_sweep(jnp.asarray(x), ebs, sharded=False))
+    got = TP.features_sweep(torch.from_numpy(x), ebs).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    sv, sigma = TP._svd_sigma(torch.from_numpy(x[0]),
+                              TP.variance_fraction_for(TP.PredictorConfig(),
+                                                       rank))
+    assert float(sigma) == 0.0
+    assert float(sv) == float(jtrunc(jnp.asarray(x[:1]))[0])
+
+
+@pytest.mark.parametrize("rank", [3, 4])
+@pytest.mark.parametrize("mode", ["features", "quality", "both"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_row_alone_equals_row_in_batch(stacks, rank, mode, use_kernels):
+    """A slice swept alone, inside a batch of 5 and inside a padded
+    bucket gives the same bits (the reference's row independence, which
+    streaming relies on)."""
+    from repro_torch.dist import sweep as TDS
+    x, ebs = stacks[rank]
+    x = torch.from_numpy(np.concatenate([x, x[::-1] * 0.5 + 0.25, x[:1]])[:5])
+    cfg = TP.PredictorConfig(use_kernels=use_kernels, qent_bins=4096)
+    batch = TP._sweep(x, ebs, cfg, mode)
+    bucket = TDS.sweep_padded(x[1:4], ebs, cfg, k_pad=8, mode=mode)
+    for i in range(5):
+        alone = TP._sweep(x[i:i + 1], ebs, cfg, mode)[0]
+        assert torch.equal(alone, batch[i]), i
+        if 1 <= i < 4:
+            assert torch.equal(alone, bucket[i - 1]), i
+
+
 # --------------------------------------------------------------- boundaries
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))

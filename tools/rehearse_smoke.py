@@ -5,7 +5,8 @@
 
 Writes a copy of ``chip_smoke.py`` to ``build/rehearse/`` with the sizes
 cut (12 + 4 slices of 128 x 128, 10 Gaussian samples of 64 x 64, 8
-volumes of 16 x 24 x 32), every tensor on the CPU, the kernel build,
+volumes of 16 x 24 x 32; a streamed dataset of 10 slices of 64 x 64 and
+7 volumes at a 64 KiB budget), every tensor on the CPU, the kernel build,
 the quotient proof and the launch-count checks left out and the
 kernel-check phase cut to ZFP's, then runs it with ``torch.cuda``'s
 timing calls replaced by host-clock stand-ins.  Every wrapper takes
@@ -27,10 +28,13 @@ CUTS = [
      'GAUSS_N, N_GAUSS, GAUSS_EPS = 64, 10, 1e-3'),
     ('N_VOL, VOL_SHAPE = "miranda-vx", 12, (256, 384, 384)',
      'N_VOL, VOL_SHAPE = "miranda-vx", 8, (16, 24, 32)'),
+    ('N_STREAM, STREAM_N = "cesm-cloud", 96, 1800',
+     'N_STREAM, STREAM_N = "cesm-cloud", 10, 64'),
+    ('STREAM_BUDGET_MB = 512', 'STREAM_BUDGET_MB = 0.0625'),
     ('"cuda"', '"cpu"'),
     ('_build.build()', 'pass'),
     ('    check_quotient(torch, ebs_t)\n', ''),
-    ('    missing = [n for n in needs if counts[n]["launches"] <= 0]',
+    ('    missing = [n for n in needs if launches.get(n, 0) <= 0]',
      '    missing = []'),
     ('x.cpu()', 'x.clone()'),
     ('kernels = check_kernels(torch, train, test, ebs_t)',
@@ -66,6 +70,9 @@ def main(argv=None) -> int:
     cuda.Event = _Event
     cuda._sleep = lambda cycles: None
     cuda.max_memory_allocated = lambda *a, **k: 0
+    cuda.memory_allocated = lambda *a, **k: 0
+    cuda.reset_peak_memory_stats = lambda *a, **k: None
+    cuda.mem_get_info = lambda *a, **k: (0, 0)
     cuda.get_device_name = lambda *a: "cpu rehearsal"
     cuda.device_count = lambda: 1
     sys.path.insert(0, str(out_dir))
