@@ -68,7 +68,35 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               in its batch at each shape (volumes: both unfoldings); and,
               reported only, which library reductions the sweep used to
               run over the batch (std, mean, eigvalsh, cumsum, a float64
-              sum, the entropy sum) give a row other bits in the batch;
+              sum, the entropy sum) give a row other bits in the batch.
+              Then the eb grid: each of 4 slices at 1800^2 and 2 volumes
+              at each eb of a 6-eb grid, features under both q-ent routes
+              and quality, bit-equal swept at that eb alone, in the grid,
+              in an 8-eb bucket padded with its last eb and in a 12-eb
+              union; reported only, how many values the kernel route's
+              entropy sum gave other bits in its old form (a library
+              sum over a row's (e, bins) terms);
+15. serve    -- (run after 13, before 14 frees phase 5's models)
+              ``SweepService`` on the card: 8 client threads x 64
+              requests of its seven methods (featurize on the 6-eb grid
+              and on a 3-eb subgrid with one eb off it, find_eb with
+              sz3-lorenzo at targets 4, 8, 16, best_compressor over the
+              8 models at the grid's third eb, advise over the 8,
+              find_setting at PSNR >= 60 dB and CR >= 8, quality on the
+              grid, kv_gate on 16 leaves of 4 M float32 values, 4 of
+              them repeated) over 4 hot held-out slices and the other 4
+              once each, once under the default config and once under
+              ``use_kernels=True``; a second pass over the hot rows and
+              the leaves launches nothing; then the first pass again on
+              the default config with 8 post-processing threads, not 2;
+              every served result is bit-equal to the port's direct
+              call on the card; wall time, requests/s, latency by
+              method, launches, padded and deduplicated rows, cache
+              hits, the window, the model predictions made and the
+              post-processing seconds by method; before it, on the idle
+              card, the host time of one prediction (the fixed-order
+              row sum beside the library mat-vec) and of one advise
+              request's 8 x 6 predictions;
 14. stream   -- the port's ``write_dataset`` writes a memmap dataset
               under ``build/`` (removed at the end, pass or fail): 96
               cesm-cloud slices of 1800^2 as float64 and 7 miranda-vx
@@ -91,13 +119,27 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               calls): a finite report, launches of Lorenzo and ZFP in its
               training and of Gram, q-ent and quality in its stream, and
               the 2-D variable's CRs equal to ``AdviseMethod.cr_table`` on
-              the in-memory features.  The tensors of phases 1-13 are
-              freed before it.
-Phases 5, 8-11 and 14 each set the kernels' launch counters to 0 just
-before they run and read them just after; a kernel a phase needs that
-it did not launch fails the run.  A kernel row's ``launches`` is the count of
-the first of these paths that launched its shape (the main path where it
-did), and ``launches_by_path`` gives each path's own count.
+              the in-memory features.  The same CLI with ``--service``
+              (every chunk through an in-process ``SweepService``,
+              counted the same way) gives the same report.  The tensors
+              of phases 1-13 and 15 are freed before it.
+16. serve CLI -- ``python -m repro_torch.launch.sweep_serve`` in a
+              subprocess (cesm-cloud at 1800^2, zfp trained on 10
+              slices, 8 clients x 8 UC1/UC2 requests): a finite report,
+              ZFP launched in its training and Gram in its serving, its
+              launches by shape read from its report;
+17. path rows -- every kernel at every shape a path below launched it
+              with that no row above holds (Serve's batches and warmup,
+              the advise runs' training and padded service chunks, the
+              load CLI), against its plain version and timed, on fresh
+              cesm-cloud slices and miranda-vx volumes.
+Phases 5, 8-11, 14 and 15 each set the kernels' launch counters to 0 just
+before they run and read them just after, and the three subprocesses
+(advise, advise ``--service``, the load CLI) count theirs by shape
+around their work; a kernel a path needs that it did not launch fails
+the run.  A kernel row's ``launches`` is the count of the first of these
+paths that launched its shape (the main path where it did), and
+``launches_by_path`` gives each path's own count.
 
 ``--profile`` traces the main path and one stream of phase 14 with
 ``torch.profiler`` (a separate run: tracing slows the host side) and
@@ -112,6 +154,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -138,6 +181,22 @@ STREAM_FIELD, N_STREAM, STREAM_N = "cesm-cloud", 96, 1800   # float64 on disk
 N_STREAM_VOL = 7                                # miranda-vx, float32 on disk
 STREAM_BUDGET_MB = 512
 ADVISE_TIMEOUT_S = 600
+# phase 15: the sweep service, 8 clients x 64 requests of the seven
+# methods (featurize on the grid and on a 3-eb subgrid with one eb off
+# it), 4 hot held-out slices and the other 4 once each
+SEED = 0
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 64, 4
+SERVE_KINDS = ("featurize", "featurize_sub", "find_eb", "best_compressor",
+               "advise", "find_setting", "quality", "kv_gate")
+SERVE_COLD_KINDS = ("featurize", "find_eb", "best_compressor", "quality")
+SERVE_TARGETS = (4.0, 8.0, 16.0)
+SERVE_CR_FLOOR, SERVE_PSNR_FLOOR = 8.0, 60.0
+SERVE_CACHE_BYTES = 64 << 20     # the 4 MiB default raised for the hot rows
+SERVE_PROBE_POST_WORKERS = 8     # a third run: the pool at 8 threads, not 2
+KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 4 << 20
+# phase 16: the load CLI at the main path's width
+SERVE_CLI_N = 1800
+SERVE_CLI_TIMEOUT_S = 600
 PLANT_EBS = (1e-5, 1e-3, 256.0)     # 256: quotients of tiny normals underflow
 QENT_BINS = 65536
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
@@ -146,30 +205,29 @@ PEAK_F32_FLOPS = 67e12
 SPIN_CYCLES = 10_000_000    # ~5 ms at the H100's 1.98 GHz boost clock
 QUOTIENT_SPREAD = 52        # divisors beside the grid's in the quotient check
 # the advise CLI's main in a child process, with the kernel launches of
-# each variable's training and stream counted around the two calls and
-# written as JSON to argv[1]; the rest of argv is the CLI's
+# each variable's training and sweep (streamed, or served with
+# --service) counted around the calls, in all and by shape, and written
+# as JSON to argv[1]; the rest of argv is the CLI's
 ADVISE_CHILD = """
 import json, sys
-from repro_torch.core import stream as ST
-from repro_torch.kernels import wrappers
+from repro_torch import kernels as K
 from repro_torch.launch import advise as ADV
-launches = {}
-def counts():
-    return {k: fn.launches for k, fn in wrappers().items()}
-def counted(fn, phase):
-    def run(source, name, *args, **kwargs):
-        before = counts()
-        out = fn(source, name, *args, **kwargs)
-        after = counts()
-        launches.setdefault(name, {})[phase] = {
-            k: after[k] - before[k] for k in before}
-        return out
-    return run
-ADV.train_models = counted(ADV.train_models, "train")
-ST.stream_features = counted(ST.stream_features, "stream")
+trained, out = {}, {}
+def train(source, name, *args, _train=ADV.train_models, **kwargs):
+    res = _train(source, name, *args, **kwargs)
+    trained[name] = K.launch_counts()
+    return res
+def variable(source, name, *args, _variable=ADV.advise_variable, **kwargs):
+    before = K.launch_counts()
+    res = _variable(source, name, *args, **kwargs)
+    (t, ts), (s, ss) = (K.launches_since(before, trained[name]),
+                        K.launches_since(trained[name]))
+    out[name] = {"train": t, "sweep": s, "by_shape": {"train": ts, "sweep": ss}}
+    return res
+ADV.train_models, ADV.advise_variable = train, variable
 ADV.main(sys.argv[2:])
 with open(sys.argv[1], "w") as f:
-    json.dump(launches, f)
+    json.dump(out, f)
 """
 
 
@@ -290,13 +348,13 @@ def gram_row(torch, x, reps, cold=False, transpose=True, scaled=False):
         library_ms=timer(torch, library, reps))
 
 
-def qent_row(torch, flat, eps_t, reps, cold=False):
+def qent_row(torch, flat, eps_t, reps, cold=False, bins=QENT_BINS):
     """qent_histogram_sweep on a (k, 3 240 000) stack at 65536 bins,
     bit-equal to the plain version, timed (no single PyTorch call
     computes it)."""
     from repro_torch.kernels.qent import ops as qent_ops, ref as qent_ref
     k, nel = flat.shape
-    e, bins = eps_t.shape[0], QENT_BINS
+    e = eps_t.shape[0]
     got = qent_ops.qent_histogram_sweep(flat, eps_t, bins)
     want = qent_ref.qent_histogram_sweep(flat, eps_t, bins)
     torch.cuda.synchronize()
@@ -309,7 +367,8 @@ def qent_row(torch, flat, eps_t, reps, cold=False):
     log(f"check qent_histogram_sweep ({k}, {nel}) x {e} eps x {bins} bins: "
         "bit-equal")
     return dict(
-        name=f"qent_histogram_sweep ({k}, {nel}) x {e}", route="cuda",
+        name=f"qent_histogram_sweep ({k}, {nel}) x {e}"
+             + ("" if bins == QENT_BINS else f" x {bins} bins"), route="cuda",
         source="src/repro_torch/csrc/qent.cu",
         replaces="src/repro/kernels/qent/qent.py:129",
         shape=(k, nel, e, bins), max_abs_err=0.0, tolerance="bit-equal",
@@ -370,7 +429,7 @@ def quality_row(torch, flat, eps_t, reps):
     from repro_torch.kernels.quality import ops as q_ops, ref as q_ref
     k, nel = flat.shape
     e = eps_t.shape[0]
-    check_quality(torch, flat, eps_t, "main-path shape")
+    check_quality(torch, flat, eps_t, "the timed shape")
     b_ms, b_by = bound(4.0 * (k * nel + e + k * e), 9.0 * k * nel * e)
     return dict(
         name=f"qdq_sse_sweep ({k}, {nel}) x {e}", route="cuda",
@@ -497,13 +556,22 @@ def check_lorenzo(torch, test, ebs_t):
             raise AssertionError(
                 f"lorenzo kernel differs on {int((got != want).sum())} "
                 f"codes (shape {tuple(x.shape)}, eps {eps:.3g})")
-    x, eps = test[0], ebs[1]
-    b_ms, b_by = bound(8.0 * m * n, 8.0 * m * n)
     log(f"check lorenzo2d {k} x ({m}, {n}) x {len(ebs)} ebs and "
         f"{len(ragged)} ragged shapes x 2 ebs: bit-equal")
+    return lorenzo_row(torch, test[0], ebs[1])
+
+
+def lorenzo_row(torch, x, eps):
+    """lorenzo2d timed cold on one (m, n) slice, as sz3-lorenzo's encode
+    calls it, beside its plain version (the codes bit-equal)."""
+    from repro_torch.kernels.lorenzo import ops as lor_ops, ref as lor_ref
+    m, n = x.shape
+    if not torch.equal(lor_ops.lorenzo2d(x, eps), lor_ref.lorenzo2d(x, eps)):
+        raise AssertionError(f"lorenzo kernel differs at {(m, n)}")
+    b_ms, b_by = bound(8.0 * m * n, 8.0 * m * n)
     return dict(
-        name="lorenzo2d", route="cuda",
-        source="src/repro_torch/csrc/lorenzo.cu",
+        name="lorenzo2d" + ("" if m == 1800 else f" ({m}, {n})"),
+        route="cuda", source="src/repro_torch/csrc/lorenzo.cu",
         replaces="src/repro/kernels/lorenzo/lorenzo.py:61",
         shape=(m, n), max_abs_err=0.0, tolerance="bit-equal",
         ms=cold_cuda_ms(torch, lambda: lor_ops.lorenzo2d(x, eps), 50),
@@ -556,9 +624,13 @@ def check_zfp(torch, test):
 
 def zfp_row(torch, x):
     """zfp_forward2d timed cold on one (m, n) slice, as a zfp encode of a
-    slice calls it, beside its plain version."""
+    slice calls it, beside its plain version (coefficients and exponents
+    bit-equal)."""
     from repro_torch.kernels.zfp_block import ops as zfp_ops, ref as zfp_ref
     m, n = x.shape
+    got, want = zfp_ops.zfp_forward2d(x), zfp_ref.zfp_forward2d(x)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"zfp kernel differs at {(m, n)}")
     b_ms, b_by = bound((8.0 + 0.25) * m * n, 8.0 * m * n)
     return dict(
         name="zfp_forward2d" + ("" if m == 1800 else f" ({m}, {n})"),
@@ -952,7 +1024,8 @@ def probe_batched_reductions(torch, batch, picks) -> dict:
            "cumsum": differ(lambda x: torch.cumsum(x, dim=1), ev),
            "float64 sum": differ(lambda x: x.sum(dim=1, dtype=torch.float64),
                                  flat),
-           "entropy sum": differ(qent_ref._entropy_bits, hist)}
+           "entropy sum": differ(
+               lambda h: -qent_ref._entropy_terms(h).sum(dim=-1), hist)}
     del u, g, ev, hist
     return out
 
@@ -1015,6 +1088,423 @@ def check_batch_independence(torch, cases, card):
             f"{json.dumps(probes[what])}")
     torch.cuda.synchronize()
     return time.perf_counter() - t, probes
+
+
+def eb_grids(grid):
+    """The eb grids a row at each eb of ``grid`` is held across: the eb
+    alone, the grid, the grid padded to the next eb bucket with its last
+    eb repeated, and a union with as many other ebs interleaved before,
+    between and after the grid's."""
+    g = [float(e) for e in grid]
+    others = [g[0] * 0.5] + [float(np.sqrt(a * b)) for a, b in
+                             zip(g[:-1], g[1:])]
+    union = sorted(g + others[:len(g)])
+    bucket = g + [g[-1]] * 2
+    return {"6": g, "8": bucket, "12": union}
+
+
+def probe_old_entropy_sum(torch, flat, grids):
+    """The kernel route's entropy sum in its old form (a library sum over
+    each row's (1, e, bins) terms): the number of (row, eb) values that
+    differ from the same eb summed alone, per grid.  Reported, not
+    asserted."""
+    from repro_torch.kernels.qent import ops as qent_ops, ref as qent_ref
+    from repro_torch.quant import per_row
+
+    def old(epss):
+        eps_t = torch.tensor(epss, dtype=torch.float32, device=flat.device)
+        hist = qent_ops.qent_histogram_sweep(flat, eps_t, QENT_BINS)
+        return per_row(lambda t: -t.sum(dim=-1),
+                       qent_ref._entropy_terms(hist))
+
+    grid = grids["6"]
+    alone = torch.cat([old([e]) for e in grid], dim=1)
+    out = {}
+    for name, epss in grids.items():
+        got = old(epss)
+        cols = [epss.index(e) for e in grid]
+        out[name] = int((got[:, cols] != alone).sum())
+    return out
+
+
+def check_eb_independence(torch, cases, card):
+    """Phase 13, eb grids: for each (what, rows, grid), each row's
+    features (both q-ent routes) and quality at each eb of the grid are
+    bit-equal swept at that eb alone, in the grid, in its padded eb
+    bucket and in a 12-eb union; and, reported only, how many values the
+    old form of the kernel route's entropy sum gave other bits."""
+    from repro_torch.core import predictors as P
+    t = time.perf_counter()
+    probes = {}
+    for what, rows, grid in cases:
+        grids = eb_grids(grid)
+        runs = [(f"features use_kernels={uk}",
+                 lambda x, e, uk=uk: P.features_sweep(
+                     x, e, P.PredictorConfig(use_kernels=uk)))
+                for uk in (False, True)]
+        runs.append(("quality", lambda x, e: P.quality_sweep(x, e)))
+        for name, sweep in runs:
+            alone = torch.cat([sweep(rows, [e]) for e in grids["6"]], dim=1)
+            for gname, epss in grids.items():
+                got = sweep(rows, epss)
+                cols = [epss.index(e) for e in grids["6"]]
+                if not torch.equal(got[:, cols], alone):
+                    raise AssertionError(
+                        f"{what}: {name} at the grid's ebs differs between "
+                        f"one eb alone and a grid of {gname} on "
+                        f"{int((got[:, cols] != alone).sum())} values")
+            del alone, got
+        probes[what] = probe_old_entropy_sum(
+            torch, rows.reshape(rows.shape[0], -1), grids)
+        log(f"eb independence {what} {tuple(rows.shape)}: each row at each "
+            f"of {len(grid)} ebs alone == in grids of 6, 8 (padded) and 12 "
+            "(union), features under both q-ent routes and quality; the old "
+            "entropy sum's values differing from alone per grid "
+            f"{json.dumps(probes[what])}", card)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, probes
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the sweep service under concurrent clients
+# ---------------------------------------------------------------------------
+
+def serve_plan(n_hot: int, n_cold: int):
+    """Each client's requests as (kind, slice index, target CR): kinds
+    and hot slices in rotation (every (kind, hot slice) pair recurs, so
+    each hot row is admitted to the cache), the cold slices once each as
+    the first request of the first clients."""
+    plan = []
+    for c in range(SERVE_CLIENTS):
+        reqs = []
+        for r in range(SERVE_REQUESTS):
+            kind = SERVE_KINDS[(c + r) % len(SERVE_KINDS)]
+            reqs.append((kind, (c + r // len(SERVE_KINDS)) % n_hot,
+                         SERVE_TARGETS[(c + r) % len(SERVE_TARGETS)]))
+        plan.append(reqs)
+    for j in range(n_cold):
+        plan[j][0] = (SERVE_COLD_KINDS[j % len(SERVE_COLD_KINDS)], n_hot + j,
+                      SERVE_TARGETS[j % len(SERVE_TARGETS)])
+    return plan
+
+
+def serve_submit(svc, req, ctx):
+    kind, i, target = req
+    x = ctx["slices"][i]
+    if kind == "featurize":
+        return svc.submit_featurize(x[None], ctx["ebs"])
+    if kind == "featurize_sub":
+        return svc.submit_featurize(x[None], ctx["sub"])
+    if kind == "find_eb":
+        return svc.submit_find_eb(ctx["lorenzo"], x, target)
+    if kind == "best_compressor":
+        return svc.submit_best_compressor(ctx["uc2"], x, ctx["eps2"])
+    if kind == "advise":
+        return svc.submit_advise(ctx["models"], ctx["pairs"][i])
+    if kind == "find_setting":
+        return svc.submit_find_setting(ctx["models"], x,
+                                       cr_floor=SERVE_CR_FLOOR,
+                                       psnr_floor=SERVE_PSNR_FLOOR)
+    if kind == "quality":
+        return svc.submit_quality(x[None], ctx["ebs"])
+    return svc.submit_kv_gate(ctx["leaves"])
+
+
+def serve_direct(torch, req, ctx):
+    """The port's direct call for one request, on the card."""
+    from repro_torch.core import predictors as P
+    from repro_torch.core import usecases as UC
+    from repro_torch.serve.method import AdviseMethod
+    from repro_torch.train import grad_compress as GC
+    kind, i, target = req
+    cfg = ctx["cfg"]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+
+    x = dev(ctx["slices"][i])
+    if kind == "featurize":
+        return P.features_sweep(x[None], ctx["ebs"], cfg).cpu().numpy()
+    if kind == "featurize_sub":
+        return P.features_sweep(x[None], ctx["sub"], cfg).cpu().numpy()
+    if kind == "find_eb":
+        return UC.find_error_bound_for_cr(ctx["lorenzo"], x, target)
+    if kind == "best_compressor":
+        return UC.best_compressor(ctx["uc2"], x, ctx["eps2"])
+    if kind == "advise":
+        feats = P.features_sweep(dev(ctx["pairs"][i]), ctx["ebs"], cfg)
+        return AdviseMethod.cr_table(ctx["models"], feats.cpu().numpy())
+    if kind == "find_setting":
+        return UC.find_setting(ctx["models"], x, cr_floor=SERVE_CR_FLOOR,
+                               psnr_floor=SERVE_PSNR_FLOOR)
+    if kind == "quality":
+        return P.quality_sweep(x[None], ctx["ebs"], cfg).cpu().numpy()
+    return np.stack([GC.predicted_cr_int8(dev(leaf)).cpu().numpy()
+                     for leaf in ctx["leaves"]])
+
+
+def same_result(got, want) -> bool:
+    if isinstance(want, np.ndarray):
+        if isinstance(got, dict):
+            got = got["cr"]
+        return got.shape == want.shape and np.array_equal(
+            got.view(np.int64 if got.dtype == np.float64 else np.int32),
+            want.view(np.int64 if want.dtype == np.float64 else np.int32))
+    return got == want
+
+
+def serve_traffic(svc, plan, ctx):
+    """Every client thread submits its requests one after another and
+    waits for each.  Returns (results by (client, request), latencies
+    in ms by kind, wall s)."""
+    import threading
+    results, lat, errors = {}, {}, []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for r, req in enumerate(plan[c]):
+                t = time.perf_counter()
+                out = serve_submit(svc, req, ctx).result(timeout=600)
+                ms = (time.perf_counter() - t) * 1e3
+                with lock:
+                    results[(c, r)] = out
+                    lat.setdefault(req[0], []).append(ms)
+        except Exception as exc:        # raised after the join
+            errors.append(exc)
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(plan))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    if errors:
+        raise errors[0]
+    return results, lat, wall
+
+
+class PredictionCount:
+    """Counts the model predictions (``predict_log`` of the linear and
+    spline CR models) made from any thread while it is entered."""
+
+    def __init__(self):
+        import threading
+        self.n = 0
+        self._lock = threading.Lock()
+        self._saved = {}
+
+    def __enter__(self):
+        from repro_torch.core import regression as R
+        for cls in (R.LinearCRModel, R.SplineCRModel):
+            self._saved[cls] = orig = cls.predict_log
+
+            def counted(model, features, _orig=orig):
+                with self._lock:
+                    self.n += 1
+                return _orig(model, features)
+            cls.predict_log = counted
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self._saved.items():
+            cls.predict_log = orig
+
+
+def prediction_cost(torch, models, feats, card) -> dict:
+    """Host ms of one model prediction read back to the host, as the
+    service's post-processing makes them (median of 200, in turns), for
+    1 and 2 rows: the port's fixed-order row sum beside the library
+    mat-vec ``x @ coef`` it replaced; and of one advise request's
+    ``cr_table`` (8 models x 6 ebs on 2 rows)."""
+    from repro_torch.core import regression as R
+    from repro_torch.serve.method import AdviseMethod
+    m = models["sz3-lorenzo"].models[2].model
+
+    def matvec(f):
+        z = m.std(R._f32(f, m.coef.device))
+        x = (R._spline_design(z, m.knots1, m.knots2) if hasattr(m, "knots1")
+             else R._linear_design(z))
+        return torch.exp(x @ m.coef).cpu()
+
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    rec = {}
+    for rows in (1, 2):
+        f = feats[:rows, 2, :]
+        ours, lib = [], []
+        for _ in range(200):
+            ours += host_ms(lambda: m.predict(f).cpu(), 1)
+            lib += host_ms(lambda: matvec(f), 1)
+        rec[f"predict_{rows}_ms"] = float(np.median(ours))
+        rec[f"matvec_{rows}_ms"] = float(np.median(lib))
+    rec["cr_table_ms"] = float(np.median(host_ms(
+        lambda: AdviseMethod.cr_table(models, feats[:2]), 20)))
+    log("prediction host ms (median): fixed-order row sum 1 row "
+        f"{rec['predict_1_ms']:.4f}, 2 rows {rec['predict_2_ms']:.4f}; "
+        f"library mat-vec 1 row {rec['matvec_1_ms']:.4f}, 2 rows "
+        f"{rec['matvec_2_ms']:.4f}; one advise cr_table (8 x 6 on 2 rows) "
+        f"{rec['cr_table_ms']:.3f}", card)
+    return rec
+
+
+def serve_route(torch, cfg, models, hot_cold, ebs, leaves, card,
+                post_workers=2, second_pass=True):
+    """One route's run: a fresh service (``post_workers`` threads in its
+    post-processing pool) and the plan served, the model predictions of
+    the pass counted, and with ``second_pass`` served again (only the
+    hot rows and the kv leaves, which must come from the cache with no
+    launch).  Returns (record, the requests' context, each request with
+    its served results) for :func:`check_served`."""
+    import dataclasses
+    from repro_torch.kernels import wrappers
+    from repro_torch.serve.sweep_service import ServiceConfig, SweepService
+
+    def on_route(gm):
+        return dataclasses.replace(gm, cfg=cfg, models=[
+            dataclasses.replace(m, cfg=cfg) for m in gm.models])
+
+    models = {n: on_route(m) for n, m in models.items()}
+    n_hot = SERVE_HOT
+    sub = [float(ebs[1]), float(np.sqrt(ebs[2] * ebs[3])), float(ebs[4])]
+    ctx = {"cfg": cfg, "slices": hot_cold, "ebs": [float(e) for e in ebs],
+           "sub": sub, "lorenzo": models["sz3-lorenzo"],
+           "uc2": {n: m.models[2] for n, m in models.items()},
+           "eps2": float(ebs[2]), "models": models, "leaves": leaves,
+           "pairs": [np.stack([hot_cold[i], hot_cold[(i + 1) % n_hot]])
+                     for i in range(len(hot_cold))]}
+    plan = serve_plan(n_hot, len(hot_cold) - n_hot)
+    scfg = ServiceConfig(max_batch_slices=64, max_wait_ms=2.0,
+                         cache_admit_after=2, cache_bytes=SERVE_CACHE_BYTES,
+                         post_workers=post_workers, pcfg=cfg)
+    rec = {"post_workers": post_workers}
+    results2 = {}
+    with SweepService(scfg, device="cuda") as svc:
+        t = time.perf_counter()
+        svc.warmup()
+        rec["warmup_s"] = time.perf_counter() - t
+        with PredictionCount() as predictions:
+            results, lat, wall = serve_traffic(svc, plan, ctx)
+        st = svc.stats()
+        n_req = sum(len(p) for p in plan)
+        post_s = {k: m["post_s"] for k, m in st["methods"].items()}
+        rec.update(requests=n_req, wall_s=wall, req_per_s=n_req / wall,
+                   predictions=predictions.n, post_s=post_s,
+                   pool_busy_share=sum(post_s.values())
+                   / (wall * post_workers),
+                   launches=st["launches"], rows_launched=st["rows_launched"],
+                   rows_requested=sum(m["rows"] for m in
+                                      st["methods"].values()),
+                   pad_rows=st["pad_rows"], batches=st["batches"],
+                   window_ms=st["window_ms"],
+                   window_shrinks=st["window_shrinks"], cache=st["cache"],
+                   client_ms={k: {"p50": float(np.percentile(v, 50)),
+                                  "p99": float(np.percentile(v, 99)),
+                                  "n": len(v)} for k, v in lat.items()},
+                   service_ms={k: {"p50": m["p50_ms"], "p99": m["p99_ms"]}
+                               for k, m in st["methods"].items()})
+        # the second pass: hot rows and the kv leaves, all cached by now
+        again = [[req for req in reqs if req[1] < n_hot] for reqs in plan]
+        if second_pass:
+            before = {k: fn.launches for k, fn in wrappers().items()}
+            launches0 = svc.launches
+            results2, _, wall2 = serve_traffic(svc, again, ctx)
+            kernel_delta = {k: fn.launches - before[k]
+                            for k, fn in wrappers().items()}
+            rec["second_pass"] = {
+                "requests": sum(len(p) for p in again), "wall_s": wall2,
+                "launches": svc.launches - launches0, "kernels": kernel_delta}
+            if svc.launches != launches0 or any(kernel_delta.values()):
+                raise AssertionError(
+                    f"serve ({cfg}): the second pass over cached rows "
+                    f"launched {svc.launches - launches0} times, kernels "
+                    f"{kernel_delta}")
+    what = f"serve use_kernels={cfg.use_kernels} post_workers={post_workers}"
+    log(f"{what}: {n_req} requests from "
+        f"{SERVE_CLIENTS} clients in {wall:.3f} s ({n_req / wall:.2f} req/s); "
+        f"launches {rec['launches']}, rows launched {rec['rows_launched']} of "
+        f"{rec['rows_requested']} requested, pad rows {rec['pad_rows']}, "
+        f"batches {rec['batches']}, window {rec['window_ms']:.3f} ms; cache "
+        f"{json.dumps(rec['cache'])}", card)
+    log(f"{what}: {predictions.n} model predictions; post-processing s by "
+        f"method {json.dumps({k: round(v, 3) for k, v in post_s.items()})}, "
+        f"pool busy {100 * rec['pool_busy_share']:.1f} % of {post_workers} "
+        "threads x wall", card)
+    log(f"{what} client latency ms by method (p50 / p99): " + ", ".join(
+        f"{k} {v['p50']:.2f} / {v['p99']:.2f}"
+        for k, v in sorted(rec["client_ms"].items())), card)
+    if second_pass:
+        log(f"{what} second pass: {rec['second_pass']['requests']} requests "
+            f"on cached rows in {wall2:.3f} s, 0 launches", card)
+    served = [(req, [results[(c, r)]] + (
+        [results2[(c, again[c].index(req))]]
+        if second_pass and req[1] < n_hot else []))
+        for c, reqs in enumerate(plan) for r, req in enumerate(reqs)]
+    return rec, ctx, served
+
+
+def check_served(torch, rec, ctx, served, direct):
+    """Every served result of both passes == the port's direct call on
+    the card (made once per distinct request and kept in ``direct``
+    for another run of the same route)."""
+    t = time.perf_counter()
+    for req, got in served:
+        if req not in direct:
+            direct[req] = serve_direct(torch, req, ctx)
+        for g in got:
+            if not same_result(g, direct[req]):
+                raise AssertionError(
+                    f"serve (use_kernels={ctx['cfg'].use_kernels}): {req} "
+                    f"served {g} != direct {direct[req]}")
+    rec["direct_check_s"] = time.perf_counter() - t
+    rec["distinct_requests"] = len(direct)
+    log(f"serve use_kernels={ctx['cfg'].use_kernels} post_workers="
+        f"{rec['post_workers']}: every served result == the direct call on "
+        f"the card ({len(direct)} distinct requests)")
+
+
+def phase_serve(torch, models, test, ebs, card):
+    """Phase 15: ``SweepService`` on the card, 8 client threads x 64
+    requests of the seven methods over 4 hot held-out slices and the
+    other 4 once each, under the default config (sort q-ent) and
+    ``use_kernels=True``, then the first pass once more on the default
+    config with 8 post-processing threads in place of 2 (does the pool
+    bound the rate?), its launches counted for the "Serve" path.  The
+    cost of one prediction is taken first, on the idle card."""
+    from repro_torch.core import predictors as P
+    hot_cold = test.cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    distinct = [rng.standard_normal(KV_LEAF_N, dtype=np.float32)
+                * np.float32(10.0 ** (i % 4 - 2))
+                for i in range(KV_LEAVES - KV_REPEATS)]
+    leaves = distinct + [distinct[i].copy() for i in range(KV_REPEATS)]
+    feats = P.features_sweep(test[:2], ebs, P.PredictorConfig()).cpu().numpy()
+    cost = prediction_cost(torch, models, feats, card)
+    zero_counts(torch)
+    sort_cfg = P.PredictorConfig()
+    runs = {f"use_kernels={cfg.use_kernels}": serve_route(
+        torch, cfg, models, hot_cold, ebs, leaves, card)
+        for cfg in (sort_cfg, P.PredictorConfig(use_kernels=True))}
+    runs[f"post_workers={SERVE_PROBE_POST_WORKERS}"] = serve_route(
+        torch, sort_cfg, models, hot_cold, ebs, leaves, card,
+        post_workers=SERVE_PROBE_POST_WORKERS, second_pass=False)
+    counts = read_counts(torch, "Serve", (
+        "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
+    directs = {}
+    for rec, ctx, served in runs.values():
+        check_served(torch, rec, ctx, served,
+                     directs.setdefault(ctx["cfg"].use_kernels, {}))
+    out = {k: rec for k, (rec, _, _) in runs.items()}
+    out["prediction_cost"] = cost
+    return out, counts
 
 
 def stream_run(torch, ST, src, name, epss, cfg, prefetch, quality,
@@ -1086,10 +1576,46 @@ def stream_rows(torch, src, name2d, vol_name, ebs):
     return rows
 
 
+def by_shape_counts(parts) -> dict:
+    """Launches a child process reported, each part {kernel: {shape as
+    text: launches}}, summed into one path's counts as
+    :func:`read_counts` returns them."""
+    import ast
+    from repro_torch.kernels import wrappers
+    out = {name: {"launches": 0, "by_shape": {}} for name in wrappers()}
+    for part in parts:
+        for name, shapes in part.items():
+            for sh, c in shapes.items():
+                key = ast.literal_eval(sh)
+                out[name]["by_shape"][key] = out[name]["by_shape"].get(
+                    key, 0) + c
+                out[name]["launches"] += c
+    return out
+
+
+def advise_counts(what: str, launches: dict) -> dict:
+    """The advise CLI's launches over all its variables, training and
+    sweep, as one path's counts; raises if its training launched no
+    Lorenzo or ZFP on the 2-D variable, or a variable's sweep no Gram,
+    q-ent or quality."""
+    for name, var in launches.items():
+        require_launches(f"{what}'s sweep of {name}", var["sweep"],
+                         ("gram_batched", "qent_histogram_sweep",
+                          "qdq_sse_sweep"))
+    require_launches(f"{what}'s training on {STREAM_FIELD}",
+                     launches[STREAM_FIELD]["train"],
+                     ("lorenzo2d", "zfp_forward2d"))
+    log(f"{what} launches " + json.dumps(
+        {n: {p: var[p] for p in ("train", "sweep")}
+         for n, var in launches.items()}))
+    return by_shape_counts(phase for var in launches.values()
+                           for phase in var["by_shape"].values())
+
+
 def phase_stream(torch, ebs, vol_eps, card, profile):
     """Phase 14: a memmap dataset on disk, streamed and advised on.
-    Returns (record, launch counts of the streams, kernel rows at the
-    streams' shapes)."""
+    Returns (record, launch counts of the streams and of the two advise
+    runs by path, kernel rows at the streams' shapes)."""
     from repro_torch.core import predictors as P
     from repro_torch.core import stream as ST
     from repro_torch.data import source as SRC
@@ -1190,10 +1716,12 @@ def phase_stream(torch, ebs, vol_eps, card, profile):
         # the advise CLI as a user runs it, launches counted around it
         report_path = os.path.join(tmp, "report.json")
         launches_path = os.path.join(tmp, "launches.json")
-        cmd = [sys.executable, "-c", ADVISE_CHILD, launches_path, path,
-               "--targets", "4,8,16", "--compressors", "sz2,sz3-lorenzo,zfp",
-               "--psnr-floor", "60", "--budget-mb", str(STREAM_BUDGET_MB),
-               "--use-kernels", "--device", "cuda", "--out", report_path]
+        advise_args = [path, "--targets", "4,8,16", "--compressors",
+                       "sz2,sz3-lorenzo,zfp", "--psnr-floor", "60",
+                       "--budget-mb", str(STREAM_BUDGET_MB), "--use-kernels",
+                       "--device", "cuda"]
+        cmd = [sys.executable, "-c", ADVISE_CHILD, launches_path,
+               *advise_args, "--out", report_path]
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         # the subprocess's compressor runs need tens of GiB of the card:
         # hand back what this process's allocator holds cached
@@ -1223,14 +1751,7 @@ def phase_stream(torch, ebs, vol_eps, card, profile):
                 nums += [rec["eb"], rec["predicted_cr"], rec["predicted_psnr"]]
             if not np.all(np.isfinite(nums)):
                 raise AssertionError(f"advise: non-finite report for {name}")
-            require_launches(f"advise's stream of {name}",
-                             launches[name]["stream"],
-                             ("gram_batched", "qent_histogram_sweep",
-                              "qdq_sse_sweep"))
-        require_launches(f"advise's training on {STREAM_FIELD}",
-                         launches[STREAM_FIELD]["train"],
-                         ("lorenzo2d", "zfp_forward2d"))
-        log("advise launches " + json.dumps(launches))
+        paths = {"Advise": advise_counts("advise", launches)}
         # its 2-D CRs from the same models on the in-memory features
         var = report["variables"][STREAM_FIELD]
         models, aebs, _ = ADV.train_models(
@@ -1247,12 +1768,186 @@ def phase_stream(torch, ebs, vol_eps, card, profile):
                     f"cr_table on the in-memory features {var_cr[ci].tolist()}")
         log(f"advise: {out['advise_s']:.2f} s wall; report finite; "
             f"{STREAM_FIELD} CRs == cr_table on the in-memory features", card)
+        # the same CLI with each chunk served by an in-process
+        # SweepService, its launches counted the same way
+        svc_path = os.path.join(tmp, "report_service.json")
+        svc_launches_path = os.path.join(tmp, "launches_service.json")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", ADVISE_CHILD, svc_launches_path,
+             *advise_args, "--service", "--out", svc_path], env=env,
+            capture_output=True, text=True, timeout=ADVISE_TIMEOUT_S)
+        out["advise_service_s"] = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"advise --service exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(svc_path) as f:
+            served = json.load(f)
+        with open(svc_launches_path) as f:
+            svc_launches = json.load(f)
+        paths["Advise --service"] = advise_counts("advise --service",
+                                                  svc_launches)
+        if served != report:
+            diff = [n for n in report["variables"]
+                    if served["variables"].get(n) != report["variables"][n]]
+            raise AssertionError(f"advise --service report differs from the "
+                                 f"direct one in {diff}")
+        log(f"advise --service: {out['advise_service_s']:.2f} s wall; report "
+            "== the direct advise report", card)
         out["advise_report"] = report
         out["advise_launches"] = launches
-        return out, counts, rows
+        out["advise_service_launches"] = svc_launches
+        return out, dict(Stream=counts, **paths), rows
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+def phase_serve_cli(card) -> dict:
+    """Phase 16: the load CLI (``python -m repro_torch.launch.sweep_serve``)
+    in a subprocess at the main path's width: a finite report, ZFP
+    launched in its training and Gram in its serving.  Returns (report,
+    its training's and serving's launches by shape, as one path's)."""
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="serve_cli_", dir=build)
+    try:
+        path = os.path.join(tmp, "serve.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.sweep_serve",
+               "--fields", FIELD, "--n", str(SERVE_CLI_N), "--train-slices",
+               "10", "--compressor", "zfp", "--clients", "8", "--requests",
+               "64", "--device", "cuda", "--out", path]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=SERVE_CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"sweep_serve exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(path) as f:
+            report = json.load(f)
+        for line in proc.stdout.strip().splitlines():
+            log(f"sweep_serve | {line}")
+        nums = [report[k] for k in ("wall_s", "req_per_s", "p50_ms", "p95_ms",
+                                    "p99_ms", "max_ms", "train_s")]
+        if report["requests"] != 64 or not np.all(np.isfinite(nums)):
+            raise AssertionError(f"sweep_serve: bad report {nums}")
+        require_launches("sweep_serve's training", report["launches_train"],
+                         ("zfp_forward2d",))
+        require_launches("sweep_serve's serving", report["launches_serve"],
+                         ("gram_batched",))
+        log(f"sweep_serve: {wall:.2f} s wall; report finite; zfp launched "
+            f"{report['launches_train']['zfp_forward2d']} times in training",
+            card)
+        report.pop("stats")
+        return (dict(report, cli_wall_s=wall),
+                by_shape_counts(report["launches_by_shape"].values()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def eps_for(grid, e: int) -> list:
+    """``e`` ebs for a launch of that width: the grid's second eb alone
+    (the UC queries'), the grid's first ``e``, or, wider than the grid,
+    the grid with its geometric midpoints (an eb union) padded with its
+    last eb (an eb bucket)."""
+    g = [float(v) for v in grid]
+    if e == 1:
+        return [g[1]]
+    if e <= len(g):
+        return g[:e]
+    both = sorted(g + [float(np.sqrt(a * b)) for a, b in zip(g, g[1:])])
+    return (both + [both[-1]] * e)[:e]
+
+
+def path_rows(torch, TS, counts, rows, ebs, vol_eps):
+    """Every kernel at every shape a path launched it with that no row
+    above holds -- Serve's own batches and its warmup's, the advise
+    CLI's training and its ``--service`` chunks padded to their row
+    buckets, the load CLI's training and serving -- against its plain
+    version at the tolerance of its kind and timed as in phase 12, on
+    fresh cesm-cloud slices of 1800^2 (cut to a smaller shape; a batch
+    larger than the pool repeats it, as a padded launch repeats its
+    last row) and miranda-vx volumes."""
+    have = {(r["name"].split(" ")[0], tuple(r["shape"])) for r in rows}
+    todo = sorted({(kernel, shape) for c in counts.values()
+                   for kernel, kc in c.items() for shape in kc["by_shape"]
+                   if (kernel, tuple(shape)) not in have}, key=str)
+    log(f"path rows: {len(todo)} shapes launched that no row held: "
+        + json.dumps([f"{k} {s}" for k, s in todo]))
+    if not todo:
+        return []
+    spec = TS.FIELDS[FIELD]
+    pool = TS.field_slices(FIELD, count=N_TEST, n=spec.full_n, seed=0,
+                           device="cuda")
+    vols = []
+    vol_grid = vol_eps * 10.0 ** np.linspace(-1.0, 0.25, 6)
+
+    def slices_k(k, m, n):
+        idx = torch.arange(k, device=pool.device) % pool.shape[0]
+        return pool[idx, :m, :n].contiguous()
+
+    def vols_k(k):
+        if not vols:
+            vols.append(torch.stack([TS.volume(VOL_FIELD, VOL_SHAPE, seed=s,
+                                               device="cuda")
+                                     for s in range(4)]))
+        idx = torch.arange(k, device=pool.device) % vols[0].shape[0]
+        return vols[0][idx].contiguous()
+
+    def flat_k(k, nel):
+        """(k, nel) rows and the eb grid of their data."""
+        if nel == int(np.prod(VOL_SHAPE)):
+            return vols_k(k).reshape(k, -1), vol_grid
+        r = math.isqrt(nel)
+        if r * r == nel and r <= pool.shape[1]:
+            return slices_k(k, r, r).reshape(k, -1), ebs
+        full = slices_k(k, pool.shape[1], pool.shape[2]).reshape(k, -1)
+        return full[:, :nel].contiguous(), ebs
+
+    def f32(vals):
+        return torch.tensor(vals, dtype=torch.float32, device="cuda")
+
+    out = []
+    for kernel, shape in todo:
+        if kernel == "gram_batched":
+            k, m, n, tr = shape
+            if tr:
+                x = slices_k(k, m, n)
+                x = x - x.mean(dim=1, keepdim=True)
+            else:
+                v = vols_k(k)
+                v = v - v.mean(dim=(1, 2, 3), keepdim=True)
+                d0, d1, d2 = VOL_SHAPE
+                if (m, n) == (d0, d1 * d2):
+                    x = v.reshape(k, m, n)
+                elif (m, n) == (d1, d0 * d2):
+                    x = torch.movedim(v, 2, 1).reshape(k, m, n)
+                else:
+                    raise AssertionError(f"no input for gram at {shape}")
+                del v
+            out.append(gram_row(torch, x, 5, cold=k == 1, transpose=tr,
+                                scaled=not tr))
+        elif kernel == "qent_histogram_sweep":
+            k, nel, e, bins = shape
+            flat, grid = flat_k(k, nel)
+            out.append(qent_row(torch, flat, f32(eps_for(grid, e)), 5,
+                                cold=k == 1, bins=bins))
+        elif kernel == "qdq_sse_sweep":
+            k, nel, e = shape
+            flat, grid = flat_k(k, nel)
+            out.append(quality_row(torch, flat, f32(eps_for(grid, e)), 10))
+        elif kernel == "lorenzo2d":
+            out.append(lorenzo_row(torch, slices_k(1, *shape)[0],
+                                   float(ebs[1])))
+        elif kernel == "zfp_forward2d":
+            out.append(zfp_row(torch, slices_k(1, *shape)[0]))
+        else:
+            raise AssertionError(f"no row for kernel {kernel}")
+        x = flat = None
+    del pool, vols
+    return out
 
 
 def main(argv=None) -> int:
@@ -1334,20 +2029,28 @@ def main(argv=None) -> int:
     target = lorenzo.predict(test[0], float(ebs[2]))   # a CR inside the grid
     psnr_floor = float(lorenzo.quality.mean_psnr[2])
     uc1, uc2, uc3 = [], [], []
+    uc_predictions = {}
     t = time.perf_counter()
-    for i in range(N_TEST):
-        uc1.append(UC.find_error_bound_for_cr(lorenzo, test[i], target))
+    with PredictionCount() as n_pred:
+        for i in range(N_TEST):
+            uc1.append(UC.find_error_bound_for_cr(lorenzo, test[i], target))
     stages["uc1_s"] = time.perf_counter() - t
+    uc_predictions["uc1"] = n_pred.n
     t = time.perf_counter()
-    for i in range(N_TEST):
-        uc2.append(UC.best_compressor(
-            {n: m.models[1] for n, m in models.items()}, test[i], float(ebs[1])))
+    with PredictionCount() as n_pred:
+        for i in range(N_TEST):
+            uc2.append(UC.best_compressor(
+                {n: m.models[1] for n, m in models.items()}, test[i],
+                float(ebs[1])))
     stages["uc2_s"] = time.perf_counter() - t
+    uc_predictions["uc2"] = n_pred.n
     t = time.perf_counter()
-    for i in range(N_TEST):
-        uc3.append(UC.find_setting(models, test[i], cr_floor=2.0,
-                                   psnr_floor=psnr_floor))
+    with PredictionCount() as n_pred:
+        for i in range(N_TEST):
+            uc3.append(UC.find_setting(models, test[i], cr_floor=2.0,
+                                       psnr_floor=psnr_floor))
     stages["uc3_s"] = time.perf_counter() - t
+    uc_predictions["uc3"] = n_pred.n
     torch.cuda.synchronize()
     stages["main_path_s"] = time.perf_counter() - t_main
     counts = {"main path": read_counts(torch, "main path", wrappers())}
@@ -1355,7 +2058,10 @@ def main(argv=None) -> int:
     if prof is not None:
         prof.__exit__(None, None, None)
         profiled = profile_summary(torch, prof, stages["main_path_s"], smi)
-    log(f"main path: {stages['main_path_s']:.2f} s", smi)
+    log(f"main path: {stages['main_path_s']:.2f} s; UC1 / UC2 / UC3 "
+        f"{stages['uc1_s']:.3f} / {stages['uc2_s']:.3f} / "
+        f"{stages['uc3_s']:.3f} s over {N_TEST} slices, model predictions "
+        + json.dumps(uc_predictions), smi)
 
     # ---- phase 6: held-out MedAPE (measured CRs run the compressors)
     t = time.perf_counter()
@@ -1473,7 +2179,18 @@ def main(argv=None) -> int:
         (f"{SCALE_FIELD} slices", scale, [scale_eps], picks(scale, 3)),
         ("Gaussian type-4 samples", gauss, [GAUSS_EPS], picks(gauss, 3)),
         (f"{VOL_FIELD} volumes", vols, [vol_eps], picks(vols, 2))], smi)
+    # ... nor on the eb grid it is launched with
+    stages["eb_independence_s"], eb_probes = check_eb_independence(torch, [
+        (f"{FIELD} slices", data[picks(data, 4)], ebs),
+        (f"{VOL_FIELD} volumes", vols[picks(vols, 2)],
+         vol_eps * 10.0 ** np.linspace(-1.0, 0.25, 6))], smi)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # ---- phase 15: the sweep service, with phase 5's models and held-out
+    # slices, counters read around its traffic
+    t = time.perf_counter()
+    served, counts["Serve"] = phase_serve(torch, models, test, ebs, smi)
+    stages["serve_phase_s"] = time.perf_counter() - t
 
     # ---- phase 14: a dataset on disk, streamed and advised on; the
     # tensors of phases 1-13 go first, so that it and the advise
@@ -1486,10 +2203,22 @@ def main(argv=None) -> int:
     log(f"phase 14 starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         "GiB allocated")
     t = time.perf_counter()
-    streamed, counts["Stream"], stream_kernels = phase_stream(
+    streamed, stream_counts, stream_kernels = phase_stream(
         torch, ebs, vol_eps, smi, args.profile)
+    counts.update(stream_counts)
     kernels += stream_kernels
     stages["stream_phase_s"] = time.perf_counter() - t
+
+    # ---- phase 16: the load CLI in a subprocess
+    t = time.perf_counter()
+    served["sweep_serve"], counts["Serve CLI"] = phase_serve_cli(smi)
+    stages["serve_cli_s"] = time.perf_counter() - t
+
+    # ---- every shape a path launched that no row above holds: its
+    # kernel against the plain version there, timed
+    t = time.perf_counter()
+    kernels += path_rows(torch, TS, counts, kernels, ebs, vol_eps)
+    stages["path_rows_s"] = time.perf_counter() - t
 
     # every row's launches in each path that launched its shape; its
     # `launches` is the count of the first of them (the main path where it
@@ -1525,6 +2254,7 @@ def main(argv=None) -> int:
             measured_crs=measured.tolist(),
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
             studies=studies, stream=streamed, batch_probes=batch_probes,
+            eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
             launches_by_path={
                 p: {n: {"launches": c["launches"],
                         "by_shape": {str(k): v for k, v in c["by_shape"].items()}}

@@ -33,9 +33,12 @@ A row's features do not depend on the batch it is swept in: the Gram
 kernel fixes its numerics from the slice's shape, ``eigvalsh`` solves
 each matrix alone, and every library reduction whose batched form adds
 a row in another order (the means, sigma, the trunc-fraction sums, the
-float64 and the histogram entropy sums) runs on each row alone
-(``quant.per_row``).  So a slice gets the same bits alone, in its batch
-and in a padded bucket, which streaming and serving rely on.
+sort route's float64 sum) runs on each row alone (``quant.per_row``).
+Nor does a row's value at an eb depend on the eb grid: the sort route
+reduces each eb alone, and the kernel route adds each (row, eb) entropy
+in XLA's fixed order (``refmath.sum_rows_f32``).  So a slice gets the
+same bits alone, in its batch, in a padded bucket and in any eb grid,
+which streaming and serving rely on.
 """
 from __future__ import annotations
 

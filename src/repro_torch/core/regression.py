@@ -9,13 +9,20 @@
 
 Standardized predictors and log(CR) targets, as in the reference; every
 tensor is float32, the precision the reference runs in.  A model lives
-on the device of the features it was fit on.
+on the device of the features it was fit on.  A prediction adds each
+design row's products in a fixed order (``refmath.sum_rows_f32``, left
+to right at these widths), not by ``x @ coef``: a library mat-vec picks
+its kernel, and so its order, from the row count, and a row's
+prediction would then depend on how many rows it is predicted with (an
+advisor chunk against the whole variable).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.refmath import sum_rows_f32
 
 
 class Standardizer(NamedTuple):
@@ -67,7 +74,7 @@ class LinearCRModel(NamedTuple):
 
     def predict_log(self, features) -> torch.Tensor:
         features = _f32(features, self.coef.device)
-        return _linear_design(self.std(features)) @ self.coef
+        return sum_rows_f32(_linear_design(self.std(features)) * self.coef)
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +149,7 @@ class SplineCRModel(NamedTuple):
     def predict_log(self, features) -> torch.Tensor:
         features = _f32(features, self.coef.device)
         x = _spline_design(self.std(features), self.knots1, self.knots2)
-        return x @ self.coef
+        return sum_rows_f32(x * self.coef)
 
 # ---------------------------------------------------------------------------
 # LASSO via FISTA (predictor importance, Table 3)

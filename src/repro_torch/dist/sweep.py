@@ -7,10 +7,10 @@ Single-process forms of the reference's ``dist.sweep``:
   distributed layer);
 * ``sweep_padded`` / ``scatter_requests`` / ``gather_rows`` -- one sweep
   launch over a batch padded to a row bucket, and the real rows brought
-  back.  The streaming driver launches every chunk through
-  ``sweep_padded``, as serving will.  The reference's ``mesh`` argument
-  comes with the distributed layer; its ``donate`` has no meaning here
-  (a caller that no longer needs its stack drops the reference).
+  back.  Streaming and the sweep service launch every batch through
+  ``sweep_padded``.  The reference's ``mesh`` argument comes with the
+  distributed layer; its ``donate`` has no meaning here (a caller that
+  no longer needs its stack drops the reference).
 """
 from __future__ import annotations
 

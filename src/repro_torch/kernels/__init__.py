@@ -17,3 +17,22 @@ def wrappers() -> dict:
             "qdq_sse_sweep": quality.qdq_sse_sweep,
             "lorenzo2d": lorenzo.lorenzo2d,
             "zfp_forward2d": zfp_block.zfp_forward2d}
+
+
+def launch_counts() -> dict:
+    """Kernel name -> (its launches so far, {launch shape: launches})."""
+    return {k: (fn.launches, dict(fn.by_shape))
+            for k, fn in wrappers().items()}
+
+
+def launches_since(before: dict, after: dict = None) -> tuple:
+    """The launches between two :func:`launch_counts` (``after``: now):
+    ({kernel: launches}, {kernel: {launch shape as text: launches}})."""
+    after = launch_counts() if after is None else after
+    total, by_shape = {}, {}
+    for k, (n, shapes) in after.items():
+        total[k] = n - before[k][0]
+        by_shape[k] = {str(sh): c - before[k][1].get(sh, 0)
+                       for sh, c in shapes.items()
+                       if c > before[k][1].get(sh, 0)}
+    return total, by_shape

@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -106,6 +107,16 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
         return lib
+
+
+def count(fn, shape) -> None:
+    """One launch of ``fn``'s kernel at ``shape``: its ``launches`` and
+    ``by_shape`` counters go up together under a lock, so launches from
+    several threads (a service's worker and its post-processing pool)
+    are all counted."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        fn.by_shape[shape] += 1
 
 
 def check(code: int, what: str) -> None:

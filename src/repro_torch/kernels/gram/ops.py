@@ -64,8 +64,7 @@ def _launch(x: torch.Tensor, transpose: bool) -> torch.Tensor:
                   None if partial is None else _build.ptr(partial), k, m, n,
                   int(transpose), chunks, CHUNK_T, _build.stream(x))
     _build.check(code, "gram_batched")
-    gram_batched.launches += 1
-    gram_batched.by_shape[(k, m, n, transpose)] += 1
+    _build.count(gram_batched, (k, m, n, transpose))
     return g
 
 

@@ -35,8 +35,7 @@ def _launch(x: torch.Tensor, eps: float) -> torch.Tensor:
         code = fn(_build.ptr(x), _build.ptr(out), m, n, two_eps, eps32,
                   _build.stream(x))
     _build.check(code, "lorenzo2d")
-    lorenzo2d.launches += 1
-    lorenzo2d.by_shape[(m, n)] += 1
+    _build.count(lorenzo2d, (m, n))
     return out
 
 

@@ -40,8 +40,7 @@ def _launch(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
         code = fn(_build.ptr(x), _build.ptr(epss), _build.ptr(hist), k, n, e,
                   bins, SMEM_BUDGET, _build.stream(x))
     _build.check(code, "qent_histogram_sweep")
-    qent_histogram_sweep.launches += 1
-    qent_histogram_sweep.by_shape[(k, n, e, bins)] += 1
+    _build.count(qent_histogram_sweep, (k, n, e, bins))
     return hist
 
 

@@ -3,7 +3,7 @@ import torch
 
 from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN
 from repro_torch.quant import flush_subnormals as _ftz
-from repro_torch.quant import per_row
+from repro_torch.refmath import sum_rows_f32
 
 
 def hash_codes(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
@@ -37,15 +37,11 @@ def entropy_bits_rows(hist: torch.Tensor) -> torch.Tensor:
     """Entropy (bits/symbol) along the last (bins) axis of a (k, ...,
     bins) histogram stack, float32 like the reference's
     ``entropy_bits_rows``.  The terms are elementwise (and the counts'
-    total an integer sum), the same bits in any batch; each slice's
-    float32 sum of its terms is taken alone, since a batched sum adds
-    them in an order that depends on the batch."""
-    return per_row(lambda t: -t.sum(dim=-1), _entropy_terms(hist))
-
-
-def _entropy_bits(hist: torch.Tensor) -> torch.Tensor:
-    """:func:`entropy_bits_rows` summed over the whole batch at once."""
-    return -_entropy_terms(hist).sum(dim=-1)
+    total an integer sum); each (slice, eps) row's terms add in XLA's
+    order (``refmath.sum_rows_f32``), so a row's entropy is the same
+    bits in any batch and in any eb grid: a library sum splits by the
+    number of rows it reduces at once."""
+    return -sum_rows_f32(_entropy_terms(hist))
 
 
 def _entropy_terms(hist: torch.Tensor) -> torch.Tensor:

@@ -38,8 +38,7 @@ def _launch(flat: torch.Tensor, epss: torch.Tensor) -> torch.Tensor:
         code = fn(_build.ptr(flat), _build.ptr(epss), _build.ptr(partial),
                   _build.ptr(sse), k, n, e, _build.stream(flat))
     _build.check(code, "qdq_sse_sweep")
-    qdq_sse_sweep.launches += 1
-    qdq_sse_sweep.by_shape[(k, n, e)] += 1
+    _build.count(qdq_sse_sweep, (k, n, e))
     return sse
 
 

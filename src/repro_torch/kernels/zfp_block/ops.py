@@ -35,8 +35,7 @@ def _launch(x: torch.Tensor):
         code = fn(_build.ptr(x), _build.ptr(coef), _build.ptr(exps), m, n,
                   _build.stream(x))
     _build.check(code, "zfp_forward2d")
-    zfp_forward2d.launches += 1
-    zfp_forward2d.by_shape[(m, n)] += 1
+    _build.count(zfp_forward2d, (m, n))
     return coef, exps
 
 

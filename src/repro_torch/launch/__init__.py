@@ -1,4 +1,6 @@
 """Command-line entry points of the port: ``python -m
-repro_torch.launch.make_dataset`` writes a synthetic dataset and
-``python -m repro_torch.launch.advise`` recommends a compressor and an
-error bound for every variable of one."""
+repro_torch.launch.make_dataset`` writes a synthetic dataset, ``python
+-m repro_torch.launch.advise`` recommends a compressor and an error
+bound for every variable of one (``--service`` through the sweep
+service), and ``python -m repro_torch.launch.sweep_serve`` drives the
+sweep service with concurrent UC1/UC2 clients."""

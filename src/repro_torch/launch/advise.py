@@ -20,9 +20,11 @@ variable) lands in the report, which has the reference's format.  Two
 options are the port's own: the run is on the card unless ``--device
 cpu`` asks for the host, and ``--use-kernels`` takes the hashed q-ent
 kernel route (exact while a grid eb's codes fit the 65536 bins, as the
-default grid's do) in place of the exact sort route.  The reference's
-``--service`` and ``--mesh`` come with the sweep service and the
-distributed layer.
+default grid's do) in place of the exact sort route.  ``--service``
+submits each chunk to an in-process ``serve.SweepService`` (its
+``advise`` method, and ``quality`` under ``--psnr-floor``) in place of
+the direct stream; the report is the same.  The reference's ``--mesh``
+comes with the distributed layer.
 
 Per-variable recommendation
 ---------------------------
@@ -44,6 +46,7 @@ quality-feasible region.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import sys
 from typing import Dict, Optional
@@ -184,12 +187,17 @@ def advise_variable(source: SRC.DatasetSource, name: str, *,
                     compressors, grid_rels, targets, train_rows: int,
                     cfg: PredictorConfig, stream: ST.StreamConfig,
                     psnr_floor: Optional[float] = None,
-                    device="cuda") -> dict:
+                    device="cuda", service=None) -> dict:
     """Train sample models + stream the full variable -> report entry.
 
     ``psnr_floor``: also stream the fused quality tensor (same pass,
     ``quality=True``) and recommend only quality-feasible settings (see
-    :func:`recommend`)."""
+    :func:`recommend`).  ``service``: a ``serve.SweepService`` on
+    ``device``; each chunk is submitted to its ``advise`` method (and,
+    with a floor, its ``quality`` method) in place of the direct
+    stream; the futures overlap the next chunk's read, and at most
+    ``stream.max_in_flight`` chunks are outstanding, so the chunk
+    budget bounds host memory on this path too."""
     meta = source.meta(name)
     trained = train_models(source, name, compressors=compressors,
                            grid_rels=grid_rels, train_rows=train_rows,
@@ -200,17 +208,41 @@ def advise_variable(source: SRC.DatasetSource, name: str, *,
 
     digest = SRC.StreamingDigest()
     var_psnr = None
-    if psnr_floor is not None:
-        feats, qual = ST.stream_features(
-            source, name, ebs, cfg, stream=stream, digest=digest,
-            quality=True, device=device)
-        # worst row per eb: the variable meets the floor only when every
-        # row does
-        var_psnr = np.asarray(qual)[:, :, 0].min(axis=0)
+    if service is not None:
+        pending, crs, quals = collections.deque(), [], []
+
+        def drain_one():
+            fut, qfut = pending.popleft()
+            crs.append(fut.result()["cr"])
+            if qfut is not None:
+                quals.append(qfut.result())
+
+        for _, chunk in source.chunks(name, budget_bytes=stream.budget_bytes):
+            digest.update(chunk)
+            # at most max_in_flight chunks (and their host copies) are
+            # outstanding at the service, as in the direct stream
+            while len(pending) >= stream.max_in_flight:
+                drain_one()
+            pending.append((service.submit_advise(models, chunk),
+                            None if psnr_floor is None else
+                            service.submit_quality(chunk, ebs, cfg)))
+        while pending:
+            drain_one()
+        cr_rows = np.concatenate(crs, axis=0)
+        if quals:
+            var_psnr = np.concatenate(quals, axis=0)[:, :, 0].min(axis=0)
     else:
-        feats = ST.stream_features(source, name, ebs, cfg, stream=stream,
-                                   digest=digest, device=device)
-    cr_rows = AdviseMethod.cr_table(models, feats)
+        if psnr_floor is not None:
+            feats, qual = ST.stream_features(
+                source, name, ebs, cfg, stream=stream, digest=digest,
+                quality=True, device=device)
+            # worst row per eb: the variable meets the floor only when
+            # every row does
+            var_psnr = np.asarray(qual)[:, :, 0].min(axis=0)
+        else:
+            feats = ST.stream_features(source, name, ebs, cfg, stream=stream,
+                                       digest=digest, device=device)
+        cr_rows = AdviseMethod.cr_table(models, feats)
 
     var_cr = harmonic_cr(cr_rows)
     names = tuple(models)
@@ -237,9 +269,9 @@ def advise_dataset(source: SRC.DatasetSource, *, compressors=None,
                    stream: Optional[ST.StreamConfig] = None,
                    fields=None,
                    psnr_floor: Optional[float] = None,
-                   device="cuda") -> dict:
+                   device="cuda", service=None) -> dict:
     """The advisor as a library call (the CLI routes here).  Returns the
-    full report dict."""
+    full report dict; ``service`` as in :func:`advise_variable`."""
     stream = stream if stream is not None else ST.StreamConfig()
     report: dict = {"targets": [float(t) for t in targets],
                     "budget_bytes": stream.budget_bytes, "variables": {}}
@@ -252,7 +284,8 @@ def advise_dataset(source: SRC.DatasetSource, *, compressors=None,
         report["variables"][name] = advise_variable(
             source, name, compressors=comps, grid_rels=grid_rels,
             targets=targets, train_rows=train_rows, cfg=cfg,
-            stream=stream, psnr_floor=psnr_floor, device=device)
+            stream=stream, psnr_floor=psnr_floor, device=device,
+            service=service)
     return report
 
 
@@ -310,6 +343,10 @@ def main(argv=None) -> dict:
                          "the exact sort route")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the sweeps and compressors run")
+    ap.add_argument("--service", action="store_true",
+                    help="route chunks through an in-process SweepService "
+                         "advise method (coalesced launches + feature "
+                         "cache)")
     ap.add_argument("--out", default="", help="write the JSON report here")
     args = ap.parse_args(argv)
 
@@ -320,12 +357,20 @@ def main(argv=None) -> dict:
     comps = [c for c in args.compressors.split(",") if c]
     targets = [float(t) for t in args.targets.split(",") if t]
     grid_rels = sorted(float(r) for r in args.grid_rels.split(",") if r)
-    report = advise_dataset(
-        source, compressors=comps or None, grid_rels=grid_rels,
-        targets=targets, train_rows=args.train_rows,
-        cfg=PredictorConfig(use_kernels=args.use_kernels), stream=stream,
-        fields=fields or None, psnr_floor=args.psnr_floor,
-        device=args.device)
+    cfg = PredictorConfig(use_kernels=args.use_kernels)
+    svc = None
+    if args.service:
+        from repro_torch.serve.sweep_service import ServiceConfig, SweepService
+        svc = SweepService(ServiceConfig(pcfg=cfg), device=args.device)
+    try:
+        report = advise_dataset(
+            source, compressors=comps or None, grid_rels=grid_rels,
+            targets=targets, train_rows=args.train_rows, cfg=cfg,
+            stream=stream, fields=fields or None, psnr_floor=args.psnr_floor,
+            device=args.device, service=svc)
+    finally:
+        if svc is not None:
+            svc.close()
     _print_report(report)
     if args.out:
         with open(args.out, "w") as f:

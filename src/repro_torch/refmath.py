@@ -19,7 +19,9 @@ are flushed to zero as XLA flushes them.
 
 The reference totals ZFP's per-block bit counts with a float32
 ``jnp.sum``, which rounds once the total passes 2^24 (an 1800 x 1800
-slice reaches 4.5e7 bits): :func:`sum_f32` adds in XLA's CPU order.
+slice reaches 4.5e7 bits): :func:`sum_f32` adds in XLA's CPU order, as
+:func:`sum_rows_f32` adds each row of a stack (the q-ent kernel route's
+entropy sums, the int8 gate's).
 TTHRESH's energy threshold runs a float32 ``jnp.cumsum`` over every core
 coefficient: :func:`cumsum_f32` adds in XLA's CPU order too.
 """
@@ -116,32 +118,47 @@ def exp2_f32(k: torch.Tensor) -> torch.Tensor:
 XLA_WINDOW = 32     # the window of XLA's CPU tree-reduction rewrite
 
 
-def sum_f32(v: torch.Tensor) -> np.float32:
-    """``jnp.sum`` of a 1-D float32 tensor on the CPU, bit for bit.
+def sum_rows_f32(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(v, axis=-1)`` of a float32 stack on the CPU, bit for bit,
+    on ``v``'s device: (..., n) -> (...).
 
     While more than 32 values remain, XLA rewrites the reduction into a
     reduce-window of 32, stride 32, over the values padded to a multiple
     of 32 with zeros split evenly at both ends (the odd one at the
     end); each window adds its values in order from 0.0.  The last 32
     or fewer add in order from 0.0 as well.  The running sums start at
-    +0.0, so none is ever -0.0 and a +0.0 pad leaves it as it is.  The
-    values are read to the host once and added there: ~100 elementwise
-    adds of a few thousand values cost less as numpy calls than as
-    kernel launches."""
-    v = v.detach().to("cpu", torch.float32).reshape(-1).numpy()
+    +0.0, so none is ever -0.0 and a +0.0 pad leaves it as it is.  XLA
+    sums every row of a stack this way, whatever the stack's shape.
+    Here every step is an elementwise add over all rows at once, so a
+    row's sum is the same bits in any stack, of any length of the
+    leading axes, on the CPU and on the card."""
+    v = v.to(torch.float32)
+    lead = tuple(v.shape[:-1])
     while True:
-        n = v.size
+        n = v.shape[-1]
         if n == 0:
-            return np.float32(0.0)
+            return torch.zeros(lead, dtype=torch.float32, device=v.device)
         cols = min(n, XLA_WINDOW)
         pad = (-n) % cols
-        rows = np.pad(v, (pad // 2, pad - pad // 2)).reshape(-1, cols)
-        acc = np.zeros(rows.shape[0], np.float32)
+        if pad:
+            v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        cols_first = v.reshape(lead + (-1, cols)).movedim(-1, 0).contiguous()
+        acc = torch.zeros(cols_first.shape[1:], dtype=torch.float32,
+                          device=v.device)
         for j in range(cols):
-            acc = acc + rows[:, j]
+            acc = acc + cols_first[j]
         if n <= XLA_WINDOW:
-            return acc[0]
+            return acc[..., 0]
         v = acc
+
+
+def sum_f32(v: torch.Tensor) -> np.float32:
+    """``jnp.sum`` of a 1-D float32 tensor on the CPU, bit for bit
+    (:func:`sum_rows_f32` of one row).  The values are read to the host
+    once and added there: ~100 elementwise adds of a few thousand values
+    cost less on the host than as kernel launches."""
+    v = v.detach().to("cpu", torch.float32).reshape(1, -1)
+    return np.float32(sum_rows_f32(v)[0].item())
 
 
 CUMSUM_BASE = 16    # the row of XLA's CPU rewrite of a long prefix sum

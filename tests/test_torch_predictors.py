@@ -193,6 +193,22 @@ def _training_set(seed=0, n=40):
 
 
 @pytest.mark.parametrize("kind", ["spline", "linear"])
+def test_model_prediction_independent_of_batch(kind):
+    """A row's predicted CR is the same bits predicted alone, in any
+    slice of rows and in the whole set (an advisor chunk against the
+    whole variable)."""
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.standard_normal((120, 2)).astype(np.float32))
+    cr = torch.from_numpy(np.exp(rng.standard_normal(120)).astype(np.float32))
+    model = TR.MODEL_REGISTRY[kind](feats, cr)
+    whole = model.predict(feats)
+    for lo, k in ((0, 1), (7, 1), (0, 2), (5, 3), (41, 14), (3, 41),
+                  (10, 64), (0, 96)):
+        assert torch.equal(model.predict(feats[lo:lo + k]),
+                           whole[lo:lo + k]), (lo, k)
+
+
+@pytest.mark.parametrize("kind", ["spline", "linear"])
 def test_regression_fit_matches(kind):
     feats, cr = _training_set()
     jm = JR.MODEL_REGISTRY[kind](jnp.asarray(feats), jnp.asarray(cr))
@@ -371,3 +387,33 @@ def test_port_imports_neither_jax_nor_reference():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+# ----------------------------------------------------- eb-grid independence
+@pytest.mark.parametrize("rank", [3, 4])
+@pytest.mark.parametrize("mode", ["features", "quality"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_row_at_one_eb_independent_of_eb_grid(stacks, rank, mode,
+                                              use_kernels):
+    """A row's value at one eb is the same bits swept at that eb alone,
+    in the 6-eb grid, in an 8-eb bucket padded with the grid's last eb
+    and in a 12-eb union with other ebs before and after it: what the
+    sweep service's eb unions and eb buckets rely on.  The default 65536
+    bins make the kernel route's entropy sum long enough for a library
+    sum to split it by the number of ebs."""
+    x, _ = stacks[rank]
+    x = torch.from_numpy(x)
+    rng = float(x.max() - x.min())
+    grid = list(rng * 10.0 ** np.linspace(-4.0, -1.5, 6))
+    others = list(rng * 10.0 ** np.linspace(-4.3, -1.2, 6))
+    union = sorted(grid + others)
+    cfg = TP.PredictorConfig(use_kernels=use_kernels)
+    sweep = TP.features_sweep if mode == "features" else TP.quality_sweep
+    in_grid = sweep(x, grid, cfg)
+    bucket = sweep(x, grid + [grid[-1]] * 2, cfg)
+    in_union = sweep(x, union, cfg)
+    for j, eps in enumerate(grid):
+        alone = sweep(x, [eps], cfg)[:, 0]
+        assert torch.equal(alone, in_grid[:, j]), j
+        assert torch.equal(alone, bucket[:, j]), j
+        assert torch.equal(alone, in_union[:, union.index(eps)]), j

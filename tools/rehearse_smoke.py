@@ -6,7 +6,9 @@
 Writes a copy of ``chip_smoke.py`` to ``build/rehearse/`` with the sizes
 cut (12 + 4 slices of 128 x 128, 10 Gaussian samples of 64 x 64, 8
 volumes of 16 x 24 x 32; a streamed dataset of 10 slices of 64 x 64 and
-7 volumes at a 64 KiB budget), every tensor on the CPU, the kernel build,
+7 volumes at a 64 KiB budget; the service's clients 16 requests each
+over 2 hot slices and kv leaves of 4096 values; the load CLI at 64 x
+64), every tensor on the CPU, the kernel build,
 the quotient proof and the launch-count checks left out and the
 kernel-check phase cut to ZFP's, then runs it with ``torch.cuda``'s
 timing calls replaced by host-clock stand-ins.  Every wrapper takes
@@ -31,6 +33,11 @@ CUTS = [
     ('N_STREAM, STREAM_N = "cesm-cloud", 96, 1800',
      'N_STREAM, STREAM_N = "cesm-cloud", 10, 64'),
     ('STREAM_BUDGET_MB = 512', 'STREAM_BUDGET_MB = 0.0625'),
+    ('SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 64, 4',
+     'SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 16, 2'),
+    ('KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 4 << 20',
+     'KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 1 << 12'),
+    ('SERVE_CLI_N = 1800', 'SERVE_CLI_N = 64'),
     ('"cuda"', '"cpu"'),
     ('_build.build()', 'pass'),
     ('    check_quotient(torch, ebs_t)\n', ''),
