@@ -128,17 +128,39 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               slices, 8 clients x 8 UC1/UC2 requests): a finite report,
               ZFP launched in its training and Gram in its serving, its
               launches by shape read from its report;
-17. path rows -- every kernel at every shape a path below launched it
+17. dist     -- the sharded sweep layer (``repro_torch.dist``) on the
+              card, on the training sweep (32 cesm-cloud slices of
+              1800^2, the 6-eb grid, ``use_kernels=True``, features and
+              quality) in three forms: (a) this process, a mesh of two
+              shards on the card, timed beside one device in turns; (b)
+              a one-rank NCCL group whose mesh has two shards on the
+              card (NCCL refuses two ranks on one GPU); (c) a two-rank
+              gloo group, one shard each on the card, SPMD and
+              process-local, also on 7 miranda-vx volumes (blocks of 4
+              rows, and of 3 + 1 pad) and a 2-slice batch (one-row
+              blocks), ``training_crs`` of sz3-lorenzo and zfp split
+              between the ranks, and phase 14's two streams under the
+              group.  (b) and (c) run in fresh interpreters (``--dist-child``),
+              each group under its own wall-clock limit.  Then the advise
+              CLI with ``--mesh cuda:0,cuda:0`` in one process and over a
+              two-rank gloo group (``--coordinator``).  Every result is bit-equal
+              to one device (the tables to the main path's, the streams
+              to phase 14's in-memory sweeps, the reports byte for byte
+              to phase 14's direct report);
+18. path rows -- every kernel at every shape a path below launched it
               with that no row above holds (Serve's batches and warmup,
               the advise runs' training and padded service chunks, the
-              load CLI), against its plain version and timed, on fresh
-              cesm-cloud slices and miranda-vx volumes.
-Phases 5, 8-11, 14 and 15 each set the kernels' launch counters to 0 just
-before they run and read them just after, and the three subprocesses
-(advise, advise ``--service``, the load CLI) count theirs by shape
-around their work; a kernel a path needs that it did not launch fails
-the run.  A kernel row's ``launches`` is the count of the first of these
-paths that launched its shape (the main path where it did), and
+              load CLI, the Dist path's blocks), against its plain
+              version and timed, on fresh cesm-cloud slices and
+              miranda-vx volumes.
+Phases 5, 8-11, 14, 15 and 17 (its form (a)) each set the kernels'
+launch counters to 0 just before they run and read them just after,
+and the subprocesses (advise, advise ``--service``, the load CLI, the
+process groups and advise runs of phase 17) count theirs by shape
+around their work; phase 17's are summed into one path, "Dist".  A
+kernel a path needs that it did not launch fails the run.  A kernel
+row's ``launches`` is the count of the first of these paths that
+launched its shape (the main path where it did), and
 ``launches_by_path`` gives each path's own count.
 
 ``--profile`` traces the main path and one stream of phase 14 with
@@ -152,6 +174,7 @@ per-kernel JSON record.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import math
@@ -197,6 +220,15 @@ KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 4 << 20
 # phase 16: the load CLI at the main path's width
 SERVE_CLI_N = 1800
 SERVE_CLI_TIMEOUT_S = 600
+# phase 17: the sharded sweep layer, in one process and in process groups
+# on the one card (NCCL refuses two ranks on one GPU, so the two-rank
+# group is gloo and the NCCL group has one rank)
+DIST_DEVICE = "cuda:0"
+DIST_NCCL = "nccl"
+N_DIST_VOL = 7                  # 2 ranks: blocks of 4 rows, and 3 + 1 pad
+DIST_CRS = ("sz3-lorenzo", "zfp")
+DIST_TIMEOUT_S = 400            # each group's wall-clock limit
+DIST_COLLECTIVE_TIMEOUT_S = 300 # a group's init and each of its collectives
 PLANT_EBS = (1e-5, 1e-3, 256.0)     # 256: quotients of tiny normals underflow
 QENT_BINS = 65536
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
@@ -1541,13 +1573,15 @@ def in_memory_run(torch, P, src, name, epss, cfg, quality):
 
 
 def same_bits(what, got, want):
+    """Raise unless ``got`` (an array or a tuple of them) has ``want``'s
+    shapes and bits."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
-        if g.shape != w.shape or not np.array_equal(g.view(np.int32),
-                                                    w.view(np.int32)):
-            raise AssertionError(f"{what}: streamed result differs from the "
-                                 "in-memory sweep")
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape or g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what}: differs bit-wise from the result "
+                                 "it must equal")
 
 
 def stream_rows(torch, src, name2d, vol_name, ebs):
@@ -1612,195 +1646,199 @@ def advise_counts(what: str, launches: dict) -> dict:
                            for phase in var["by_shape"].values())
 
 
-def phase_stream(torch, ebs, vol_eps, card, profile):
-    """Phase 14: a memmap dataset on disk, streamed and advised on.
-    Returns (record, launch counts of the streams and of the two advise
-    runs by path, kernel rows at the streams' shapes)."""
+def advise_args(dataset) -> list:
+    """The advise CLI's arguments on phase 14's dataset (phase 17 adds
+    its mesh and process-group options to them)."""
+    return [str(dataset), "--targets", "4,8,16", "--compressors",
+            "sz2,sz3-lorenzo,zfp", "--psnr-floor", "60", "--budget-mb",
+            str(STREAM_BUDGET_MB), "--use-kernels", "--device", "cuda"]
+
+
+def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
+    """Phase 14: a memmap dataset on disk under ``tmp``, streamed and
+    advised on.  Leaves in ``tmp`` what phase 17 holds its own streams
+    and advise reports to: the dataset (``ds``), the in-memory sweeps
+    (``want_2d.npz``, ``want_vol.npy``) and the direct advise report
+    (``report.json``).  Returns (record, launch counts of the streams and
+    of the two advise runs by path, kernel rows at the streams' shapes)."""
     from repro_torch.core import predictors as P
     from repro_torch.core import stream as ST
     from repro_torch.data import source as SRC
     from repro_torch.launch import advise as ADV
     from repro_torch.serve.method import AdviseMethod, slice_digest
     out = {}
-    build = ROOT / "build"
-    build.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="stream_", dir=build)
-    try:
-        vol_name = VOL_FIELD + "-vol"
-        gen = SRC.GeneratorSource(
-            [SRC.FieldVariable(STREAM_FIELD, N_STREAM, (STREAM_N,)),
-             SRC.FieldVariable(VOL_FIELD, N_STREAM_VOL, VOL_SHAPE)],
-            device="cuda")
-        t = time.perf_counter()
-        path = SRC.write_dataset(
-            os.path.join(tmp, "ds"), gen,
-            dtype={STREAM_FIELD: "float64", vol_name: "float32"})
-        out["write_s"] = time.perf_counter() - t
-        src = SRC.open_dataset(path)
-        disk = {n: os.path.getsize(os.path.join(path, n + ".bin"))
-                for n in src.variables()}
-        log(f"stream dataset: {dict(zip(src.variables(), (src.meta(n).shape for n in src.variables())))}, "
-            f"{sum(disk.values()) / 1e9:.3f} GB on disk, written in "
-            f"{out['write_s']:.2f} s", card)
-        kernel_cfg = P.PredictorConfig(use_kernels=True)
-        budget = int(STREAM_BUDGET_MB * 2 ** 20)
-        chunks = {n: [min(src.chunk_rows(n, budget), src.meta(n).rows - lo)
-                      for lo in range(0, src.meta(n).rows,
-                                      src.chunk_rows(n, budget))]
-                  for n in src.variables()}
-        log(f"stream chunks at {STREAM_BUDGET_MB} MiB: {chunks}")
+    vol_name = VOL_FIELD + "-vol"
+    gen = SRC.GeneratorSource(
+        [SRC.FieldVariable(STREAM_FIELD, N_STREAM, (STREAM_N,)),
+         SRC.FieldVariable(VOL_FIELD, N_STREAM_VOL, VOL_SHAPE)],
+        device="cuda")
+    t = time.perf_counter()
+    path = SRC.write_dataset(
+        os.path.join(tmp, "ds"), gen,
+        dtype={STREAM_FIELD: "float64", vol_name: "float32"})
+    out["write_s"] = time.perf_counter() - t
+    src = SRC.open_dataset(path)
+    disk = {n: os.path.getsize(os.path.join(path, n + ".bin"))
+            for n in src.variables()}
+    log(f"stream dataset: {dict(zip(src.variables(), (src.meta(n).shape for n in src.variables())))}, "
+        f"{sum(disk.values()) / 1e9:.3f} GB on disk, written in "
+        f"{out['write_s']:.2f} s", card)
+    kernel_cfg = P.PredictorConfig(use_kernels=True)
+    budget = int(STREAM_BUDGET_MB * 2 ** 20)
+    chunks = {n: [min(src.chunk_rows(n, budget), src.meta(n).rows - lo)
+                  for lo in range(0, src.meta(n).rows,
+                                  src.chunk_rows(n, budget))]
+              for n in src.variables()}
+    log(f"stream chunks at {STREAM_BUDGET_MB} MiB: {chunks}")
 
-        # the streams, counters read around them
-        zero_counts(torch)
-        runs = {}
-        # prefetch 2 and 0 in turns (2, 0, 0, 2), none hashing its chunks
-        for key, depth in (("2d_prefetch2", 2), ("2d_prefetch0", 0),
-                           ("2d_prefetch0_again", 0),
-                           ("2d_prefetch2_again", 2)):
-            runs[key] = stream_run(torch, ST, src, STREAM_FIELD, ebs,
-                                   P.PredictorConfig(), depth, True)
-        digest = SRC.StreamingDigest()
-        runs["2d_kernels_digest"] = stream_run(
-            torch, ST, src, STREAM_FIELD, ebs, kernel_cfg, 2, True, digest)
-        vdigest = SRC.StreamingDigest()
-        runs["vol"] = stream_run(torch, ST, src, vol_name, [vol_eps],
-                                 P.PredictorConfig(), 2, False, vdigest)
-        counts = read_counts(torch, "Stream", (
-            "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
-        if profile:
-            from torch.profiler import ProfilerActivity, profile as prof_ctx
-            with prof_ctx(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
-                _, wall, _ = stream_run(torch, ST, src, STREAM_FIELD, ebs,
-                                        P.PredictorConfig(), 2, True)
-            out["profile"] = profile_summary(torch, prof, wall, card)
+    # the streams, counters read around them
+    zero_counts(torch)
+    runs = {}
+    # prefetch 2 and 0 in turns (2, 0, 0, 2), none hashing its chunks
+    for key, depth in (("2d_prefetch2", 2), ("2d_prefetch0", 0),
+                       ("2d_prefetch0_again", 0),
+                       ("2d_prefetch2_again", 2)):
+        runs[key] = stream_run(torch, ST, src, STREAM_FIELD, ebs,
+                               P.PredictorConfig(), depth, True)
+    digest = SRC.StreamingDigest()
+    runs["2d_kernels_digest"] = stream_run(
+        torch, ST, src, STREAM_FIELD, ebs, kernel_cfg, 2, True, digest)
+    vdigest = SRC.StreamingDigest()
+    runs["vol"] = stream_run(torch, ST, src, vol_name, [vol_eps],
+                             P.PredictorConfig(), 2, False, vdigest)
+    counts = read_counts(torch, "Stream", (
+        "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            _, wall, _ = stream_run(torch, ST, src, STREAM_FIELD, ebs,
+                                    P.PredictorConfig(), 2, True)
+        out["profile"] = profile_summary(torch, prof, wall, card)
 
-        # the in-memory sweeps they must equal, bit for bit
-        want2d, mem_s, mem_peak = in_memory_run(torch, P, src, STREAM_FIELD,
-                                                ebs, P.PredictorConfig(), True)
-        for key in ("2d_prefetch2", "2d_prefetch0", "2d_prefetch0_again",
-                    "2d_prefetch2_again"):
-            same_bits(f"2-D, {key}", runs[key][0], want2d)
-        want_k, mem_k_s, _ = in_memory_run(torch, P, src, STREAM_FIELD, ebs,
-                                           kernel_cfg, True)
-        same_bits("2-D, use_kernels", runs["2d_kernels_digest"][0], want_k)
-        want_v, mem_v_s, mem_v_peak = in_memory_run(
-            torch, P, src, vol_name, [vol_eps], P.PredictorConfig(), False)
-        same_bits("volumes", runs["vol"][0], want_v)
-        for n, d in ((STREAM_FIELD, digest), (vol_name, vdigest)):
-            if d.digest() != slice_digest(src.read(n)):
-                raise AssertionError(f"{n}: streaming digest != slice_digest")
-        log("stream: every streamed result bit-equal to the in-memory sweep "
-            "(2-D with quality at prefetch 2 and 0 and under use_kernels; "
-            "volumes); streaming digests == slice_digest (hashed in the "
-            "use_kernels and volume streams)")
-        for key, (_, wall, peak) in runs.items():
-            name = vol_name if key == "vol" else STREAM_FIELD
-            meta = src.meta(name)
-            out[key] = {"wall_s": wall, "rows_per_s": meta.rows / wall,
-                        "gb_read_per_s": disk[name] / wall / 1e9,
-                        "peak_gib": peak / 2 ** 30}
-            log(f"stream {key}: {wall:.3f} s, {meta.rows / wall:.2f} rows/s, "
-                f"{disk[name] / wall / 1e9:.3f} GB/s read, peak device "
-                f"memory {peak / 2 ** 30:.2f} GiB", card)
-        out["in_memory"] = {"2d_s": mem_s, "2d_kernels_s": mem_k_s,
-                            "vol_s": mem_v_s, "2d_peak_gib": mem_peak / 2 ** 30,
-                            "vol_peak_gib": mem_v_peak / 2 ** 30}
-        log(f"in-memory sweeps: 2-D {mem_s:.3f} s (use_kernels {mem_k_s:.3f} "
-            f"s), volumes {mem_v_s:.3f} s; peak device memory 2-D "
-            f"{mem_peak / 2 ** 30:.2f} GiB, volumes "
-            f"{mem_v_peak / 2 ** 30:.2f} GiB", card)
-        del want_k, want_v
-        rows = stream_rows(torch, src, STREAM_FIELD, vol_name, ebs)
+    # the in-memory sweeps they must equal, bit for bit
+    want2d, mem_s, mem_peak = in_memory_run(torch, P, src, STREAM_FIELD,
+                                            ebs, P.PredictorConfig(), True)
+    for key in ("2d_prefetch2", "2d_prefetch0", "2d_prefetch0_again",
+                "2d_prefetch2_again"):
+        same_bits(f"2-D, {key}", runs[key][0], want2d)
+    want_k, mem_k_s, _ = in_memory_run(torch, P, src, STREAM_FIELD, ebs,
+                                       kernel_cfg, True)
+    same_bits("2-D, use_kernels", runs["2d_kernels_digest"][0], want_k)
+    want_v, mem_v_s, mem_v_peak = in_memory_run(
+        torch, P, src, vol_name, [vol_eps], P.PredictorConfig(), False)
+    same_bits("volumes", runs["vol"][0], want_v)
+    np.savez(os.path.join(tmp, "want_2d.npz"), features=want2d[0],
+             quality=want2d[1])
+    np.save(os.path.join(tmp, "want_vol.npy"), want_v)
+    for n, d in ((STREAM_FIELD, digest), (vol_name, vdigest)):
+        if d.digest() != slice_digest(src.read(n)):
+            raise AssertionError(f"{n}: streaming digest != slice_digest")
+    log("stream: every streamed result bit-equal to the in-memory sweep "
+        "(2-D with quality at prefetch 2 and 0 and under use_kernels; "
+        "volumes); streaming digests == slice_digest (hashed in the "
+        "use_kernels and volume streams)")
+    for key, (_, wall, peak) in runs.items():
+        name = vol_name if key == "vol" else STREAM_FIELD
+        meta = src.meta(name)
+        out[key] = {"wall_s": wall, "rows_per_s": meta.rows / wall,
+                    "gb_read_per_s": disk[name] / wall / 1e9,
+                    "peak_gib": peak / 2 ** 30}
+        log(f"stream {key}: {wall:.3f} s, {meta.rows / wall:.2f} rows/s, "
+            f"{disk[name] / wall / 1e9:.3f} GB/s read, peak device "
+            f"memory {peak / 2 ** 30:.2f} GiB", card)
+    out["in_memory"] = {"2d_s": mem_s, "2d_kernels_s": mem_k_s,
+                        "vol_s": mem_v_s, "2d_peak_gib": mem_peak / 2 ** 30,
+                        "vol_peak_gib": mem_v_peak / 2 ** 30}
+    log(f"in-memory sweeps: 2-D {mem_s:.3f} s (use_kernels {mem_k_s:.3f} "
+        f"s), volumes {mem_v_s:.3f} s; peak device memory 2-D "
+        f"{mem_peak / 2 ** 30:.2f} GiB, volumes "
+        f"{mem_v_peak / 2 ** 30:.2f} GiB", card)
+    del want_k, want_v
+    rows = stream_rows(torch, src, STREAM_FIELD, vol_name, ebs)
 
-        # the advise CLI as a user runs it, launches counted around it
-        report_path = os.path.join(tmp, "report.json")
-        launches_path = os.path.join(tmp, "launches.json")
-        advise_args = [path, "--targets", "4,8,16", "--compressors",
-                       "sz2,sz3-lorenzo,zfp", "--psnr-floor", "60",
-                       "--budget-mb", str(STREAM_BUDGET_MB), "--use-kernels",
-                       "--device", "cuda"]
-        cmd = [sys.executable, "-c", ADVISE_CHILD, launches_path,
-               *advise_args, "--out", report_path]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        # the subprocess's compressor runs need tens of GiB of the card:
-        # hand back what this process's allocator holds cached
-        gc.collect()
-        torch.cuda.empty_cache()
-        free, total = torch.cuda.mem_get_info()
-        log(f"advise starts with {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
-            f"GiB of the card free ({torch.cuda.memory_allocated() / 2 ** 30:.2f}"
-            " GiB allocated by this process)")
-        t = time.perf_counter()
-        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                              timeout=ADVISE_TIMEOUT_S)
-        out["advise_s"] = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"advise exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        with open(report_path) as f:
-            report = json.load(f)
-        with open(launches_path) as f:
-            launches = json.load(f)
-        for line in proc.stdout.strip().splitlines():
-            log(f"advise | {line}")
-        for name, var in report["variables"].items():
-            nums = [c for cs in var["cr_by_compressor"].values() for c in cs]
-            nums += var["psnr_by_eb"]
-            for rec in var["targets"].values():
-                nums += [rec["eb"], rec["predicted_cr"], rec["predicted_psnr"]]
-            if not np.all(np.isfinite(nums)):
-                raise AssertionError(f"advise: non-finite report for {name}")
-        paths = {"Advise": advise_counts("advise", launches)}
-        # its 2-D CRs from the same models on the in-memory features
-        var = report["variables"][STREAM_FIELD]
-        models, aebs, _ = ADV.train_models(
-            src, STREAM_FIELD, compressors=["sz2", "sz3-lorenzo", "zfp"],
-            grid_rels=ADV.DEFAULT_GRID_RELS, train_rows=6, cfg=kernel_cfg,
-            device="cuda")
-        feats = P.features_sweep(torch.from_numpy(src.read(STREAM_FIELD)).to(
-            "cuda"), aebs, kernel_cfg).cpu().numpy()
-        var_cr = ADV.harmonic_cr(AdviseMethod.cr_table(models, feats))
-        for ci, comp in enumerate(models):
-            if var["cr_by_compressor"][comp] != [float(c) for c in var_cr[ci]]:
-                raise AssertionError(
-                    f"advise {comp}: CRs {var['cr_by_compressor'][comp]} != "
-                    f"cr_table on the in-memory features {var_cr[ci].tolist()}")
-        log(f"advise: {out['advise_s']:.2f} s wall; report finite; "
-            f"{STREAM_FIELD} CRs == cr_table on the in-memory features", card)
-        # the same CLI with each chunk served by an in-process
-        # SweepService, its launches counted the same way
-        svc_path = os.path.join(tmp, "report_service.json")
-        svc_launches_path = os.path.join(tmp, "launches_service.json")
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", ADVISE_CHILD, svc_launches_path,
-             *advise_args, "--service", "--out", svc_path], env=env,
-            capture_output=True, text=True, timeout=ADVISE_TIMEOUT_S)
-        out["advise_service_s"] = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"advise --service exited {proc.returncode}:"
-                                 f"\n{proc.stdout[-3000:]}\n"
-                                 f"{proc.stderr[-3000:]}")
-        with open(svc_path) as f:
-            served = json.load(f)
-        with open(svc_launches_path) as f:
-            svc_launches = json.load(f)
-        paths["Advise --service"] = advise_counts("advise --service",
-                                                  svc_launches)
-        if served != report:
-            diff = [n for n in report["variables"]
-                    if served["variables"].get(n) != report["variables"][n]]
-            raise AssertionError(f"advise --service report differs from the "
-                                 f"direct one in {diff}")
-        log(f"advise --service: {out['advise_service_s']:.2f} s wall; report "
-            "== the direct advise report", card)
-        out["advise_report"] = report
-        out["advise_launches"] = launches
-        out["advise_service_launches"] = svc_launches
-        return out, dict(Stream=counts, **paths), rows
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # the advise CLI as a user runs it, launches counted around it
+    report_path = os.path.join(tmp, "report.json")
+    launches_path = os.path.join(tmp, "launches.json")
+    cmd = [sys.executable, "-c", ADVISE_CHILD, launches_path,
+           *advise_args(path), "--out", report_path]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # the subprocess's compressor runs need tens of GiB of the card:
+    # hand back what this process's allocator holds cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"advise starts with {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
+        f"GiB of the card free ({torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        " GiB allocated by this process)")
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=ADVISE_TIMEOUT_S)
+    out["advise_s"] = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"advise exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(launches_path) as f:
+        launches = json.load(f)
+    for line in proc.stdout.strip().splitlines():
+        log(f"advise | {line}")
+    for name, var in report["variables"].items():
+        nums = [c for cs in var["cr_by_compressor"].values() for c in cs]
+        nums += var["psnr_by_eb"]
+        for rec in var["targets"].values():
+            nums += [rec["eb"], rec["predicted_cr"], rec["predicted_psnr"]]
+        if not np.all(np.isfinite(nums)):
+            raise AssertionError(f"advise: non-finite report for {name}")
+    paths = {"Advise": advise_counts("advise", launches)}
+    # its 2-D CRs from the same models on the in-memory features
+    var = report["variables"][STREAM_FIELD]
+    models, aebs, _ = ADV.train_models(
+        src, STREAM_FIELD, compressors=["sz2", "sz3-lorenzo", "zfp"],
+        grid_rels=ADV.DEFAULT_GRID_RELS, train_rows=6, cfg=kernel_cfg,
+        device="cuda")
+    feats = P.features_sweep(torch.from_numpy(src.read(STREAM_FIELD)).to(
+        "cuda"), aebs, kernel_cfg).cpu().numpy()
+    var_cr = ADV.harmonic_cr(AdviseMethod.cr_table(models, feats))
+    for ci, comp in enumerate(models):
+        if var["cr_by_compressor"][comp] != [float(c) for c in var_cr[ci]]:
+            raise AssertionError(
+                f"advise {comp}: CRs {var['cr_by_compressor'][comp]} != "
+                f"cr_table on the in-memory features {var_cr[ci].tolist()}")
+    log(f"advise: {out['advise_s']:.2f} s wall; report finite; "
+        f"{STREAM_FIELD} CRs == cr_table on the in-memory features", card)
+    # the same CLI with each chunk served by an in-process
+    # SweepService, its launches counted the same way
+    svc_path = os.path.join(tmp, "report_service.json")
+    svc_launches_path = os.path.join(tmp, "launches_service.json")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ADVISE_CHILD, svc_launches_path,
+         *advise_args(path), "--service", "--out", svc_path], env=env,
+        capture_output=True, text=True, timeout=ADVISE_TIMEOUT_S)
+    out["advise_service_s"] = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"advise --service exited {proc.returncode}:"
+                             f"\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(svc_path) as f:
+        served = json.load(f)
+    with open(svc_launches_path) as f:
+        svc_launches = json.load(f)
+    paths["Advise --service"] = advise_counts("advise --service",
+                                              svc_launches)
+    if served != report:
+        diff = [n for n in report["variables"]
+                if served["variables"].get(n) != report["variables"][n]]
+        raise AssertionError(f"advise --service report differs from the "
+                             f"direct one in {diff}")
+    log(f"advise --service: {out['advise_service_s']:.2f} s wall; report "
+        "== the direct advise report", card)
+    out["advise_report"] = report
+    out["advise_launches"] = launches
+    out["advise_service_launches"] = svc_launches
+    return out, dict(Stream=counts, **paths), rows
 
 
 def phase_serve_cli(card) -> dict:
@@ -1845,6 +1883,295 @@ def phase_serve_cli(card) -> dict:
                 by_shape_counts(report["launches_by_shape"].values()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dist_child(job_file: str) -> int:
+    """Phase 17's process-group member (``--dist-child JOB``): joins the
+    group its job file names, runs the job's parts on its device -- the
+    training sweep SPMD and process-local (also split into the blocks'
+    sweep and the gather), the volumes, a 2-slice batch, the training
+    tables and the streams -- holds each result to the single-device one
+    the parent left in the job's directory, bit for bit, and writes its
+    wall times and its kernels' launches by shape."""
+    import torch
+    from repro_torch import compressors as C
+    from repro_torch import kernels as K
+    from repro_torch.core import predictors as P
+    from repro_torch.core import stream as ST
+    from repro_torch.data import scientific as TS
+    from repro_torch.data import source as SRC
+    from repro_torch.dist import sweep as DS
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as M
+    job = json.loads(Path(job_file).read_text())
+    # a wedged collective prints every thread's stack before the parent
+    # kills the group
+    faulthandler.dump_traceback_later(DIST_TIMEOUT_S - 30, exit=True)
+    d, dev = Path(job["dir"]), torch.device(job["device"])
+    built = all(_build.library_path(n).exists() for n in _build.KERNELS)
+    cfg = P.PredictorConfig(use_kernels=True)
+    ebs, times = np.asarray(job["ebs"]), {}
+
+    def timed(key, fn):
+        if dev.type != "cpu":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res = fn()
+        if dev.type != "cpu":
+            torch.cuda.synchronize(dev)
+        times[key] = time.perf_counter() - t
+        return res
+
+    timed("init_s", lambda: M.dist_init(
+        job["init"], num_processes=job["nprocs"], process_id=job["rank"],
+        backend=job["backend"], device=dev,
+        init_timeout_s=DIST_COLLECTIVE_TIMEOUT_S))
+    before = K.launch_counts()
+    # the mesh's build is the group's first collective (NCCL sets up its
+    # communicator there)
+    mesh = timed("mesh_s", lambda: M.make_sweep_mesh(
+        devices=[dev] * job["shards"]))
+
+    def sweep(x, grid, **kw):
+        return DS.features_sweep_sharded(x, grid, cfg, mesh=mesh, mode="both",
+                                         **kw)
+
+    def both_ways(what, x, grid, want):
+        """SPMD and process-local sweeps of ``x``, each == ``want``."""
+        k = x.shape[0]
+        lo, hi = DS.process_block(k, mesh)
+        same_bits(f"{what} SPMD", timed(
+            f"{what}_spmd_s", lambda: sweep(x, grid).cpu().numpy()), want)
+        same_bits(f"{what} process-local", timed(
+            f"{what}_local_s", lambda: sweep(x[lo:hi], grid, process_local=True,
+                                              global_k=k).cpu().numpy()), want)
+
+    spec = TS.FIELDS[FIELD]
+    train = TS.field_slices(FIELD, count=N_TRAIN + N_TEST, n=spec.full_n,
+                            seed=0, device=dev)[:N_TRAIN]
+    want = np.load(d / "dist_train.npy")
+    both_ways("train", train, ebs, want)
+    out = timed("train_blocks_s", lambda: sweep(train, ebs, gather=False))
+    rows = timed("train_gather_s", lambda: DS.gather_rows(out))
+    same_bits("train blocks gathered", rows[:N_TRAIN], want)
+    if "more" in job["parts"]:
+        vols = torch.stack([TS.volume(VOL_FIELD, VOL_SHAPE, seed=s, device=dev)
+                            for s in range(N_DIST_VOL)])
+        both_ways("volumes", vols, job["vol_grid"], np.load(d / "dist_vol.npy"))
+        del vols
+        both_ways("pair", train[:2], ebs, want[:2])
+        for name in DIST_CRS:
+            table = timed(f"crs_{name}_s", lambda: DS.training_crs(
+                C.get(name), train, ebs, mesh=mesh))
+            same_bits(f"training_crs {name}", table,
+                         np.load(d / f"crs_{name}.npy"))
+        src = SRC.open_dataset(job["dataset"])
+        budget = ST.StreamConfig(budget_bytes=int(STREAM_BUDGET_MB * 2 ** 20))
+        feats, qual = timed("stream_2d_s", lambda: ST.stream_features(
+            src, STREAM_FIELD, ebs, P.PredictorConfig(), mesh=mesh,
+            quality=True, device=dev, stream=budget))
+        with np.load(d / "want_2d.npz") as w:
+            same_bits("2-D stream", feats, w["features"])
+            same_bits("2-D stream quality", qual, w["quality"])
+        same_bits("volume stream", timed("stream_vol_s", lambda: (
+            ST.stream_features(src, VOL_FIELD + "-vol", [job["vol_eps"]],
+                               P.PredictorConfig(), mesh=mesh, device=dev,
+                               stream=budget))), np.load(d / "want_vol.npy"))
+    total, by_shape = K.launches_since(before)
+    Path(job["out"]).write_text(json.dumps(
+        {"times": times, "launches": total, "by_shape": by_shape,
+         "shares": list(mesh.shares), "libraries_found": built}))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def run_group(what: str, cmds, logs_dir: Path, timeout: float) -> float:
+    """Start ``cmds`` together (one process each, output to files under
+    ``logs_dir``), wait for all within ``timeout`` s and raise if one
+    fails or the time runs out; every process is gone on return.
+    Returns the wall time.  Each process gets its share of the host's
+    cores for its thread pools, as ``torchrun`` gives its ranks: ranks
+    that each spin up a pool of every core starve each other's CPU work
+    (LAPACK's above all)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // len(cmds))))
+    procs, files = [], []
+    t = time.perf_counter()
+    try:
+        for i, cmd in enumerate(cmds):
+            files.append(open(logs_dir / f"{what.replace(' ', '_')}.{i}.log",
+                              "w+"))
+            procs.append(subprocess.Popen(cmd, env=env, stdout=files[-1],
+                                          stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+        wall = time.perf_counter() - t
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = []
+    for i, (p, f) in enumerate(zip(procs, files)):
+        f.seek(0)
+        tails.append(f"--- {what} process {i} (exit {p.returncode}) ---\n"
+                     + f.read()[-3000:])
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{what} failed or ran past {timeout} s:\n"
+                             + "\n".join(tails))
+    return wall
+
+
+def phase_dist(torch, ebs, vol_eps, tmp, crs_tables, card):
+    """Phase 17: the sharded sweep layer on the card, in three forms of
+    the training sweep (32 cesm-cloud slices of 1800^2, the main path's
+    6-eb grid, ``use_kernels=True``, features and quality): (a) one
+    process, a mesh of two shards on the card; (b) a one-rank NCCL group
+    whose mesh has two shards on the card (the real NCCL init and
+    all_gathers of CUDA tensors); (c) a two-rank gloo group, one shard
+    each on the card, SPMD and process-local, also on 7 miranda-vx
+    volumes and a 2-slice batch, with ``training_crs`` of sz3-lorenzo
+    and zfp split between the ranks and the two streams of phase 14's
+    dataset.  Then the advise CLI with ``--mesh cuda:0,cuda:0`` in one
+    process and over a two-rank gloo group.  Every result is held bit
+    for bit to the single-device one (the training tables to the main
+    path's, the streams to phase 14's in-memory sweeps, the reports byte
+    for byte to phase 14's).  Returns (record, the launches of all of it by shape,
+    as the "Dist" path's)."""
+    from repro_torch.core import predictors as P
+    from repro_torch.data import scientific as TS
+    from repro_torch.dist import sweep as DS
+    from repro_torch.launch import mesh as M
+    out, tmp = {}, Path(tmp)
+    spec = TS.FIELDS[FIELD]
+    kcfg = P.PredictorConfig(use_kernels=True)
+    vol_grid = vol_eps * 10.0 ** np.linspace(-1.0, 0.25, 6)
+    train = TS.field_slices(FIELD, count=N_TRAIN + N_TEST, n=spec.full_n,
+                            seed=0, device="cuda")[:N_TRAIN]
+    vols = torch.stack([TS.volume(VOL_FIELD, VOL_SHAPE, seed=s, device="cuda")
+                        for s in range(N_DIST_VOL)])
+
+    def both(x, grid, **kw):
+        return torch.cat(P.features_sweep(x, grid, kcfg, quality=True, **kw),
+                         dim=-1)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    # the single-device results every form is held to, left for the
+    # children beside phase 14's dataset
+    want = both(train, ebs, sharded=False).cpu().numpy()
+    np.save(tmp / "dist_train.npy", want)
+    np.save(tmp / "dist_vol.npy",
+            both(vols, vol_grid, sharded=False).cpu().numpy())
+    del vols
+    for name in DIST_CRS:
+        np.save(tmp / f"crs_{name}.npy", crs_tables[name][0])
+
+    # (a) one process, two shards on the card; timed beside one device in
+    # turns (one, two shards, two shards, one), then its blocks and their
+    # gather alone, counters read around those two only
+    mesh = M.make_sweep_mesh(devices=[DIST_DEVICE] * 2)
+    runs = {"one device": [], "two shards": []}
+    for key in ("one device", "two shards", "two shards", "one device"):
+        got, s = wall(lambda: (both(train, ebs, sharded=False)
+                               if key == "one device" else
+                               both(train, ebs, mesh=mesh)).cpu().numpy())
+        same_bits(f"(a) {key}", got, want)
+        runs[key].append(s)
+    zero_counts(torch)
+    padded, out["a_blocks_s"] = wall(lambda: DS.features_sweep_sharded(
+        train, ebs, kcfg, mesh=mesh, mode="both", gather=False))
+    rows, out["a_gather_s"] = wall(lambda: DS.gather_rows(padded))
+    same_bits("(a) blocks gathered", rows, want)
+    out["a_sweep_s"] = runs
+    counts = read_counts(torch, "Dist (a)", (
+        "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
+    parts = [{n: {str(k): v for k, v in c["by_shape"].items()}
+              for n, c in counts.items()}]
+    del train, padded, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) and (c): fresh interpreters (this process holds a CUDA
+    # context), each group under its own wall-clock limit
+    def child(role, nprocs, rank, backend, shards, parts_):
+        job = {"init": f"file://{tmp / ('init_' + role)}", "nprocs": nprocs,
+                "rank": rank, "backend": backend, "device": DIST_DEVICE,
+                "shards": shards, "parts": parts_, "dir": str(tmp),
+                "dataset": str(tmp / "ds"), "ebs": [float(e) for e in ebs],
+                "vol_grid": [float(e) for e in vol_grid],
+                "vol_eps": float(vol_eps),
+                "out": str(tmp / f"dist_{role}_{rank}.json")}
+        path = tmp / f"job_{role}_{rank}.json"
+        path.write_text(json.dumps(job))
+        return [sys.executable, str(Path(__file__).resolve()), "--dist-child",
+                str(path)], Path(job["out"])
+
+    for role, nprocs, backend, shards, parts_ in (
+            ("b", 1, DIST_NCCL, 2, ["train"]),
+            ("c", 2, "gloo", 1, ["train", "more"])):
+        cmds, outs = zip(*[child(role, nprocs, r, backend, shards, parts_)
+                           for r in range(nprocs)])
+        out[f"{role}_wall_s"] = run_group(f"dist ({role})", cmds, tmp,
+                                          DIST_TIMEOUT_S)
+        out[role] = [json.loads(p.read_text()) for p in outs]
+        parts += [r["by_shape"] for r in out[role]]
+        for r in out[role]:
+            if not r["libraries_found"]:
+                raise AssertionError(f"dist ({role}): a child found the "
+                                     "kernels unbuilt")
+
+    # the advise CLI: two shards on the card in one process, and over two
+    # gloo ranks
+    report = (tmp / "report.json").read_bytes()
+    two = ",".join([DIST_DEVICE] * 2)
+    runs = {f"advise --mesh {two}": ("mesh", [["--mesh", two]]),
+            "advise 2 ranks": ("ranks", [
+                ["--coordinator", f"file://{tmp / 'init_adv'}",
+                 "--num-processes", "2", "--process-id", str(r),
+                 "--backend", "gloo"] for r in range(2)])}
+    for what, (tag, extras) in runs.items():
+        cmds, launch_files = [], []
+        for r, extra in enumerate(extras):
+            launch_files.append(tmp / f"launches_{tag}_{r}.json")
+            cmds.append([sys.executable, "-c", ADVISE_CHILD,
+                         str(launch_files[-1]), *advise_args(tmp / "ds"),
+                         *extra, "--out", str(tmp / f"report_{tag}.json")])
+        out[f"{what} s"] = run_group(what, cmds, tmp, ADVISE_TIMEOUT_S)
+        if (tmp / f"report_{tag}.json").read_bytes() != report:
+            raise AssertionError(f"{what}: report differs from the direct "
+                                 "advise report")
+        for r, f in enumerate(launch_files):
+            launches = json.loads(f.read_text())
+            advise_counts(f"{what} (rank {r})", launches)
+            parts += [phase for var in launches.values()
+                      for phase in var["by_shape"].values()]
+        log(f"{what}: {out[f'{what} s']:.2f} s wall; report == the direct "
+            "advise report, byte for byte", card)
+    merged = by_shape_counts(parts)
+    require_launches("Dist", {n: c["launches"] for n, c in merged.items()},
+                     ("gram_batched", "qent_histogram_sweep", "qdq_sse_sweep",
+                      "lorenzo2d", "zfp_forward2d"))
+    log("dist: (a), (b) and (c) bit-equal to one device (sweeps, volumes, "
+        "the pair, training tables, streams); " + json.dumps(
+            {k: v for k, v in out.items() if k not in ("b", "c")}), card)
+    for role in ("b", "c"):
+        for r, res in enumerate(out[role]):
+            log(f"dist ({role}) rank {r} shares {res['shares']}: "
+                + json.dumps({k: round(v, 4) for k, v in res["times"].items()}),
+                card)
+    return out, merged
 
 
 def eps_for(grid, e: int) -> list:
@@ -1956,7 +2283,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path with torch.profiler and "
                          "report the device's busy and idle time")
+    ap.add_argument("--dist-child", metavar="JOB", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dist_child:
+        return dist_child(args.dist_child)
 
     import torch
     if not torch.cuda.is_available():
@@ -2020,11 +2350,25 @@ def main(argv=None) -> int:
         prof.__enter__()
     t_main = time.perf_counter()
     models = {}
-    for name in C.STUDY_2D:
+    # each training's CR table and its wall time, kept for phase 17
+    crs_tables, training_crs = {}, DS.training_crs
+
+    def kept_crs(comp, slices, grid, **kw):
         t = time.perf_counter()
-        models[name] = UC.EbGridModel.train(train, name, ebs, cfg=kernel_cfg)
-        stages[f"train_{name}_s"] = time.perf_counter() - t
-        log(f"train {name}: {stages[f'train_{name}_s']:.2f} s", smi)
+        table = training_crs(comp, slices, grid, **kw)
+        crs_tables[comp.name] = (table, time.perf_counter() - t)
+        return table
+
+    DS.training_crs = kept_crs
+    try:
+        for name in C.STUDY_2D:
+            t = time.perf_counter()
+            models[name] = UC.EbGridModel.train(train, name, ebs,
+                                                cfg=kernel_cfg)
+            stages[f"train_{name}_s"] = time.perf_counter() - t
+            log(f"train {name}: {stages[f'train_{name}_s']:.2f} s", smi)
+    finally:
+        DS.training_crs = training_crs
     lorenzo = models["sz3-lorenzo"]
     target = lorenzo.predict(test[0], float(ebs[2]))   # a CR inside the grid
     psnr_floor = float(lorenzo.quality.mean_psnr[2])
@@ -2202,17 +2546,29 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"phase 14 starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         "GiB allocated")
-    t = time.perf_counter()
-    streamed, stream_counts, stream_kernels = phase_stream(
-        torch, ebs, vol_eps, smi, args.profile)
-    counts.update(stream_counts)
-    kernels += stream_kernels
-    stages["stream_phase_s"] = time.perf_counter() - t
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="stream_", dir=ROOT / "build")
+    try:
+        t = time.perf_counter()
+        streamed, stream_counts, stream_kernels = phase_stream(
+            torch, ebs, vol_eps, smi, args.profile, tmp)
+        counts.update(stream_counts)
+        kernels += stream_kernels
+        stages["stream_phase_s"] = time.perf_counter() - t
 
-    # ---- phase 16: the load CLI in a subprocess
-    t = time.perf_counter()
-    served["sweep_serve"], counts["Serve CLI"] = phase_serve_cli(smi)
-    stages["serve_cli_s"] = time.perf_counter() - t
+        # ---- phase 16: the load CLI in a subprocess
+        t = time.perf_counter()
+        served["sweep_serve"], counts["Serve CLI"] = phase_serve_cli(smi)
+        stages["serve_cli_s"] = time.perf_counter() - t
+
+        # ---- phase 17: the sharded sweep layer, on phase 14's dataset
+        t = time.perf_counter()
+        dist, counts["Dist"] = phase_dist(torch, ebs, vol_eps, tmp,
+                                          crs_tables, smi)
+        dist["main_path_crs_s"] = {n: crs_tables[n][1] for n in DIST_CRS}
+        stages["dist_phase_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- every shape a path launched that no row above holds: its
     # kernel against the plain version there, timed
@@ -2255,6 +2611,7 @@ def main(argv=None) -> int:
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
+            dist=dist,
             launches_by_path={
                 p: {n: {"launches": c["launches"],
                         "by_shape": {str(k): v for k, v in c["by_shape"].items()}}

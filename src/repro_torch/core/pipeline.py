@@ -33,18 +33,20 @@ def ape(true: np.ndarray, pred: np.ndarray) -> np.ndarray:
 
 
 def featurize_slices(slices: torch.Tensor, eps: float,
-                     cfg: P.PredictorConfig = P.PredictorConfig()
-                     ) -> torch.Tensor:
+                     cfg: P.PredictorConfig = P.PredictorConfig(), *,
+                     mesh=None) -> torch.Tensor:
     """(k, m, n) slices or (k, d, m, n) volumes -> (k, 2) predictors at
-    one eb (the single-eb column of the sweep engine)."""
-    return P.get_engine(cfg).features(slices, eps)
+    one eb (the single-eb column of the sweep engine); sharded over an
+    active or passed mesh."""
+    return P.get_engine(cfg).features(slices, eps, mesh=mesh)
 
 
 def featurize_sweep(slices: torch.Tensor, epss,
-                    cfg: P.PredictorConfig = P.PredictorConfig()
-                    ) -> torch.Tensor:
-    """(k, m, n) | (k, d, m, n) x (e,) -> (k, e, 2) in one pass."""
-    return P.get_engine(cfg).sweep(slices, epss)
+                    cfg: P.PredictorConfig = P.PredictorConfig(), *,
+                    mesh=None) -> torch.Tensor:
+    """(k, m, n) | (k, d, m, n) x (e,) -> (k, e, 2) in one pass; sharded
+    over an active or passed mesh."""
+    return P.get_engine(cfg).sweep(slices, epss, mesh=mesh)
 
 
 def kfold_evaluate(features, cr, model: str = "spline", k: int = 8,

@@ -37,8 +37,8 @@ sort route's float64 sum) runs on each row alone (``quant.per_row``).
 Nor does a row's value at an eb depend on the eb grid: the sort route
 reduces each eb alone, and the kernel route adds each (row, eb) entropy
 in XLA's fixed order (``refmath.sum_rows_f32``).  So a slice gets the
-same bits alone, in its batch, in a padded bucket and in any eb grid,
-which streaming and serving rely on.
+same bits alone, in its batch, in a padded bucket, in any eb grid and
+on any shard, which streaming, serving and sharded sweeps rely on.
 """
 from __future__ import annotations
 
@@ -364,26 +364,61 @@ def _sweep(slices, epss, cfg: PredictorConfig, mode: str) -> torch.Tensor:
 
 def features_sweep(slices: torch.Tensor, epss,
                    cfg: PredictorConfig = PredictorConfig(), *,
-                   quality: bool = False):
+                   sharded: bool | None = None, mesh=None,
+                   gather: bool = True, quality: bool = False):
     """The full predictor tensor in one pass: (k, m, n) x (e,) -> (k, e, 2).
 
     Column [..., 0] is log(q-ent) (eb-dependent, fused multi-eps
     histogram); column [..., 1] is log(svd_trunc / sigma) (for volumes
     log(hosvd_trunc / sigma); eb-independent, broadcast).
 
+    Distribution, as in the reference: with ``sharded=None`` a stack of
+    more than one row is sharded over its slice axis whenever a mesh of
+    extent above 1 is active (``dist.sharding.use_mesh``) or passed as
+    ``mesh``; ``sharded=False`` forces one device and ``sharded=True``
+    raises without a usable mesh.  ``gather=False`` returns the padded
+    result left on its shards (``dist.sweep.ShardedRows``).  Sharded
+    rows are the single-device rows bit for bit.
+
     ``quality=True`` makes the same pass also emit the (k, e, 2)
     [PSNR, NRMSE] tensor of the quantization proxy and returns the pair
     ``(features, quality)``."""
-    out = _sweep(slices, epss, cfg, "both" if quality else "features")
-    if quality:
+    out = _sweep_dispatch(slices, epss, cfg, sharded=sharded, mesh=mesh,
+                          gather=gather,
+                          mode="both" if quality else "features")
+    if not quality:
+        return out
+    if isinstance(out, torch.Tensor):
         return out[..., :2], out[..., 2:]
-    return out
+    return out.cols(slice(0, 2)), out.cols(slice(2, None))
 
 
 def quality_sweep(slices: torch.Tensor, epss,
-                  cfg: PredictorConfig = PredictorConfig()) -> torch.Tensor:
-    """The quality half of the frontier: (k, ...) x (e,) -> (k, e, 2)."""
-    return _sweep(slices, epss, cfg, "quality")
+                  cfg: PredictorConfig = PredictorConfig(), *,
+                  sharded: bool | None = None, mesh=None,
+                  gather: bool = True):
+    """The quality half of the frontier: (k, ...) x (e,) -> (k, e, 2);
+    sharding routes as in :func:`features_sweep`."""
+    return _sweep_dispatch(slices, epss, cfg, sharded=sharded, mesh=mesh,
+                           gather=gather, mode="quality")
+
+
+def _sweep_dispatch(slices, epss, cfg, *, sharded, mesh, gather, mode):
+    """Routing shared by the sweeps: sharded under a usable mesh, else
+    one device.  A single row is never sharded automatically: it has no
+    parallelism to split (the UC queries featurize one slice at a time)."""
+    if sharded or (sharded is None and slices.ndim in (3, 4)
+                   and slices.shape[0] > 1):
+        from repro_torch.dist import sweep as DS
+        use = DS.active_sweep_mesh(mesh)
+        if sharded and use is None:
+            raise ValueError(
+                "features_sweep(sharded=True) needs a mesh of extent > 1 "
+                "(pass mesh= or activate one with dist.sharding.use_mesh)")
+        if use is not None:
+            return DS.features_sweep_sharded(slices, epss, cfg, mesh=use,
+                                             gather=gather, mode=mode)
+    return _sweep(slices, epss, cfg, mode)
 
 
 def _svd_sigma(x: torch.Tensor, vf: float):
@@ -464,31 +499,40 @@ class FeaturizationEngine:
     * ``cached(x)``            -- per-slice :class:`SliceCache`.
 
     Volumes are first-class: every entry point also accepts a (k, d, m, n)
-    stack (``cached``: one (d, m, n) volume)."""
+    stack (``cached``: one (d, m, n) volume).  ``sweep``, ``quality``
+    and ``features`` shard the slice axis under an active or passed mesh
+    (``repro_torch.dist.sweep``), as :func:`features_sweep` does."""
 
     def __init__(self, cfg: PredictorConfig = PredictorConfig()):
         self.cfg = cfg
 
-    def sweep(self, slices: torch.Tensor, epss, *, quality: bool = False):
-        return features_sweep(slices, epss, self.cfg, quality=quality)
+    def sweep(self, slices: torch.Tensor, epss, *,
+              sharded: bool | None = None, mesh=None, gather: bool = True,
+              quality: bool = False):
+        return features_sweep(slices, epss, self.cfg, sharded=sharded,
+                              mesh=mesh, gather=gather, quality=quality)
 
-    def quality(self, slices: torch.Tensor, epss) -> torch.Tensor:
-        return quality_sweep(slices, epss, self.cfg)
+    def quality(self, slices: torch.Tensor, epss, *,
+                sharded: bool | None = None, mesh=None, gather: bool = True):
+        return quality_sweep(slices, epss, self.cfg, sharded=sharded,
+                             mesh=mesh, gather=gather)
 
-    def features(self, slices: torch.Tensor, eps: float) -> torch.Tensor:
-        return self.sweep(slices, [eps])[:, 0, :]
+    def features(self, slices: torch.Tensor, eps: float, *,
+                 sharded: bool | None = None, mesh=None) -> torch.Tensor:
+        return self.sweep(slices, [eps], sharded=sharded, mesh=mesh)[:, 0, :]
 
-    def stream(self, source, name: str, epss, *, stream=None, digest=None,
-               quality: bool = False, device="cuda"):
+    def stream(self, source, name: str, epss, *, stream=None, mesh=None,
+               digest=None, quality: bool = False, device="cuda"):
         """Out-of-core sweep of one ``data.source.DatasetSource``
         variable: chunked, staged ahead, bit-equal to
         ``sweep(source.read(name), epss)`` on ``device`` with at most a
-        few budgeted chunks resident (``core.stream.stream_features``).
+        few budgeted chunks resident (``core.stream.stream_features``;
+        collective under a process-spanning ``mesh``).
         ``quality=True`` returns the streamed ``(features, quality)``
         pair from the same chunk launches."""
         from repro_torch.core import stream as ST
         return ST.stream_features(source, name, epss, self.cfg,
-                                  stream=stream, digest=digest,
+                                  stream=stream, mesh=mesh, digest=digest,
                                   quality=quality, device=device)
 
     def cached(self, x: torch.Tensor, *, features=None, epss=None) -> SliceCache:

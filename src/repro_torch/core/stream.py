@@ -25,8 +25,14 @@ featurizes within a bounded footprint:
   one in-memory ``features_sweep`` of the variable.
 
 On the CPU (``device="cpu"``) the same driver runs without pinned
-memory or streams.  Only the single-process schedule is ported; the
-reference's process-spanning streams come with the distributed layer.
+memory or streams.
+
+Under a mesh (``mesh=`` or ``dist.sharding.use_mesh``) a chunk whose
+padded row count divides the extent launches sharded
+(``sweep_padded``).  Under a process-spanning mesh the stream is
+COLLECTIVE: every process runs the same schedule, reads and uploads only
+its ``process_block`` rows of each chunk, and runs one collective sweep
+per chunk, so every process returns the whole tensor.
 """
 from __future__ import annotations
 
@@ -68,12 +74,21 @@ class StreamConfig:
                 f"prefetch={self.prefetch} max_in_flight={self.max_in_flight}")
 
 
-def chunk_schedule(k: int, chunk: int) -> list:
+def chunk_schedule(k: int, chunk: int, mesh=None) -> list:
     """The deterministic chunk plan: ``(lo, hi, read_lo, read_hi)`` per
-    chunk (the read range is the whole chunk on a single process).
-    Boundaries depend only on ``(k, chunk)``."""
-    return [(lo, min(lo + chunk, k), lo, min(lo + chunk, k))
-            for lo in range(0, k, chunk)]
+    chunk.  The read range is what THIS process ingests: the whole chunk
+    on one process, the chunk's ``dist.sweep.process_block`` rows under
+    a process-spanning mesh.  Boundaries depend only on ``(k, chunk)``,
+    so every process of a mesh computes the same schedule."""
+    sched = []
+    for lo in range(0, k, chunk):
+        hi = min(lo + chunk, k)
+        if DS.mesh_spans_processes(mesh):
+            blo, bhi = DS.process_block(hi - lo, mesh)
+            sched.append((lo, hi, lo + blo, lo + bhi))
+        else:
+            sched.append((lo, hi, lo, hi))
+    return sched
 
 
 class _Stager:
@@ -181,6 +196,7 @@ def stream_features(
     cfg: Optional[PRED.PredictorConfig] = None,
     *,
     stream: Optional[StreamConfig] = None,
+    mesh=None,
     digest: Optional[StreamingDigest] = None,
     quality: bool = False,
     device="cuda",
@@ -194,7 +210,10 @@ def stream_features(
     ``(features, quality)``, each half bit-equal to its in-memory
     counterpart.  ``digest``: a ``StreamingDigest`` fed every chunk in
     row order; afterwards ``digest.digest()`` equals
-    ``serve.method.slice_digest`` of the whole variable."""
+    ``serve.method.slice_digest`` of the whole variable.  Under a mesh
+    the chunks launch sharded (module docstring); a process-spanning
+    mesh makes the call collective, and refuses ``digest`` (no process
+    reads every byte)."""
     cfg = cfg if cfg is not None else PRED.PredictorConfig()
     stream = stream if stream is not None else StreamConfig()
     PRED._validate_eps_positive(epss)
@@ -210,30 +229,45 @@ def stream_features(
     if k == 0:
         empty = np.zeros((0, len(epss_np), width), np.float32)
         return (empty[..., :2], empty[..., 2:]) if quality else empty
+    mesh = DS.active_sweep_mesh(mesh)
+    multiproc = DS.mesh_spans_processes(mesh)
+    if multiproc and digest is not None:
+        raise ValueError(
+            "digest= is single-process only: under a process-spanning "
+            "mesh each process reads only its block of every chunk, so "
+            "no single process observes the variable's full byte stream")
     device = torch.device(device)
     chunk = rows_per_chunk(meta, stream.budget_bytes)
-    schedule = chunk_schedule(k, chunk)
+    schedule = chunk_schedule(k, chunk, mesh)
     stager = _Stager(source, name, chunk, device, digest)
     eps_t = torch.as_tensor(epss_np, device=device)
     compute = torch.cuda.current_stream(device) if stager.cuda else None
 
     results: list = [None] * len(schedule)
-    pending: deque = deque()             # (index, host result, event, rows)
+    pending: deque = deque()             # (index, result, event, rows)
 
     def drain_one() -> None:
-        idx, host, done, rows = pending.popleft()
+        idx, out, done, rows = pending.popleft()
         if done is not None:
             done.synchronize()
-        results[idx] = host[:rows].numpy()
+        results[idx] = DS.gather_rows(out)[:rows]
 
     for idx, (lo, hi, rows_t, uploaded) in enumerate(
             _staged_chunks(stager, schedule, stream.prefetch)):
         if uploaded is not None:
             compute.wait_event(uploaded)
             rows_t.record_stream(compute)
-        out = DS.sweep_padded(rows_t, eps_t, cfg, k_pad=chunk, mode=mode)
+        if multiproc:
+            # one collective sweep of the chunk; its gather is the
+            # processes' synchronization point
+            results[idx] = DS.features_sweep_sharded(
+                rows_t, eps_t, cfg, mesh=mesh, process_local=True,
+                global_k=hi - lo, mode=mode).cpu().numpy()
+            continue
+        out = DS.sweep_padded(rows_t, eps_t, cfg, k_pad=chunk, mesh=mesh,
+                              mode=mode)
         del rows_t
-        if stager.cuda:
+        if stager.cuda and isinstance(out, torch.Tensor):
             host = torch.empty(out.shape, dtype=torch.float32,
                                pin_memory=True)
             host.copy_(out, non_blocking=True)
@@ -259,17 +293,20 @@ def stream_dataset(
     cfg: Optional[PRED.PredictorConfig] = None,
     *,
     stream: Optional[StreamConfig] = None,
+    mesh=None,
     digests: Optional[Dict[str, str]] = None,
     device="cuda",
 ) -> Dict[str, np.ndarray]:
     """:func:`stream_features` over every variable of ``source``; returns
-    ``{variable: (k, e, 2)}``.  ``digests``, when given, is filled with
-    each variable's streaming content digest."""
+    ``{variable: (k, e, 2)}``.  ``digests``, when given and on one
+    process, is filled with each variable's streaming content digest."""
     out: Dict[str, np.ndarray] = {}
+    multiproc = DS.mesh_spans_processes(DS.active_sweep_mesh(mesh))
     for name in source.variables():
-        d = StreamingDigest() if digests is not None else None
+        d = (StreamingDigest() if digests is not None and not multiproc
+             else None)
         out[name] = stream_features(source, name, epss, cfg, stream=stream,
-                                    digest=d, device=device)
+                                    mesh=mesh, digest=d, device=device)
         if d is not None:
             digests[name] = d.digest()
     return out

@@ -119,10 +119,15 @@ class EbGridModel:
         ebs: Sequence[float],
         model: str = "spline",
         cfg: P.PredictorConfig = P.PredictorConfig(),
+        mesh=None,
         ndim: int = 2,
     ) -> "EbGridModel":
         """``ndim=2``: (k, m, n) slice stack; ``ndim=3``: (k, d, m, n)
-        volume stack (HOSVD featurization)."""
+        volume stack (HOSVD featurization).  Under a mesh (``mesh=`` or
+        the active one) the sweep shards the slice axis, and under a
+        process-spanning one the compressor runs split over the same
+        mesh's processes (``dist.sweep.training_crs``); the features and
+        the CR table are the unsharded ones bit for bit."""
         if slices.ndim != ndim + 1:
             raise ValueError(
                 f"EbGridModel.train(ndim={ndim}) expects a rank-{ndim + 1} "
@@ -131,8 +136,9 @@ class EbGridModel:
         # ONE fused sweep featurizes every (slice, grid-eb) pair and, with
         # quality=True, also emits the PSNR/NRMSE labels of the quality table
         feats, qual = P.get_engine(cfg).sweep(
-            slices, np.asarray(ebs, np.float64), quality=True)
-        cr_table = DS.training_crs(comp, slices, ebs)
+            slices, np.asarray(ebs, np.float64), mesh=mesh, quality=True)
+        cr_table = DS.training_crs(comp, slices, ebs,
+                                   mesh=DS.active_sweep_mesh(mesh))
         models = []
         for i, eps in enumerate(ebs):
             models.append(PL.CRPredictor.train_from_features(

@@ -1,1 +1,3 @@
-"""Single-process training-time compressor runs (``sweep.training_crs``)."""
+"""The sharded sweep layer over ``torch.distributed``: the active mesh
+and the ``"slices"`` rule (``sharding``), and sharded sweeps, padded
+launches and the training partition (``sweep``)."""

@@ -23,8 +23,21 @@ kernel route (exact while a grid eb's codes fit the 65536 bins, as the
 default grid's do) in place of the exact sort route.  ``--service``
 submits each chunk to an in-process ``serve.SweepService`` (its
 ``advise`` method, and ``quality`` under ``--psnr-floor``) in place of
-the direct stream; the report is the same.  The reference's ``--mesh``
-comes with the distributed layer.
+the direct stream; the report is the same.
+
+``--mesh auto|none|N|DEV,DEV,...`` shards the training sweeps and the
+stream over a ``dist.sweep.SweepMesh``: ``auto`` takes every device of
+the process (one shard each; no sharding with one), ``N`` the first N
+of them (more than there are raises), and a comma list those devices
+in order (a device may repeat: ``cuda:0,cuda:0`` puts two shards on one
+card).  With ``--coordinator ADDRESS
+--num-processes P --process-id I`` (and ``--backend``) the process first
+joins a process group of P processes; the mesh then spans them (``auto``:
+one shard per process), every process runs the same command on the
+dataset, reads only its rows of each chunk, compresses only its share
+of the training rows, and process 0 writes the report.  The variable's
+digest needs every byte, so process 0 reads the variable once more for
+it.  The report is the single-device report byte for byte.
 
 Per-variable recommendation
 ---------------------------
@@ -59,6 +72,8 @@ from repro_torch.core import stream as ST
 from repro_torch.core import usecases as UC
 from repro_torch.core.predictors import PredictorConfig
 from repro_torch.data import source as SRC
+from repro_torch.dist import sweep as DS
+from repro_torch.launch import mesh as M
 from repro_torch.serve.method import AdviseMethod
 
 DEFAULT_GRID_RELS = (1e-4, 1e-3, 1e-2)
@@ -165,11 +180,13 @@ def recommend(names, ebs: np.ndarray, var_cr: np.ndarray, targets, *,
 
 def train_models(source: SRC.DatasetSource, name: str, *, compressors,
                  grid_rels, train_rows: int, cfg: PredictorConfig,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """The advisor's models of one variable: one ``EbGridModel`` per
     compressor on its first ``train_rows`` rows, over an eb grid of
-    ``grid_rels`` times the sample's value range.  Returns (models, ebs,
-    value range), or None for a constant sample."""
+    ``grid_rels`` times the sample's value range, trained under ``mesh``
+    (sharded sweep; compressor runs split over a spanning mesh's
+    processes).  Returns (models, ebs, value range), or None for a
+    constant sample."""
     meta = source.meta(name)
     sample = source.read_rows(name, 0, min(int(train_rows), meta.rows))
     rng = float(np.max(sample) - np.min(sample))
@@ -177,7 +194,7 @@ def train_models(source: SRC.DatasetSource, name: str, *, compressors,
         return None
     ebs = np.asarray([r * rng for r in grid_rels], np.float64)
     stack = torch.from_numpy(sample).to(device)
-    models = {comp: UC.EbGridModel.train(stack, comp, ebs, cfg=cfg,
+    models = {comp: UC.EbGridModel.train(stack, comp, ebs, cfg=cfg, mesh=mesh,
                                          ndim=len(meta.shape) - 1)
               for comp in compressors}
     return models, ebs, rng
@@ -187,7 +204,7 @@ def advise_variable(source: SRC.DatasetSource, name: str, *,
                     compressors, grid_rels, targets, train_rows: int,
                     cfg: PredictorConfig, stream: ST.StreamConfig,
                     psnr_floor: Optional[float] = None,
-                    device="cuda", service=None) -> dict:
+                    device="cuda", service=None, mesh=None) -> dict:
     """Train sample models + stream the full variable -> report entry.
 
     ``psnr_floor``: also stream the fused quality tensor (same pass,
@@ -197,11 +214,14 @@ def advise_variable(source: SRC.DatasetSource, name: str, *,
     with a floor, its ``quality`` method) in place of the direct
     stream; the futures overlap the next chunk's read, and at most
     ``stream.max_in_flight`` chunks are outstanding, so the chunk
-    budget bounds host memory on this path too."""
+    budget bounds host memory on this path too.  ``mesh``: the training
+    and the stream run sharded over it (collective under a
+    process-spanning mesh, whose first process alone reads the variable
+    once more for the digest; the others report none)."""
     meta = source.meta(name)
     trained = train_models(source, name, compressors=compressors,
                            grid_rels=grid_rels, train_rows=train_rows,
-                           cfg=cfg, device=device)
+                           cfg=cfg, device=device, mesh=mesh)
     if trained is None:
         return {"shape": list(meta.shape), "skipped": "constant sample"}
     models, ebs, rng = trained
@@ -232,23 +252,25 @@ def advise_variable(source: SRC.DatasetSource, name: str, *,
         if quals:
             var_psnr = np.concatenate(quals, axis=0)[:, :, 0].min(axis=0)
     else:
+        spans = DS.mesh_spans_processes(mesh)
+        feats = ST.stream_features(
+            source, name, ebs, cfg, stream=stream, mesh=mesh,
+            digest=None if spans else digest,
+            quality=psnr_floor is not None, device=device)
         if psnr_floor is not None:
-            feats, qual = ST.stream_features(
-                source, name, ebs, cfg, stream=stream, digest=digest,
-                quality=True, device=device)
+            feats, qual = feats
             # worst row per eb: the variable meets the floor only when
             # every row does
             var_psnr = np.asarray(qual)[:, :, 0].min(axis=0)
-        else:
-            feats = ST.stream_features(source, name, ebs, cfg, stream=stream,
-                                       digest=digest, device=device)
         cr_rows = AdviseMethod.cr_table(models, feats)
+        if spans:
+            digest = _first_process_digest(source, name, stream, mesh)
 
     var_cr = harmonic_cr(cr_rows)
     names = tuple(models)
     entry = {
         "shape": list(meta.shape), "rows": meta.rows,
-        "digest": digest.digest(),
+        "digest": None if digest is None else digest.digest(),
         "eb_grid": [float(e) for e in ebs],
         "value_range": rng,
         "cr_by_compressor": {n: [float(c) for c in var_cr[i]]
@@ -262,6 +284,20 @@ def advise_variable(source: SRC.DatasetSource, name: str, *,
     return entry
 
 
+def _first_process_digest(source: SRC.DatasetSource, name: str,
+                          stream: ST.StreamConfig, mesh):
+    """The variable's streaming digest, read whole by the mesh's first
+    process (a spanning stream reads each row on one process only);
+    None on the others."""
+    import torch.distributed as dist
+    if dist.get_rank() != mesh.ranks[0]:
+        return None
+    digest = SRC.StreamingDigest()
+    for _, chunk in source.chunks(name, budget_bytes=stream.budget_bytes):
+        digest.update(chunk)
+    return digest
+
+
 def advise_dataset(source: SRC.DatasetSource, *, compressors=None,
                    grid_rels=DEFAULT_GRID_RELS, targets=DEFAULT_TARGETS,
                    train_rows: int = 6,
@@ -269,9 +305,10 @@ def advise_dataset(source: SRC.DatasetSource, *, compressors=None,
                    stream: Optional[ST.StreamConfig] = None,
                    fields=None,
                    psnr_floor: Optional[float] = None,
-                   device="cuda", service=None) -> dict:
+                   device="cuda", service=None, mesh=None) -> dict:
     """The advisor as a library call (the CLI routes here).  Returns the
-    full report dict; ``service`` as in :func:`advise_variable`."""
+    full report dict; ``service`` and ``mesh`` as in
+    :func:`advise_variable`."""
     stream = stream if stream is not None else ST.StreamConfig()
     report: dict = {"targets": [float(t) for t in targets],
                     "budget_bytes": stream.budget_bytes, "variables": {}}
@@ -285,7 +322,7 @@ def advise_dataset(source: SRC.DatasetSource, *, compressors=None,
             source, name, compressors=comps, grid_rels=grid_rels,
             targets=targets, train_rows=train_rows, cfg=cfg,
             stream=stream, psnr_floor=psnr_floor, device=device,
-            service=service)
+            service=service, mesh=mesh)
     return report
 
 
@@ -347,8 +384,27 @@ def main(argv=None) -> dict:
                     help="route chunks through an in-process SweepService "
                          "advise method (coalesced launches + feature "
                          "cache)")
+    ap.add_argument("--mesh", default="auto",
+                    help="'auto' (every device of the process when >1, one "
+                         "shard per process in a process group), 'none', "
+                         "a shard count, or a comma list of devices "
+                         "(cuda:0,cuda:0 puts two shards on one card)")
+    ap.add_argument("--coordinator", default=None,
+                    help="join a process group first: tcp://host:port or "
+                         "file://path, the same on every process")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="processes in the group (with --coordinator)")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this process's rank (with --coordinator)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the group's backend (default: nccl on the card, "
+                         "gloo on the CPU)")
     ap.add_argument("--out", default="", help="write the JSON report here")
     args = ap.parse_args(argv)
+    if args.service and (args.coordinator or args.mesh not in ("auto",
+                                                               "none")):
+        ap.error("--service runs in one process on one device: it takes "
+                 "no --mesh or --coordinator")
 
     source = SRC.open_dataset(args.dataset)
     stream = ST.StreamConfig(budget_bytes=int(args.budget_mb * 2**20),
@@ -359,23 +415,46 @@ def main(argv=None) -> dict:
     grid_rels = sorted(float(r) for r in args.grid_rels.split(",") if r)
     cfg = PredictorConfig(use_kernels=args.use_kernels)
     svc = None
-    if args.service:
-        from repro_torch.serve.sweep_service import ServiceConfig, SweepService
-        svc = SweepService(ServiceConfig(pcfg=cfg), device=args.device)
+    if args.coordinator:
+        M.dist_init(args.coordinator, num_processes=args.num_processes,
+                    process_id=args.process_id, backend=args.backend,
+                    device=args.device)
     try:
+        mesh = None if args.service else _cli_mesh(args.mesh, args.device)
+        if args.service:
+            from repro_torch.serve.sweep_service import (ServiceConfig,
+                                                         SweepService)
+            svc = SweepService(ServiceConfig(pcfg=cfg), device=args.device)
         report = advise_dataset(
             source, compressors=comps or None, grid_rels=grid_rels,
             targets=targets, train_rows=args.train_rows, cfg=cfg,
             stream=stream, fields=fields or None, psnr_floor=args.psnr_floor,
-            device=args.device, service=svc)
+            device=args.device, service=svc, mesh=mesh)
     finally:
         if svc is not None:
             svc.close()
-    _print_report(report)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(report, f, indent=1)
+        if args.coordinator:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if args.process_id == 0:
+        _print_report(report)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1)
     return report
+
+
+def _cli_mesh(spec: str, device: str):
+    """``--mesh``: None, or a mesh over this process's devices (``auto``:
+    all of them; ``N``: the first N, raising past their count; a comma
+    list: those devices), spanning the process group when there is one.
+    A mesh of one shard sweeps on one device."""
+    if spec == "none":
+        return None
+    if spec == "auto" or spec.isdigit():
+        return M.make_sweep_mesh(None if spec == "auto" else int(spec),
+                                 devices=["cpu"] if device == "cpu" else None)
+    return M.make_sweep_mesh(devices=spec.split(","))
 
 
 if __name__ == "__main__":

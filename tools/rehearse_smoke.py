@@ -8,8 +8,10 @@ cut (12 + 4 slices of 128 x 128, 10 Gaussian samples of 64 x 64, 8
 volumes of 16 x 24 x 32; a streamed dataset of 10 slices of 64 x 64 and
 7 volumes at a 64 KiB budget; the service's clients 16 requests each
 over 2 hot slices and kv leaves of 4096 values; the load CLI at 64 x
-64), every tensor on the CPU, the kernel build,
-the quotient proof and the launch-count checks left out and the
+64; phase 17's process groups all gloo, every shard on the CPU), every
+tensor on the CPU, the kernel build,
+the quotient proof and the launch-count and built-library checks left
+out and the
 kernel-check phase cut to ZFP's, then runs it with ``torch.cuda``'s
 timing calls replaced by host-clock stand-ins.  Every wrapper takes
 its plain version there, so this finds wrong paths, shapes and control
@@ -38,6 +40,9 @@ CUTS = [
     ('KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 4 << 20',
      'KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 1 << 12'),
     ('SERVE_CLI_N = 1800', 'SERVE_CLI_N = 64'),
+    ('DIST_DEVICE = "cuda:0"', 'DIST_DEVICE = "cpu"'),
+    ('DIST_NCCL = "nccl"', 'DIST_NCCL = "gloo"'),
+    ('            if not r["libraries_found"]:', '            if False:'),
     ('"cuda"', '"cpu"'),
     ('_build.build()', 'pass'),
     ('    check_quotient(torch, ebs_t)\n', ''),
