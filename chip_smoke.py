@@ -23,11 +23,20 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               lengths off the 2048-element tile, on unaligned slices and
               at 11 eps); CUDA-event times of kernel, plain version and,
               where one call computes the same function, the library;
+              ZFP's rows also the copy floor (``copy_ms``: a cold copy
+              of the slice's bytes into a second buffer, the faster of
+              ``copy_`` and ``torch.neg(x, out=...)``);
 4. small   -- the sweep on a small input on the card against the same
               call on the CPU, under the default config (exact sort
               q-ent) and ``use_kernels=True`` (hashed q-ent kernel); at
-              full size, the two q-ent routes against each other at the
-              ebs whose code range fits the bins;
+              full size, the kernel q-ent route against the exact
+              entropy (the sort route in float64) within 1e-5 at the ebs
+              whose code range fits the bins, reporting how far the sort
+              route (the reference's float32 bits) lies from the exact
+              entropy; then (4c) the training
+              sweep on the sort route, its time and peak device memory
+              with the reference's float32 q-ent and with the float64
+              form it replaced, in turns;
 5. main    -- the paper's path on ``cesm-cloud`` at its Table-1 edge
               (40 slices of 1800 x 1800 float32 made on the card): one
               ``EbGridModel.train`` (``use_kernels=True``) for each of the
@@ -73,9 +82,11 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               at each eb of a 6-eb grid, features under both q-ent routes
               and quality, bit-equal swept at that eb alone, in the grid,
               in an 8-eb bucket padded with its last eb and in a 12-eb
-              union; reported only, how many values the kernel route's
-              entropy sum gave other bits in its old form (a library
-              sum over a row's (e, bins) terms);
+              union; the sort route's q-ent of those rows at the grid
+              the same bits on the card as on the CPU; reported only,
+              how many values the kernel route's entropy sum gave other
+              bits in its old form (a library sum over a row's (e, bins)
+              terms);
 15. serve    -- (run after 13, before 14 frees phase 5's models)
               ``SweepService`` on the card: 8 client threads x 64
               requests of its seven methods (featurize on the 6-eb grid
@@ -169,11 +180,13 @@ reports the device's busy time.
 
 The last two lines of standard output are the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``; the line before them is the
-per-kernel JSON record.
+per-kernel JSON record.  The stages line gives the script's own time
+(``script_s``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import gc
 import json
@@ -657,13 +670,20 @@ def check_zfp(torch, test):
 def zfp_row(torch, x):
     """zfp_forward2d timed cold on one (m, n) slice, as a zfp encode of a
     slice calls it, beside its plain version (coefficients and exponents
-    bit-equal)."""
+    bit-equal) and beside the copy floor: a cold copy of the same 4 m n
+    bytes into a second buffer, as ``copy_`` (a device-to-device memcpy)
+    and as ``torch.neg(x, out=...)`` (an SM kernel); ``copy_ms`` is the
+    faster of the two (``copy_by``), a yardstick, not a library call that
+    computes ZFP."""
     from repro_torch.kernels.zfp_block import ops as zfp_ops, ref as zfp_ref
     m, n = x.shape
     got, want = zfp_ops.zfp_forward2d(x), zfp_ref.zfp_forward2d(x)
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"zfp kernel differs at {(m, n)}")
     b_ms, b_by = bound((8.0 + 0.25) * m * n, 8.0 * m * n)
+    dst = torch.empty_like(x)
+    floors = {"copy_": cold_cuda_ms(torch, lambda: dst.copy_(x), 50),
+              "neg": cold_cuda_ms(torch, lambda: torch.neg(x, out=dst), 50)}
     return dict(
         name="zfp_forward2d" + ("" if m == 1800 else f" ({m}, {n})"),
         route="cuda", source="src/repro_torch/csrc/zfp_block.cu",
@@ -671,7 +691,8 @@ def zfp_row(torch, x):
         shape=(m, n), max_abs_err=0.0, tolerance="bit-equal",
         ms=cold_cuda_ms(torch, lambda: zfp_ops.zfp_forward2d(x), 50),
         plain_ms=cold_cuda_ms(torch, lambda: zfp_ref.zfp_forward2d(x), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        copy_ms=min(floors.values()), copy_by=min(floors, key=floors.get))
 
 
 def sweep_breakdown(torch, engine, train, ebs_t, card):
@@ -727,26 +748,105 @@ def check_small(torch, P, TS):
 
 def check_qent_routes(torch, P, test, ebs):
     """Phase 4b: at full size (the training stack, so the sort's memory
-    is shown to fit beside it), the exact sort q-ent against the hashed
-    kernel route.  They must agree within 1e-5 (log q-ent) at the ebs
-    whose code range (data range / eb) fits the bins; elsewhere the
-    largest difference is reported."""
+    is shown to fit beside it), the hashed kernel route against the
+    exact entropy (the sort route in float64, ``float64_sorted_entropy``,
+    the default route until it took the reference's float32 bits) within
+    1e-5 in log q-ent at the ebs whose code range (data range / eb) fits
+    the bins; elsewhere the largest difference is reported, and so is
+    how far the default sort route, the reference's float32 arithmetic
+    (its terms round at long runs), lies from the exact entropy."""
     span = float(test.amax() - test.amin())
     fits = [span / eb + 1 < QENT_BINS for eb in ebs]
-    sort_f = P.features_sweep(test, ebs, P.PredictorConfig())
-    hash_f = P.features_sweep(test, ebs, P.PredictorConfig(use_kernels=True))
-    diff = (sort_f - hash_f).abs().amax(dim=(0, 2)).cpu().tolist()
+    sort32 = P.quantized_entropy_sweep(test, ebs)
+    with float64_sort_route(torch, P):
+        exact = P.quantized_entropy_sweep(test, ebs)
+    kernel = P.quantized_entropy_sweep(test, ebs, use_kernel=True)
+
+    def log_qe(q):
+        return torch.log(torch.clamp(q, min=1e-3))
+
+    diff = (log_qe(exact) - log_qe(kernel)).abs().amax(dim=0).cpu().tolist()
+    off = (sort32 - exact).abs().amax(dim=0).cpu().tolist()
     bad = [(eb, d) for eb, d, ok in zip(ebs, diff, fits) if ok and d > 1e-5]
     if bad:
-        raise AssertionError(f"sort and kernel q-ent disagree where the codes "
-                             f"fit the bins: {bad}")
-    log(f"q-ent routes at full size {tuple(test.shape)}, max |sort - kernel| "
-        "per eb: " + ", ".join(
+        raise AssertionError(f"kernel q-ent and the exact entropy disagree "
+                             f"where the codes fit the bins: {bad}")
+    log(f"q-ent routes at full size {tuple(test.shape)}, max |log q-ent "
+        "exact - kernel| per eb: " + ", ".join(
             f"{eb:.3g}: {d:.3g}{'' if ok else ' (range > bins)'}"
             for eb, d, ok in zip(ebs, diff, fits))
+        + "; max |q-ent float32 sort - exact| bits per eb: "
+        + ", ".join(f"{eb:.3g}: {d:.3g}" for eb, d in zip(ebs, off))
         + f"; peak device memory so far "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return dict(zip(map(float, ebs), diff))
+    return {"kernel_vs_exact_log": dict(zip(map(float, ebs), diff)),
+            "sort32_vs_exact_bits": dict(zip(map(float, ebs), off))}
+
+
+def float64_sorted_entropy(torch, xs, eps):
+    """The sort route's entropy as the port took it before it took the
+    reference's float32 bits: g(j) from two ``torch.log2`` over the
+    (k, n) ranks, each row's sum in float64 and ``log2(n) - s / n`` in
+    float64 (for ``sort_route_cost`` only)."""
+    from repro_torch.quant import (INT32_CODE_MAX, INT32_CODE_MIN,
+                                   flush_subnormals, per_row)
+    k, n = xs.shape
+    codes = torch.clamp(torch.floor(flush_subnormals(xs / eps)),
+                        INT32_CODE_MIN, INT32_CODE_MAX).to(torch.int32)
+    iota = torch.arange(n, dtype=torch.int32, device=xs.device)
+    start = torch.ones((k, n), dtype=torch.bool, device=xs.device)
+    start[:, 1:] = codes[:, 1:] != codes[:, :-1]
+    del codes
+    run_start = torch.cummax(torch.where(start, iota, 0), dim=1).values
+    del start
+    j = (iota - run_start + 1).to(torch.float32)
+    del run_start
+    g = j * torch.log2(j) - (j - 1) * torch.log2(torch.clamp(j - 1, min=1))
+    s = per_row(lambda r: r.sum(dim=1, dtype=torch.float64), g)
+    return (np.log2(float(n)) - s / n).to(torch.float32)
+
+
+@contextlib.contextmanager
+def float64_sort_route(torch, P):
+    """Within it, the sort route takes the float64 form
+    (``float64_sorted_entropy``) in place of the reference's bits."""
+    saved = P._sorted_entropy
+    P._sorted_entropy = lambda xs, eps: float64_sorted_entropy(torch, xs, eps)
+    try:
+        yield
+    finally:
+        P._sorted_entropy = saved
+
+
+def sort_route_cost(torch, P, train, ebs_t, card) -> dict:
+    """Phase 4c: the training sweep (features and quality) on the sort
+    q-ent route (``use_kernels=False``) with the reference's float32 q-ent
+    against the float64 form it replaced, in turns (new, old, new, old;
+    the first new call also builds the rank-term table), each with its
+    wall time to a synchronize and its peak device memory above what was
+    allocated before it; and how far the two forms' features differ."""
+    engine = P.get_engine(P.PredictorConfig())
+    out = {"new_s": [], "old_s": [], "new_peak_gib": [], "old_peak_gib": []}
+    feats = {}
+    for form in ("new", "old", "new", "old"):
+        with (float64_sort_route(torch, P) if form == "old"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            feats[form] = engine.sweep(train, ebs_t, quality=True)[0]
+            torch.cuda.synchronize()
+            out[f"{form}_s"].append(time.perf_counter() - t)
+            out[f"{form}_peak_gib"].append(
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    out["max_abs_diff"] = float((feats["new"] - feats["old"]).abs().max())
+    log(f"sort route, training sweep {tuple(train.shape)} x "
+        f"{ebs_t.shape[0]} ebs with quality: float32 (the reference's bits) "
+        f"{out['new_s']} s, peak +{out['new_peak_gib']} GiB; float64 (before) "
+        f"{out['old_s']} s, peak +{out['old_peak_gib']} GiB; features differ "
+        f"by {out['max_abs_diff']:.3g} at most", card)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -971,8 +1071,10 @@ def study_fig5(torch, cfg, card):
 
 def study_table4(torch, cfg, card):
     """Table 4: N_VOL miranda-vx volumes of VOL_SHAPE, one rank-4 sweep on
-    the q-ent kernel route (checked against the exact sort route), the
-    five STUDY_3D CRs per volume, k-fold MedAPE, TTHRESH's RMSE."""
+    the q-ent kernel route (checked against the exact entropy within
+    1e-5, as in phase 4b, which also reports the float32 sort route's
+    distance from it), the five STUDY_3D CRs per volume, k-fold MedAPE,
+    TTHRESH's RMSE."""
     from repro_torch import compressors as C
     from repro_torch.core import pipeline as PL, predictors as P
     from repro_torch.data import scientific as TS
@@ -981,11 +1083,14 @@ def study_table4(torch, cfg, card):
                         for s in range(N_VOL)])
     eps = VOL_EB_REL * float(vols.amax() - vols.amin())
     feats = P.features_sweep(vols, [eps], cfg)[:, 0]
-    exact = P.features_sweep(vols, [eps], P.PredictorConfig())[:, 0]
+    with float64_sort_route(torch, P):
+        exact = P.features_sweep(vols, [eps], P.PredictorConfig())[:, 0]
+        exact_qe = P.quantized_entropy_sweep(vols, [eps])
     diff = float((feats - exact).abs().max())
     if diff > 1e-5:
         raise AssertionError(f"Table 4: q-ent kernel route differs from the "
-                             f"sort route by {diff}")
+                             f"exact entropy by {diff}")
+    off = float((P.quantized_entropy_sweep(vols, [eps]) - exact_qe).abs().max())
     out, crs_all = {}, {}
     for name in C.STUDY_3D:
         crs = DS.training_crs(C.get(name), vols, [eps])[:, 0]
@@ -997,7 +1102,7 @@ def study_table4(torch, cfg, card):
     if not all(np.isfinite(v) for v in out.values()):
         raise AssertionError(f"Table 4: non-finite MedAPE {out}")
     log(f"Table 4 ({VOL_FIELD} {tuple(vols.shape)}, eps {eps:.4g}; kernel vs "
-        f"sort route {diff:.2g}) MedAPE % "
+        f"exact {diff:.2g}, float32 sort vs exact {off:.2g} bits) MedAPE % "
         + json.dumps({k: round(v, 3) for k, v in out.items()})
         + f"; mean CR " + json.dumps({k: round(float(np.mean(v)), 3)
                                       for k, v in crs_all.items()})
@@ -1163,8 +1268,10 @@ def check_eb_independence(torch, cases, card):
     """Phase 13, eb grids: for each (what, rows, grid), each row's
     features (both q-ent routes) and quality at each eb of the grid are
     bit-equal swept at that eb alone, in the grid, in its padded eb
-    bucket and in a 12-eb union; and, reported only, how many values the
-    old form of the kernel route's entropy sum gave other bits."""
+    bucket and in a 12-eb union; the sort route's q-ent at the grid is
+    the same bits on the card as on the CPU; and, reported only, how many
+    values the old form of the kernel route's entropy sum gave other
+    bits."""
     from repro_torch.core import predictors as P
     t = time.perf_counter()
     probes = {}
@@ -1188,10 +1295,17 @@ def check_eb_independence(torch, cases, card):
             del alone, got
         probes[what] = probe_old_entropy_sum(
             torch, rows.reshape(rows.shape[0], -1), grids)
+        qe = P.quantized_entropy_sweep(rows, grid).cpu()
+        qe_cpu = P.quantized_entropy_sweep(rows.cpu(), grid)
+        if not torch.equal(qe, qe_cpu):
+            raise AssertionError(
+                f"{what}: the sort route's q-ent on the card differs from "
+                f"the CPU on {int((qe != qe_cpu).sum())} values")
         log(f"eb independence {what} {tuple(rows.shape)}: each row at each "
             f"of {len(grid)} ebs alone == in grids of 6, 8 (padded) and 12 "
-            "(union), features under both q-ent routes and quality; the old "
-            "entropy sum's values differing from alone per grid "
+            "(union), features under both q-ent routes and quality; the "
+            "sort route's q-ent on the card == on the CPU bit for bit; the "
+            "old entropy sum's values differing from alone per grid "
             f"{json.dumps(probes[what])}", card)
     torch.cuda.synchronize()
     return time.perf_counter() - t, probes
@@ -2287,6 +2401,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.dist_child:
         return dist_child(args.dist_child)
+    t_script = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -2340,6 +2455,8 @@ def main(argv=None) -> int:
                                   ebs_t, smi))
     check_small(torch, P, TS)
     qent_routes = check_qent_routes(torch, P, train, ebs)
+    early_peak = torch.cuda.max_memory_allocated()   # phase 4c resets it
+    sort_cost = sort_route_cost(torch, P, train, ebs_t, smi)
 
     # ---- phase 5: the main path, counters read around it
     zero_counts(torch)
@@ -2528,7 +2645,7 @@ def main(argv=None) -> int:
         (f"{FIELD} slices", data[picks(data, 4)], ebs),
         (f"{VOL_FIELD} volumes", vols[picks(vols, 2)],
          vol_eps * 10.0 ** np.linspace(-1.0, 0.25, 6))], smi)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gb = max(early_peak, torch.cuda.max_memory_allocated()) / 2 ** 30
 
     # ---- phase 15: the sweep service, with phase 5's models and held-out
     # slices, counters read around its traffic
@@ -2594,6 +2711,7 @@ def main(argv=None) -> int:
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
             f"launches by path {json.dumps(row['launches_by_path'])}", smi)
 
+    stages["script_s"] = time.perf_counter() - t_script
     log("stages s " + json.dumps({k: round(v, 3) for k, v in stages.items()}),
         smi)
     log(f"peak device memory {peak_gb:.2f} GiB (phases 1-13)")
@@ -2611,7 +2729,7 @@ def main(argv=None) -> int:
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
-            dist=dist,
+            dist=dist, sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],
                         "by_shape": {str(k): v for k, v in c["by_shape"].items()}}
@@ -2621,7 +2739,7 @@ def main(argv=None) -> int:
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "launches_by_path", "max_abs_err",
                              "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms")}
+                             "library_ms", "copy_ms") if k in row}
         for row in kernels]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -32,24 +32,27 @@ value as a zero of its sign, as the reference does
 A row's features do not depend on the batch it is swept in: the Gram
 kernel fixes its numerics from the slice's shape, ``eigvalsh`` solves
 each matrix alone, and every library reduction whose batched form adds
-a row in another order (the means, sigma, the trunc-fraction sums, the
-sort route's float64 sum) runs on each row alone (``quant.per_row``).
-Nor does a row's value at an eb depend on the eb grid: the sort route
-reduces each eb alone, and the kernel route adds each (row, eb) entropy
-in XLA's fixed order (``refmath.sum_rows_f32``).  So a slice gets the
+a row in another order (the means, sigma, the trunc-fraction sums)
+runs on each row alone (``quant.per_row``).  Nor does a row's value at
+an eb depend on the eb grid: both q-ent routes add each (row, eb)
+entropy in XLA's fixed order (``refmath.sum_rows_f32``), the sort route
+one eb at a time.  So a slice gets the
 same bits alone, in its batch, in a padded bucket, in any eb grid and
 on any shard, which streaming, serving and sharded sweeps rely on.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
+from repro_torch import refmath
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.qent import ops as qent_ops
 from repro_torch.kernels.quality import ops as quality_ops
+from repro_torch.kernels.quality.ref import fma32
 from repro_torch.quant import INT32_CODE_MAX, INT32_CODE_MIN, flush_subnormals
 from repro_torch.quant import SQRT_MIN_NORMAL, per_row
 from repro_torch.quant import scalar as _scalar
@@ -148,15 +151,74 @@ def hosvd_trunc(x: torch.Tensor,
     return hosvd_trunc_batch(x[None], variance_fraction)[0]
 
 
+# g(j) by rank j, grown to the longest run seen: {device: (len,) table}
+_RANK_TERMS: dict = {}
+_RANK_TERMS_LOCK = threading.Lock()
+_RANK_TERMS_CHUNK = 1 << 22
+
+
+def rank_terms(j: torch.Tensor) -> torch.Tensor:
+    """``g(j) = j*log2(j) - (j-1)*log2(max(j-1, 1))`` of float32 ranks
+    ``j >= 1``, bit-equal to the reference's jitted expression: ``log2``
+    by XLA's Cephes polynomial (``refmath.log2_f32``) and the difference
+    contracted as XLA's CPU fusion contracts it, into
+    ``fma(j, log2(j), -((j-1)*log2(j-1)))``.  Both products are large
+    and close (g is about log2(j) + 1.44), so the one rounding the FMA
+    saves decides most of g's bits."""
+    lj = refmath.log2_f32(j)
+    lj1 = refmath.log2_f32(torch.clamp(j - 1, min=1))
+    return fma32(j, lj, -((j - 1) * lj1))
+
+
+def _rank_term_table(jmax: int, device) -> torch.Tensor:
+    """float32 ``g(j)`` at index ``j`` for ``j = 1..jmax`` at least (index
+    0 unused) on ``device``: built once per device, in chunks, and
+    extended to the next power of two when a longer run comes.  An entry
+    depends on its rank alone, so the table's length never changes a
+    result."""
+    device = torch.device(device)
+    with _RANK_TERMS_LOCK:
+        table = _RANK_TERMS.get(device)
+        if table is None:
+            table = torch.zeros(1, dtype=torch.float32, device=device)
+        if table.shape[0] <= jmax:
+            size = 1 << jmax.bit_length()
+            parts = [table]
+            for lo in range(table.shape[0], size, _RANK_TERMS_CHUNK):
+                parts.append(rank_terms(torch.arange(
+                    lo, min(lo + _RANK_TERMS_CHUNK, size),
+                    dtype=torch.float32, device=device)))
+            table = _RANK_TERMS[device] = torch.cat(parts)
+        return table
+
+
+def _entropy_last_step(s: torch.Tensor, n: int) -> torch.Tensor:
+    """``log2(n) - s / n`` of float32 run-term sums, as the reference's
+    jitted ``jnp.log2(float(n)) - s / n`` gives it: XLA folds the
+    constant ``log(f32(n)) / log(2)`` (each correctly rounded), turns the
+    division into a product by ``f32(1 / f32(n))`` and contracts the
+    difference into one FMA.  ``n`` is rounded to float32 first, as JAX
+    rounds it (a volume may hold more than 2^24 values)."""
+    nf = np.float32(n)
+    log2n = np.float32(np.float32(np.log(np.float64(nf)))
+                       / np.float32(np.log(2.0)))
+    return fma32(-s, float(np.float32(1.0) / nf), float(log2n))
+
+
 def _sorted_entropy(xs: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-    """Exact entropy (bits) of ``floor(xs / eps)`` for each row of an
-    ascending-sorted (k, n) stack: run lengths from the sorted codes.
+    """Entropy (bits) of ``floor(xs / eps)`` for each row of an
+    ascending-sorted (k, n) stack from the exact run lengths of the
+    sorted codes, in the reference's float32 arithmetic, bit for bit.
 
     H = log2(n) - (1/n) sum_runs L*log2(L); telescoping over the rank
     j = 1..L inside each run, L*log2(L) = sum_j g(j) with
     g(j) = j*log2(j) - (j-1)*log2(j-1), so one forward cummax (the rank)
-    replaces any per-run reduction.  g is float32 as in the reference;
-    its sum and the last step are taken in float64."""
+    replaces any per-run reduction.  g depends on the rank alone, so it
+    is gathered from a table of the reference's float32 values
+    (:func:`rank_terms`); each row's terms add in XLA's CPU order
+    (``refmath.sum_rows_f32``, elementwise adds over all rows, so a row
+    has the same bits in any batch) and the last step is the
+    reference's (:func:`_entropy_last_step`)."""
     k, n = xs.shape
     codes = torch.clamp(torch.floor(flush_subnormals(xs / eps)), INT32_CODE_MIN,
                         INT32_CODE_MAX).to(torch.int32)
@@ -166,11 +228,12 @@ def _sorted_entropy(xs: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     del codes
     run_start = torch.cummax(torch.where(start, iota, 0), dim=1).values
     del start
-    j = (iota - run_start + 1).to(torch.float32)
+    j = (iota - run_start + 1).reshape(-1)
     del run_start
-    g = j * torch.log2(j) - (j - 1) * torch.log2(torch.clamp(j - 1, min=1))
-    s = per_row(lambda r: r.sum(dim=1, dtype=torch.float64), g)
-    return (np.log2(float(n)) - s / n).to(torch.float32)
+    table = _rank_term_table(int(j.max()), xs.device)
+    g = torch.index_select(table, 0, j).reshape(k, n)
+    del j
+    return _entropy_last_step(refmath.sum_rows_f32(g), n)
 
 
 def quantized_entropy_sweep(slices: torch.Tensor, epss,
@@ -180,10 +243,11 @@ def quantized_entropy_sweep(slices: torch.Tensor, epss,
 
     ``use_kernel=False``: sort each slice once (``floor(x/eps)`` is
     monotone in x, so every eb shares the sort), then run lengths per
-    eb: the exact entropy.  ``use_kernel=True``: the fused multi-eps
-    histogram of ``kernels.qent``, codes saturated to int32 and hashed
-    into ``num_bins`` bins -- equal to the exact route whenever the code
-    range fits the bins."""
+    eb: the exact counts, the reference's float32 entropy bit for bit.
+    ``use_kernel=True``: the fused multi-eps histogram of
+    ``kernels.qent``, codes saturated to int32 and hashed into
+    ``num_bins`` bins -- equal to the exact route (to float32 rounding)
+    whenever the code range fits the bins."""
     _validate_eps_positive(epss)
     k = slices.shape[0]
     flat = flush_subnormals(slices.to(torch.float32).reshape(k, -1))
@@ -273,7 +337,7 @@ def _looped_features(x: torch.Tensor, eps: float, cfg: "PredictorConfig",
     x = flush_subnormals(x.to(torch.float32))
     sigma = _sigma(x[None])[0]
     qe = _quantized_entropy(x, eps, cfg.qent_bins, cfg.use_kernels)
-    return torch.stack([torch.log(torch.clamp(qe, min=1e-3)),
+    return torch.stack([refmath.log_f32(torch.clamp(qe, min=1e-3)),
                         _log_ratio(trunc(x), sigma)])
 
 
@@ -340,7 +404,7 @@ def _features_sweep_impl(slices: torch.Tensor, epss: torch.Tensor, *,
               else hosvd_trunc_batch(x, vf))
         log_ratio = _log_ratio(sv, sigma)
         qe = _qent_sweep(x.reshape(x.shape[0], -1), epss, bins, use_kernels)
-        log_qe = torch.log(torch.clamp(qe, min=1e-3))            # (k, e)
+        log_qe = refmath.log_f32(torch.clamp(qe, min=1e-3))  # (k, e)
         outs.append(torch.stack(
             [log_qe, log_ratio[:, None].expand_as(log_qe)], dim=-1))
     if mode in ("quality", "both"):
@@ -483,7 +547,7 @@ class SliceCache:
                              _eps_tensor([key], self._x),
                              self._cfg.qent_bins, self._cfg.use_kernels)[0, 0]
             self._memo[key] = torch.stack(
-                [torch.log(torch.clamp(qe, min=1e-3)), self._ratio()])
+                [refmath.log_f32(torch.clamp(qe, min=1e-3)), self._ratio()])
         return self._memo[key]
 
 

@@ -3,10 +3,17 @@
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 in ``ref``.  Both see the slice edge-padded to a multiple of 4, as the
 reference's wrapper pads it; the kernel needs no further tile padding.
+
+:func:`launch_plan` sizes the kernel's grid from the card's SM count,
+at most one full wave; thread t of the grid takes blocks t, t + T,
+t + 2T, ... (T the grid's threads) of the band-major order, block b
+being the 4x4 block at rows 4 (b // (n/4)), columns 4 (b % (n/4)).
+The plan moves data only: a block's bits depend on its 16 values alone.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -15,11 +22,31 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.zfp_block import ref as _ref
 from repro_torch.quant import pad_to_multiple
 
+THREADS = 256       # zfp_block.cu: threads a CTA, one 4x4 block each
+CTAS_PER_SM = 8     # a full wave: 2048 threads an SM at 32 registers
+
+
+def launch_plan(m: int, n: int, sms: int) -> tuple[int, int]:
+    """(ctas, steps) for an (m, n) slice, m and n multiples of 4, on a
+    card of ``sms`` SMs: ``ctas`` CTAs of ``THREADS`` threads, at most
+    ``CTAS_PER_SM`` an SM and no CTA without a block, and the most
+    blocks a thread takes (1 up to ~4.3 M values on 132 SMs)."""
+    nblocks = (m // 4) * (n // 4)
+    if nblocks == 0:
+        return 0, 0
+    ctas = min(-(-nblocks // THREADS), sms * CTAS_PER_SM)
+    return ctas, -(-nblocks // (ctas * THREADS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def _launch(x: torch.Tensor):
     _build.require_cuda(x, "zfp_forward2d")
     m, n = x.shape
-    if m % 4 or n % 4 or m >= 2 ** 31 or n >= 2 ** 31:
+    if m % 4 or n % 4 or (m // 4) * (n // 4) >= 2 ** 30:
         raise ValueError(f"zfp_forward2d: unsupported shape {tuple(x.shape)}")
     if x.data_ptr() % 16:
         x = x.clone()                       # the kernel loads float4 rows
@@ -27,13 +54,14 @@ def _launch(x: torch.Tensor):
     exps = torch.empty((m // 4, n // 4), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:
         return coef, exps
+    ctas, _ = launch_plan(m, n, _sm_count(x.device.index))
     fn = _build.load("zfp_block").repro_zfp_forward2d
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         code = fn(_build.ptr(x), _build.ptr(coef), _build.ptr(exps), m, n,
-                  _build.stream(x))
+                  ctas, _build.stream(x))
     _build.check(code, "zfp_forward2d")
     _build.count(zfp_forward2d, (m, n))
     return coef, exps

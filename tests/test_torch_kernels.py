@@ -316,6 +316,32 @@ def test_zfp_ref_is_the_compressor_transform():
         tzfp.zfp_forward2d(torch.zeros(4, 4, 4))
 
 
+@pytest.mark.parametrize("sms", [1, 7, 132, 264])
+@pytest.mark.parametrize("shape", [(4, 4), (4, 1800), (1800, 4), (1028, 1028),
+                                   (1800, 1800), (1032, 2052)])
+def test_zfp_launch_plan_covers_every_block_once(shape, sms):
+    """The grid the wrapper launches ZFP with: at most CTAS_PER_SM CTAs
+    an SM, none without a block, and the kernel's grid-stride walk
+    (thread t takes blocks t, t + T, ... below the block count) takes
+    every 4x4 block of the slice exactly once, no block out of range,
+    neighbouring threads on neighbouring blocks."""
+    m, n = shape
+    nblocks = (m // 4) * (n // 4)
+    ctas, steps = tzfp.launch_plan(m, n, sms)
+    assert 1 <= ctas <= sms * tzfp.CTAS_PER_SM
+    assert (ctas - 1) * tzfp.THREADS < nblocks       # the last CTA has work
+    threads = ctas * tzfp.THREADS
+    walk = (np.arange(threads)[:, None]
+            + threads * np.arange(steps)[None, :])    # (thread, step)
+    walk = np.where(walk < nblocks, walk, -1)
+    taken = walk[walk >= 0]
+    assert taken.max() < nblocks
+    np.testing.assert_array_equal(np.sort(taken), np.arange(nblocks))
+    assert np.all(np.diff(walk[:, 0][walk[:, 0] >= 0]) == 1)
+    if ctas < sms * tzfp.CTAS_PER_SM:                 # one wave, one block
+        assert steps == 1
+
+
 # ------------------------------------------------------------------ routing
 @pytest.mark.parametrize("fn, args", [
     (tgram.gram_batched, (torch.zeros(1, 4, 4, dtype=torch.float64),)),
@@ -331,6 +357,22 @@ def test_wrappers_take_plain_version_on_cpu(fn, args):
     out = out[0] if isinstance(out, tuple) else out
     assert out.device.type == "cpu" and fn.launches == before
     assert dict(getattr(fn, "by_shape", {})) == shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1028, 1028), (1800, 1800), (1030, 1799)])
+def test_cuda_zfp_planted_powers_at_main_path_shapes(shape):
+    """The ZFP kernel equals its plain version on block maxima planted at
+    and next to powers of two at Fig 5's and the main path's slice
+    edges and at an odd shape the wrapper edge-pads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ only")
+    m, n = shape
+    x = torch.from_numpy(_planted(m + (-m) % 4, n + (-n) % 4, 12))[:m, :n]
+    coef, exps = tzfp.zfp_forward2d(x.cuda())
+    coef_p, exps_p = tzfp.zfp_forward2d(x)
+    assert torch.equal(coef.cpu(), coef_p)
+    assert torch.equal(exps.cpu(), exps_p)
 
 
 @pytest.mark.cuda

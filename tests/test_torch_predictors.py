@@ -3,8 +3,8 @@
 Slice stacks are made once by the reference's generators and handed to
 both stacks as numpy arrays.  ``PredictorConfig.use_kernels`` picks the
 q-ent route as in the reference: the default is the exact sort route,
-held to the reference's default route (within 1e-5 on features, 1e-4
-on entropies, at every error bound); ``use_kernels=True`` hashes codes
+held to the reference's default route (its entropies and log q-ent
+bit for bit, the SVD feature within 1e-5); ``use_kernels=True`` hashes codes
 into ``qent_bins`` bins like the reference's kernel route, held to it
 within 1e-5.  The two routes agree where the code range fits the bins.
 """
@@ -88,6 +88,8 @@ def test_default_route_matches_reference_on_cesm_cloud(cesm):
                                         sharded=False))
     got = TP.features_sweep(torch.from_numpy(cesm), CESM_EBS).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[..., 0].view(np.int32),
+                                  want[..., 0].view(np.int32))
     hashed = TP.features_sweep(torch.from_numpy(cesm), CESM_EBS,
                                TP.PredictorConfig(use_kernels=True)).numpy()
     miss = np.abs(hashed - want).max(axis=(0, 2))
@@ -103,12 +105,59 @@ def test_qent_sweep_matches_reference_routes(cesm, use_kernel):
     got = TP.quantized_entropy_sweep(torch.from_numpy(cesm), ebs,
                                      use_kernel=use_kernel).numpy()
     assert got.shape == want.shape == (3, 7)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    if use_kernel:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:                                  # the exact route: bit for bit
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     # a constant slice has entropy 0; a stack of one value per code, log2(n)
     flat = torch.arange(64, dtype=torch.float32).reshape(1, 8, 8)
     ent = TP.quantized_entropy_sweep(torch.cat([flat * 0, flat]), [1.0],
                                      use_kernel=use_kernel)
     np.testing.assert_allclose(ent.numpy()[:, 0], [0.0, 6.0], atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["volumes", "ragged"])
+def test_sort_route_bit_equal_to_reference(case):
+    """The sort route's q-ent, and the log q-ent column of a default
+    sweep, are the reference's bits on a (2, d, m, n) volume stack and
+    on slices whose length (45 x 45) is no multiple of XLA's 32-wide
+    sum window."""
+    if case == "volumes":
+        v = np.array(JS.volume("hurricane-u", shape=(6, 20, 24)))
+        x = np.stack([v, v[::-1] * 0.5 + 0.1])
+    else:
+        x = np.array(JS.field_slices("miranda-vx", count=3, n=45))
+    ebs = np.array([1e-4, 1e-3, 1e-2, 5e-2]) * float(np.ptp(x))
+    want = np.asarray(JP.quantized_entropy_sweep(
+        jnp.asarray(x), jnp.asarray(ebs, jnp.float32)))
+    got = TP.quantized_entropy_sweep(torch.from_numpy(x), ebs).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    want = np.asarray(JP.features_sweep(jnp.asarray(x), ebs, sharded=False))
+    got = TP.features_sweep(torch.from_numpy(x), ebs).numpy()
+    np.testing.assert_array_equal(got[..., 0].view(np.int32),
+                                  want[..., 0].view(np.int32))
+
+
+def test_rank_terms_bit_equal_to_jnp():
+    """g(j) = j log2 j - (j-1) log2(j-1) of the port equals the
+    reference's jitted expression at every rank in [1, 2^22], which
+    covers every run length of a 1800 x 1800 slice, and the table the
+    sort route gathers from holds the same values."""
+    import jax
+    n = 1 << 22
+    j = np.arange(1, n + 1, dtype=np.float32)
+
+    def terms(one):                          # as in the reference's lax.map
+        jj = jnp.asarray(j) * one
+        return jj * jnp.log2(jj) - (jj - 1) * jnp.log2(jnp.maximum(jj - 1, 1))
+
+    want = np.asarray(jax.lax.map(terms, jnp.ones((1,), jnp.float32)))[0]
+    got = TP.rank_terms(torch.from_numpy(j)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    table = TP._rank_term_table(n, "cpu")
+    assert table.shape[0] > n
+    np.testing.assert_array_equal(table[1:n + 1].numpy().view(np.int32),
+                                  want.view(np.int32))
 
 
 def test_convert_keeps_use_kernels():
@@ -391,7 +440,7 @@ def test_port_imports_neither_jax_nor_reference():
 
 # ----------------------------------------------------- eb-grid independence
 @pytest.mark.parametrize("rank", [3, 4])
-@pytest.mark.parametrize("mode", ["features", "quality"])
+@pytest.mark.parametrize("mode", ["features", "quality", "qent"])
 @pytest.mark.parametrize("use_kernels", [False, True])
 def test_row_at_one_eb_independent_of_eb_grid(stacks, rank, mode,
                                               use_kernels):
@@ -400,7 +449,8 @@ def test_row_at_one_eb_independent_of_eb_grid(stacks, rank, mode,
     and in a 12-eb union with other ebs before and after it: what the
     sweep service's eb unions and eb buckets rely on.  The default 65536
     bins make the kernel route's entropy sum long enough for a library
-    sum to split it by the number of ebs."""
+    sum to split it by the number of ebs.  ``qent`` also holds each
+    row's q-ent alone == in the batch at every grid."""
     x, _ = stacks[rank]
     x = torch.from_numpy(x)
     rng = float(x.max() - x.min())
@@ -408,7 +458,9 @@ def test_row_at_one_eb_independent_of_eb_grid(stacks, rank, mode,
     others = list(rng * 10.0 ** np.linspace(-4.3, -1.2, 6))
     union = sorted(grid + others)
     cfg = TP.PredictorConfig(use_kernels=use_kernels)
-    sweep = TP.features_sweep if mode == "features" else TP.quality_sweep
+    sweep = {"features": TP.features_sweep, "quality": TP.quality_sweep,
+             "qent": lambda x, e, c: TP.quantized_entropy_sweep(
+                 x, e, use_kernel=c.use_kernels)}[mode]
     in_grid = sweep(x, grid, cfg)
     bucket = sweep(x, grid + [grid[-1]] * 2, cfg)
     in_union = sweep(x, union, cfg)
@@ -417,3 +469,7 @@ def test_row_at_one_eb_independent_of_eb_grid(stacks, rank, mode,
         assert torch.equal(alone, in_grid[:, j]), j
         assert torch.equal(alone, bucket[:, j]), j
         assert torch.equal(alone, in_union[:, union.index(eps)]), j
+    if mode == "qent":
+        for ebs, batch in ((grid, in_grid), (union, in_union)):
+            for i in range(x.shape[0]):
+                assert torch.equal(sweep(x[i:i + 1], ebs, cfg)[0], batch[i])

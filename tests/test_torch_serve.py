@@ -10,8 +10,9 @@ Three groups:
 * parity: the reference's ``SweepService`` and the port's serve the same
   numpy requests, made from a seed, with the reference's models carried
   into the port: features within the reference's feature tolerance
-  (1e-5), quality and kv-gate CRs bit-equal, UC1's eb and CR and UC3's
-  eb within 1e-5, equal UC2/UC3 picks, advisor CRs within 1e-5;
+  (1e-5, the log q-ent bit-equal), quality and kv-gate CRs bit-equal,
+  UC1's eb and CR and UC3's eb within 1e-5, equal UC2/UC3 picks,
+  advisor CRs within 1e-5;
 * the port's modules import neither ``jax`` nor ``repro``.
 
 Slices are 48 x 48 to 64 x 64, so every case runs in seconds.
@@ -715,6 +716,8 @@ def test_parity_with_reference_service(parity):
             _service(ServiceConfig(max_wait_ms=5.0)) as tsvc:
         jf, tf = _both(jsvc, tsvc, "featurize", (held, ebs), (held, ebs))
         np.testing.assert_allclose(tf, jf, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(tf[..., 0].view(np.int32),
+                                      jf[..., 0].view(np.int32))
         jq, tq = _both(jsvc, tsvc, "quality", (held, ebs), (held, ebs))
         np.testing.assert_array_equal(tq.view(np.int32), jq.view(np.int32))
         jk, tk = _both(jsvc, tsvc, "kv_gate", (leaves,), (leaves,))

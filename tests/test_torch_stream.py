@@ -253,7 +253,8 @@ def test_stream_quality_digest_and_entries(dataset, name):
 @pytest.mark.parametrize("name", ["miranda-vx", "qmcpack-vol"])
 def test_stream_matches_reference_stream(dataset, name):
     """The port's streamed features within 1e-5 of the reference's
-    stream_features on the same dataset, and its digest the same."""
+    stream_features on the same dataset (the log q-ent column bit for
+    bit), and its digest the same."""
     path, ds, _ = dataset
     row = ROW_2D if name == "miranda-vx" else ROW_4D
     jds = JSRC.MemmapSource(path)
@@ -264,6 +265,8 @@ def test_stream_matches_reference_stream(dataset, name):
     got = TST.stream_features(ds, name, EBS, digest=d, device=CPU,
                               stream=TST.StreamConfig(budget_bytes=4 * row))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[..., 0].view(np.int32),
+                                  want[..., 0].view(np.int32))
     assert d.digest() == jd.digest()
 
 

@@ -1,29 +1,44 @@
 #!/usr/bin/env python3
-"""Time the port's Gram, q-ent, quality and Lorenzo CUDA kernels of two
-source trees side by side on one GPU, at the shapes the main path
+"""Time the port's Gram, q-ent, quality, Lorenzo and ZFP CUDA kernels of
+two source trees side by side on one GPU, at the shapes the main path
 launches them with.
 
     git archive <rev> | tar -x -C build/ab_base     # the tree to compare
-    python3 tools/ab_kernels.py --base build/ab_base [--gram-rn] [--out FILE]
+    python3 tools/ab_kernels.py --base build/ab_base [--gram-rn]
+        [--zfp-probes] [--out FILE]
 
-Both trees' ``src/repro_torch/csrc/{gram,qent,quality,lorenzo}.cu`` must
-keep the C entry points ``repro_gram_batched``, ``repro_qent_hist``,
-``repro_quality_sse`` and ``repro_lorenzo2d``; each q-ent is given the
+Both trees' ``src/repro_torch/csrc/{gram,qent,quality,lorenzo,
+zfp_block}.cu`` must keep the C entry points ``repro_gram_batched``,
+``repro_qent_hist``, ``repro_quality_sse``, ``repro_lorenzo2d`` and
+``repro_zfp_forward2d``; each ZFP is bound by its own tree's argument
+list (the grid's CTAs from ``launch_plan`` where its
+``kernels/zfp_block/ops.py`` has one, none before); each q-ent is given the
 counter budget its own ``kernels/qent/ops.py`` sets, and each Gram the
 argument list of its own tree: the contraction chunks and scratch
 where its ``kernels/gram/ops.py`` sets a ``CHUNK_T`` (the chunked
 kernel), none before (the cluster-split kernel).  Each library is
 built with the port's nvcc flags, checked on the card against this
 tree's plain versions (gram within rtol 2e-5 / atol 2e-3 of float64, the
-q-ent histograms, the quality SSE and the Lorenzo codes bit-equal) and
+q-ent histograms, the quality SSE, the Lorenzo codes and the ZFP
+coefficients and exponents bit-equal) and
 timed by CUDA events in the order base, this, this, base, on cesm-cloud
 1800 x 1800 slices made on the card from seed 0 (as ``chip_smoke.py``
 makes them) and on Table 4's volume unfoldings (12 miranda-vx volumes of
 256 x 384 x 384, X X^T of modes 0 and 1, held within 2e-5 sqrt(G_ii
 G_jj) + 2e-3); each Gram row also says whether the two trees give the
 same bits: gram, q-ent and quality back to back after a warm-up (the
-(32, 3.24 M) x 6 stacks exceed the 50 MB L2), Lorenzo on one slice with
-the L2 flushed before each call (``chip_smoke.cold_cuda_ms``).  The
+(32, 3.24 M) x 6 stacks exceed the 50 MB L2), Lorenzo and ZFP on one
+slice with the L2 flushed before each call (``chip_smoke.cold_cuda_ms``;
+ZFP at 1800^2 on a cesm-cloud slice and at 1028^2 on a Gaussian field,
+Fig 5's size), each ZFP row beside the copy floor: a cold copy of the
+same 4 m n bytes into a second buffer, as ``copy_`` (a device-to-device
+memcpy) and as ``torch.neg(x, out=...)`` (an SM kernel), the faster of
+the two as ``copy_ms``.  ``--zfp-probes`` adds to the ZFP rows: the
+bulk-copy design of ``tools/variants/zfp_bulk.cu`` at a few
+(threads, stages, CTAs an SM), this tree's ZFP with its arithmetic
+taken out (its loads and stores alone, the values' bits copied), and
+cold times with an L2 full of clean lines (a 256 MB read) instead of
+the dirty ones ``cold_cuda_ms``'s flush leaves.  The
 quality SSE is two launches (the tile folds, then the in-order tile
 chain); ``torch.profiler``'s kernel rows split its time between them.
 ``--gram-rn`` adds a third Gram, this tree's with its ``.ftz`` PTX
@@ -31,9 +46,10 @@ arithmetic (``mul/fma/add.rn.ftz.f32``) made the non-flushing
 ``__fmul_rn``/``__fmaf_rn``/``__fadd_rn``, to the Gram rows (order base,
 this, rn, rn, this, base), which separates what the flush forms cost
 from the rest of a change.  Each tree's Gram kernels' registers a
-thread, as ptxas reports them (``-Xptxas -v``), are printed and
-recorded.  Prints one JSON object, last, with the ``nvidia-smi`` name
-and power limit of the card.
+thread, and each ZFP's registers and static shared memory a CTA, as
+ptxas reports them (``-Xptxas -v``; the bulk design's dynamic shared
+memory is its stages'), are printed and recorded.  Prints one JSON
+object, last, with the ``nvidia-smi`` name and power limit of the card.
 """
 from __future__ import annotations
 
@@ -52,10 +68,19 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cold_cuda_ms, cuda_ms, nvidia_smi_line  # noqa: E402
+from chip_smoke import SPIN_CYCLES, bound, cold_cuda_ms, cuda_ms  # noqa: E402
+from chip_smoke import nvidia_smi_line  # noqa: E402
 
 QENT_BINS = 65536
-KERNELS = ("gram", "qent", "quality", "lorenzo")
+KERNELS = ("gram", "qent", "quality", "lorenzo", "zfp_block")
+# the bulk-copy design's (threads, stages, CTAs an SM) timed by --zfp-probes
+ZFP_BULK = ((128, 4, 4), (256, 4, 2), (256, 4, 3), (512, 2, 3))
+# this tree's ZFP with its arithmetic taken out: the values' bits copied
+ZFP_NOMATH = ("    exps[b] = zfp::forward_block(v, q);",
+              "#pragma unroll\n"
+              "    for (int i = 0; i < 16; ++i)\n"
+              "      q[i / 4][i % 4] = __float_as_int(v[i / 4][i % 4]);\n"
+              "    exps[b] = 0;")
 QUALITY_PASSES = ("tile_sse_kernel", "sum_tiles_kernel")
 # gram.cu's flushing PTX forms and their non-flushing intrinsics
 FTZ_TO_RN = (
@@ -75,7 +100,7 @@ def rn_variant(tree: Path) -> Path:
     shutil.rmtree(out, ignore_errors=True)
     pkg = tree / "src" / "repro_torch"
     shutil.copytree(pkg / "csrc", out / "src" / "repro_torch" / "csrc")
-    for name in ("gram", "qent"):
+    for name in ("gram", "qent", "zfp_block"):
         dst = out / "src" / "repro_torch" / "kernels" / name
         dst.mkdir(parents=True)
         shutil.copy(pkg / "kernels" / name / "ops.py", dst / "ops.py")
@@ -89,35 +114,40 @@ def rn_variant(tree: Path) -> Path:
     return out
 
 
-def build(tree: Path, tag: str, nvcc_flags, nvcc: str) -> tuple:
-    """Compile the four kernels of ``tree``, all at once.  Returns (name
-    -> library, gram's registers a thread by kernel, from ptxas)."""
+def build(tree: Path, tag: str, nvcc_flags, nvcc: str,
+          extra: dict | None = None) -> tuple:
+    """Compile the kernels of ``tree`` and the ``extra`` libraries (name
+    -> (source, nvcc -D flags)), all at once.  Returns (name -> library,
+    name -> ptxas's kernels: registers and static shared memory)."""
     from repro_torch.kernels._build import source_digest
     out_dir = ROOT / "build" / "repro_torch" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     csrc = tree / "src" / "repro_torch" / "csrc"
-    for name in KERNELS:
-        src = csrc / f"{name}.cu"
-        lib = out_dir / f"{tag}-{name}-{source_digest(csrc, name)}.so"
-        cmd = [nvcc, *nvcc_flags, "-Xptxas", "-v", "-o", str(lib), str(src)]
+    jobs = {name: (csrc / f"{name}.cu", [], source_digest(csrc, name))
+            for name in KERNELS}
+    for name, (src, defs) in (extra or {}).items():
+        jobs[name] = (src, defs, "-".join(d.split("=")[-1] for d in defs))
+    for name, (src, defs, key) in jobs.items():
+        lib = out_dir / f"{tag}-{name}-{key}.so"
+        cmd = [nvcc, *nvcc_flags, *defs, "-Xptxas", "-v", "-o", str(lib),
+               str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        lib)
-    libs, regs = {}, {}
+    libs, info = {}, {}
     for name, (proc, lib) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{tag} {name}.cu failed to build:\n{out}")
+            raise RuntimeError(f"{tag} {name} failed to build:\n{out}")
         libs[name] = ctypes.CDLL(str(lib))
-        if name == "gram":
-            regs = ptxas_registers(out)
-    return libs, regs
+        info[name] = ptxas_info(out)
+    return libs, info
 
 
-def ptxas_registers(text: str) -> dict:
-    """Kernel (mangled name) -> registers a thread, from ``nvcc -Xptxas
-    -v`` output (only the names and counts; no code changes with -v)."""
+def ptxas_info(text: str) -> dict:
+    """Kernel (mangled name) -> {"registers", "smem"} a thread and a CTA,
+    from ``nvcc -Xptxas -v`` output (no code changes with -v)."""
     out, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -125,7 +155,9 @@ def ptxas_registers(text: str) -> dict:
             fn = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
-            out[fn] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[fn] = {"registers": int(m.group(1)),
+                       "smem": int(sm.group(1)) if sm else 0}
             fn = None
     return out
 
@@ -136,6 +168,35 @@ def qent_budget(tree: Path) -> int:
     if m is None:
         raise RuntimeError(f"no SMEM_BUDGET in {tree}'s qent/ops.py")
     return int(m.group(1)) * 1024
+
+
+def zfp_planned(tree: Path) -> bool:
+    """Whether the tree's ZFP takes its grid from ``launch_plan``."""
+    text = (tree / "src/repro_torch/kernels/zfp_block/ops.py").read_text()
+    return re.search(r"^def launch_plan\(", text, re.M) is not None
+
+
+def bulk_plan(m: int, n: int, sms: int, per_sm: int) -> tuple[int, int]:
+    """(ctas, per) of ``tools/variants/zfp_bulk.cu``: CTA c takes blocks
+    [c * per, (c + 1) * per) of the band-major order."""
+    nblocks = (m // 4) * (n // 4)
+    ctas = max(1, min(sms * per_sm, nblocks))
+    per = -(-nblocks // ctas)
+    return -(-nblocks // per), per
+
+
+def nomath_variant() -> Path:
+    """A copy of this tree's zfp_block.cu and its header under
+    ``build/ab_zfp`` whose blocks skip the arithmetic."""
+    out = ROOT / "build" / "ab_zfp"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(ROOT / "src" / "repro_torch" / "csrc", out)
+    src = out / "zfp_block.cu"
+    text = src.read_text()
+    if ZFP_NOMATH[0] not in text:
+        raise RuntimeError("zfp_block.cu has no zfp::forward_block call")
+    src.write_text(text.replace(*ZFP_NOMATH))
+    return src
 
 
 def gram_chunk(tree: Path) -> int | None:
@@ -153,7 +214,94 @@ def _bind(lib, name, argtypes):
     return fn
 
 
-def runners(torch, libs, budget, chunk_t) -> dict:
+def zfp_runner(torch, lib, plan, types):
+    """A call of one ZFP library: ``plan(m, n)`` gives the arguments its
+    argument list adds after (m, n), of ctypes ``types`` (none for the
+    first kernel's 2-D grid)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _bind(lib, "repro_zfp_forward2d", [P, P, P, I, I, *types, P])
+
+    def zfp(x):
+        m, n = x.shape
+        coef = torch.empty((m, n), dtype=torch.int32, device=x.device)
+        exps = torch.empty((m // 4, n // 4), dtype=torch.int32,
+                           device=x.device)
+        code = fn(x.data_ptr(), coef.data_ptr(), exps.data_ptr(), m, n,
+                  *plan(m, n), torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"zfp: CUDA error {code}")
+        return coef, exps
+    return zfp
+
+
+def clean_cold_ms(torch, fn, reps: int) -> float:
+    """``cold_cuda_ms`` with the L2 filled by a 256 MB read instead of a
+    write: the call finds no dirty line to write back."""
+    scratch = torch.ones(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    fn()
+    events = []
+    for _ in range(reps):
+        scratch.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        fn()
+        pair[1].record()
+        events.append(pair)
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def zfp_rows(torch, fns, probes, inputs, smi) -> list:
+    """The ZFP rows: each tree's kernel (and ``probes``' calls, name ->
+    fn) on each input, bit-equal to this tree's plain version (but the
+    arithmetic-free probe), timed cold in turns beside the copy floor."""
+    from repro_torch.kernels.zfp_block import ref as zfp_ref
+    rows = []
+    for x in inputs:
+        m, n = x.shape
+        want = zfp_ref.zfp_forward2d(x)
+        kernels = {"base": fns["base"]["zfp"], "this": fns["this"]["zfp"],
+                   **probes}
+        outs = {}
+        for tag, f in kernels.items():
+            outs[tag] = f(x)
+            torch.cuda.synchronize()
+            if tag != "nomath" and not all(
+                    torch.equal(a, b) for a, b in zip(outs[tag], want)):
+                raise AssertionError(f"{tag} zfp disagrees at {(m, n)}")
+        same_bits = all(torch.equal(a, b)
+                        for a, b in zip(outs["base"], outs["this"]))
+        del outs, want
+        dst = torch.empty_like(x)
+        calls = {tag: (lambda f=f: f(x)) for tag, f in kernels.items()}
+        calls.update(memcpy=lambda: dst.copy_(x),
+                     neg=lambda: torch.neg(x, out=dst))
+        times = {tag: [] for tag in calls}
+        for tag in list(calls) + list(calls)[::-1]:
+            times[tag].append(cold_cuda_ms(torch, calls[tag], 50))
+        floor = {t: float(np.mean(times[t])) for t in ("memcpy", "neg")}
+        b_ms, _ = bound(8.25 * m * n, 8.0 * m * n)
+        row = dict(kernel="zfp", shape=[m, n], cold=True,
+                   base_ms=times["base"], this_ms=times["this"],
+                   same_bits=same_bits, memcpy_ms=times["memcpy"],
+                   neg_ms=times["neg"], copy_ms=min(floor.values()),
+                   copy_by=min(floor, key=floor.get), bound_ms=b_ms)
+        if probes:
+            row["probes_ms"] = {t: times[t] for t in probes}
+            row["clean_l2_ms"] = {t: clean_cold_ms(torch, calls[t], 50)
+                                  for t in ("base", "this", "nomath", "neg")}
+        rows.append(row)
+        print(f"zfp {(m, n)} cold: " + ", ".join(
+            f"{t} {times[t]} ms" for t in calls)
+            + f"; same bits {same_bits}; bound {b_ms} ms"
+            + (f"; clean L2 {row['clean_l2_ms']}" if probes else "")
+            + f" [{smi}]", flush=True)
+    return rows
+
+
+def runners(torch, libs, budget, chunk_t, zfp_args) -> dict:
     """name -> a call of that kernel with the argument list of its
     ``kernels/<name>/ops.py`` wrapper's launch."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -213,7 +361,8 @@ def runners(torch, libs, budget, chunk_t) -> dict:
                               float(np.float32(eps)), stream()))
         return out
 
-    return dict(gram=gram, qent=qent, quality=quality, lorenzo=lorenzo)
+    return dict(gram=gram, qent=qent, quality=quality, lorenzo=lorenzo,
+                zfp=zfp_runner(torch, libs["zfp_block"], *zfp_args))
 
 
 def pass_split(torch, fn, reps: int) -> dict | None:
@@ -240,6 +389,9 @@ def main(argv=None) -> int:
                     help="root of the tree to compare against")
     ap.add_argument("--gram-rn", action="store_true",
                     help="also time this tree's Gram without the .ftz forms")
+    ap.add_argument("--zfp-probes", action="store_true",
+                    help="also time the bulk-copy ZFP, an arithmetic-free "
+                         "ZFP and a clean L2")
     ap.add_argument("--out", help="also write the record as JSON here")
     args = ap.parse_args(argv)
 
@@ -253,6 +405,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.lorenzo import ref as lor_ref
     from repro_torch.kernels.qent import ref as qent_ref
     from repro_torch.kernels.quality import ref as q_ref
+    from repro_torch.kernels.zfp_block import ops as zfp_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -260,17 +413,48 @@ def main(argv=None) -> int:
     trees = {"base": args.base.resolve(), "this": ROOT}
     if args.gram_rn:
         trees["rn"] = rn_variant(ROOT)
-    fns, registers = {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    I, LL = ctypes.c_int, ctypes.c_longlong
+    extra = {}
+    if args.zfp_probes:
+        bulk = ROOT / "tools" / "variants" / "zfp_bulk.cu"
+        for threads, stages in sorted({(t, s) for t, s, _ in ZFP_BULK}):
+            extra[f"bulk_t{threads}_s{stages}"] = (
+                bulk, [f"-DZFP_THREADS={threads}", f"-DZFP_STAGES={stages}"])
+        extra["nomath"] = (nomath_variant(), [])
+    fns, ptxas, probes = {}, {}, {}
     for tag, tree in trees.items():
-        libs, registers[tag] = build(tree, tag, _build.NVCC_FLAGS, nvcc)
-        fns[tag] = runners(torch, libs, qent_budget(tree), gram_chunk(tree))
+        libs, ptxas[tag] = build(tree, tag, _build.NVCC_FLAGS, nvcc,
+                                 extra if tag == "this" else None)
+        zfp_args = (((lambda m, n: (zfp_ops.launch_plan(m, n, sms)[0],)),
+                     [I]) if zfp_planned(tree) else ((lambda m, n: ()), []))
+        fns[tag] = runners(torch, libs, qent_budget(tree), gram_chunk(tree),
+                           zfp_args)
+        if tag == "this" and args.zfp_probes:
+            for threads, stages, per_sm in ZFP_BULK:
+                probes[f"bulk_t{threads}_s{stages}_c{per_sm}"] = zfp_runner(
+                    torch, libs[f"bulk_t{threads}_s{stages}"],
+                    lambda m, n, c=per_sm: bulk_plan(m, n, sms, c), [I, LL])
+            probes["nomath"] = zfp_runner(torch, libs["nomath"], *zfp_args)
+    registers = {tag: info["gram"] for tag, info in ptxas.items()}
+    zfp_ptxas = {tag: {k: v for k, v in info.items()
+                       if k == "zfp_block" or k in extra}
+                 for tag, info in ptxas.items()}
     print(f"gram registers a thread (ptxas): {json.dumps(registers)}",
+          flush=True)
+    print(f"zfp registers and static smem (ptxas): {json.dumps(zfp_ptxas)}; "
+          "the bulk design's dynamic smem a CTA: " + json.dumps(
+              {f"t{t}_s{s}": s * 4 * t * 16 + s * 8
+               for t, s in sorted({(t, s) for t, s, _ in ZFP_BULK})}),
           flush=True)
 
     spec = TS.FIELDS["cesm-cloud"]
     data = TS.field_slices("cesm-cloud", count=40, n=spec.full_n, seed=0,
                            device="cuda")
     train, test = data[:32], data[32:]
+    gauss = torch.randn((1028, 1028), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    rows = zfp_rows(torch, fns, probes, [test[0], gauss], smi)
     ebs = torch.tensor(spec.eps * 10.0 ** np.linspace(-0.5, 2.0, 6),
                        dtype=torch.float32, device="cuda")
     flat32, flat8 = train.reshape(32, -1), test.reshape(8, -1)
@@ -301,7 +485,6 @@ def main(argv=None) -> int:
              "gram_xxt": lambda x, _: gram_ref.gram_xxt_batched(x),
              "qent": lambda x, e: qent_ref.qent_histogram_sweep(x, e, QENT_BINS),
              "quality": q_ref.sse_sweep, "lorenzo": lor_ref.lorenzo2d}
-    rows = []
     for kernel, shape, inputs, reps, cold in cases:
         want = plain[kernel](*inputs)
         fn = "gram" if kernel == "gram_xxt" else kernel
@@ -346,7 +529,8 @@ def main(argv=None) -> int:
             log += f"; passes {row['passes_ms']}"
         print(f"{log} [{smi}]", flush=True)
     record = {"device": smi, "base": str(args.base),
-              "gram_registers": registers, "rows": rows}
+              "gram_registers": registers, "zfp_ptxas": zfp_ptxas,
+              "rows": rows}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))
