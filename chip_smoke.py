@@ -86,7 +86,13 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               the same bits on the card as on the CPU; reported only,
               how many values the kernel route's entropy sum gave other
               bits in its old form (a library sum over a row's (e, bins)
-              terms);
+              terms).  Then predictions: the same bits on the card as on
+              the CPU for a spline and a linear model (400 rows alone, in
+              7s and at once, ``predict`` and ``predict_log``, and the
+              exact form the checked host form falls back to), phase 5's
+              48 models on 400 rows, ``EbGridModel.predict`` and
+              ``predict_psnr`` at 9 ebs and the UC1, UC2 and UC3 answers
+              on the 8 held-out slices;
 15. serve    -- (run after 13, before 14 frees phase 5's models)
               ``SweepService`` on the card: 8 client threads x 64
               requests of its seven methods (featurize on the 6-eb grid
@@ -98,15 +104,14 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               them repeated) over 4 hot held-out slices and the other 4
               once each, once under the default config and once under
               ``use_kernels=True``; a second pass over the hot rows and
-              the leaves launches nothing; then the first pass again on
-              the default config with 8 post-processing threads, not 2;
-              every served result is bit-equal to the port's direct
+              the leaves launches nothing; every served result is
+              bit-equal to the port's direct
               call on the card; wall time, requests/s, latency by
               method, launches, padded and deduplicated rows, cache
               hits, the window, the model predictions made and the
               post-processing seconds by method; before it, on the idle
-              card, the host time of one prediction (the fixed-order
-              row sum beside the library mat-vec) and of one advise
+              card, the host time of one prediction (the reference's
+              jitted bits beside the library mat-vec) and of one advise
               request's 8 x 6 predictions;
 14. stream   -- the port's ``write_dataset`` writes a memmap dataset
               under ``build/`` (removed at the end, pass or fail): 96
@@ -158,17 +163,30 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               to one device (the tables to the main path's, the streams
               to phase 14's in-memory sweeps, the reports byte for byte
               to phase 14's direct report);
-18. path rows -- every kernel at every shape a path below launched it
+18. fabric   -- (run right after 15, on its models, plan and direct
+              calls) the service on a mesh and across processes, on the
+              kernel route: (a) ``SweepService(mesh=...)`` over two
+              shards of the card in this process, the plan and its
+              cached second pass; (b) a two-rank gloo group in fresh
+              interpreters (``--fabric-child``), both shards on the card,
+              a leader serving the plan and a follower joining every
+              launch; (c) ``sweep_serve --mesh auto --coordinator ...`` in
+              two processes (zfp on 6 slices, 4 clients x 16 requests,
+              ``--verify``).  Every served result is bit-equal to the
+              direct call; req/s, launches, and the kernels' launches by
+              shape as the "Fabric" path;
+19. path rows -- every kernel at every shape a path below launched it
               with that no row above holds (Serve's batches and warmup,
               the advise runs' training and padded service chunks, the
               load CLI, the Dist path's blocks), against its plain
               version and timed, on fresh cesm-cloud slices and
               miranda-vx volumes.
-Phases 5, 8-11, 14, 15 and 17 (its form (a)) each set the kernels'
-launch counters to 0 just before they run and read them just after,
-and the subprocesses (advise, advise ``--service``, the load CLI, the
-process groups and advise runs of phase 17) count theirs by shape
-around their work; phase 17's are summed into one path, "Dist".  A
+Phases 5, 8-11, 14, 15, 17 and 18 (their form (a)) each set the
+kernels' launch counters to 0 just before they run and read them just
+after, and the subprocesses (advise, advise ``--service``, the load
+CLI, the process groups and advise runs of phase 17, phase 18's group
+and CLI) count theirs by shape around their work; phase 17's are summed
+into one path, "Dist", and phase 18's into "Fabric".  A
 kernel a path needs that it did not launch fails the run.  A kernel
 row's ``launches`` is the count of the first of these paths that
 launched its shape (the main path where it did), and
@@ -228,7 +246,6 @@ SERVE_COLD_KINDS = ("featurize", "find_eb", "best_compressor", "quality")
 SERVE_TARGETS = (4.0, 8.0, 16.0)
 SERVE_CR_FLOOR, SERVE_PSNR_FLOOR = 8.0, 60.0
 SERVE_CACHE_BYTES = 64 << 20     # the 4 MiB default raised for the hot rows
-SERVE_PROBE_POST_WORKERS = 8     # a third run: the pool at 8 threads, not 2
 KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 4 << 20
 # phase 16: the load CLI at the main path's width
 SERVE_CLI_N = 1800
@@ -242,6 +259,8 @@ N_DIST_VOL = 7                  # 2 ranks: blocks of 4 rows, and 3 + 1 pad
 DIST_CRS = ("sz3-lorenzo", "zfp")
 DIST_TIMEOUT_S = 400            # each group's wall-clock limit
 DIST_COLLECTIVE_TIMEOUT_S = 300 # a group's init and each of its collectives
+# phase 18: the service on a mesh and across processes
+FABRIC_TIMEOUT_S = 400          # (b)'s group's wall-clock limit
 PLANT_EBS = (1e-5, 1e-3, 256.0)     # 256: quotients of tiny normals underflow
 QENT_BINS = 65536
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
@@ -1311,6 +1330,125 @@ def check_eb_independence(torch, cases, card):
     return time.perf_counter() - t, probes
 
 
+def on_device(obj, dev):
+    """A CR model (nested named tuples of tensors) or an ``EbGridModel``
+    with every tensor moved to ``dev``."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(on_device(v, dev) for v in obj))
+    if hasattr(obj, "models"):
+        return dataclasses.replace(obj, models=[
+            dataclasses.replace(m, model=on_device(m.model, dev))
+            for m in obj.models])
+    return obj
+
+
+def check_prediction_bits(torch, models, test, ebs, psnr_floor, card):
+    """Phase 13, predictions: the same bits on the card as on the CPU for
+    both model kinds (fit on the card to seeded features; 400 jittered
+    rows alone, in 7s and at once, ``predict`` and ``predict_log``, and
+    the exact form the short one falls back to), for phase 5's eight
+    grids at every eb on 400 rows, and for ``EbGridModel.predict`` /
+    ``predict_psnr`` at 9 ebs and the UC1, UC2 and UC3 answers on the 8
+    held-out slices (models on the card with the card's features, beside
+    copies on the CPU fed the same features)."""
+    import dataclasses
+    from repro_torch.core import predictors as P
+    from repro_torch.core import regression as R
+    from repro_torch.core import usecases as UC
+    t = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    base = rng.normal(size=(64, 2)).astype(np.float32)
+    crs = np.exp(rng.normal(size=64)).astype(np.float32) + 1.0
+    rows = (base[rng.integers(0, 64, 400)]
+            + rng.normal(0, 0.05, (400, 2))).astype(np.float32)
+    x_dev = torch.from_numpy(rows).to("cuda")
+    x_cpu = torch.from_numpy(rows)
+
+    def same(what, a, b):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"predictions: {what} differs card vs CPU "
+                                 f"on {int((a != b).sum())} values")
+
+    fitted = {kind: M.fit(torch.from_numpy(base).to("cuda"),
+                          torch.from_numpy(crs).to("cuda"))
+              for kind, M in (("spline", R.SplineCRModel),
+                              ("linear", R.LinearCRModel))}
+    n_models = 0
+    for kind, m in fitted.items():
+        mc = on_device(m, "cpu")
+        for fn in ("predict", "predict_log"):
+            want = getattr(mc, fn)(x_cpu)
+            same(f"{kind} {fn}", getattr(m, fn)(x_dev), want)
+            same(f"{kind} {fn} in 7s", torch.cat(
+                [getattr(m, fn)(x_dev[i:i + 7]) for i in range(0, 400, 7)]),
+                want)
+            same(f"{kind} {fn} alone", torch.cat(
+                [getattr(m, fn)(x_dev[i:i + 1]) for i in range(50)]),
+                want[:50])
+        same(f"{kind} exact form", m._log(x_dev, R._Exact, *m._params()),
+             mc._log(x_cpu, R._Exact, *mc._params()))
+    cpu_models = {n: on_device(gm, "cpu") for n, gm in models.items()}
+    for name, gm in models.items():
+        for ei, cm in enumerate(cpu_models[name].models):
+            same(f"{name} at eb {ei}", gm.models[ei].model.predict(x_dev),
+                 cm.model.predict(x_cpu))
+            n_models += 1
+    cfg = P.PredictorConfig(use_kernels=True)
+    feats = P.features_sweep(test, ebs, cfg)
+    probes = [ebs[0] * 0.5] + [float(e) for e in ebs] + [
+        float(np.sqrt(ebs[1] * ebs[2])), ebs[-1] * 3]
+    lorenzo, lorenzo_cpu = models["sz3-lorenzo"], cpu_models["sz3-lorenzo"]
+    n_answers = 0
+    for i in range(test.shape[0]):
+        def caches(i=i):
+            return (P.get_engine(cfg).cached(test[i], features=feats[i],
+                                             epss=ebs),
+                    P.get_engine(cfg).cached(test[i].cpu(),
+                                             features=feats[i].cpu(),
+                                             epss=ebs))
+        cd, cc = caches()
+        x_i, x_ic = test[i], test[i].cpu()
+        for e in probes:
+            for fn in ("predict", "predict_psnr"):
+                a = getattr(lorenzo, fn)(x_i, float(e), cd)
+                b = getattr(lorenzo_cpu, fn)(x_ic, float(e), cc)
+                if a != b:
+                    raise AssertionError(f"predictions: {fn} at {e} differs "
+                                         f"card vs CPU ({a} != {b})")
+        target = lorenzo.predict(x_i, float(ebs[2]), cd)
+        answers = [
+            (UC.find_error_bound_for_cr(lorenzo, x_i, target, feat_cache=cd),
+             UC.find_error_bound_for_cr(lorenzo_cpu, x_ic, target,
+                                        feat_cache=cc)),
+            (UC.best_compressor({n: m.models[1] for n, m in models.items()},
+                                x_i, float(ebs[1]), feats=feats[i, 1][None]),
+             UC.best_compressor({n: m.models[1]
+                                 for n, m in cpu_models.items()},
+                                x_ic, float(ebs[1]),
+                                feats=feats[i, 1][None].cpu())),
+            tuple(dataclasses.asdict(UC.find_setting(
+                ms, x, cr_floor=2.0, psnr_floor=psnr_floor, feat_cache=c))
+                for ms, x, c in ((models, x_i, cd), (cpu_models, x_ic, cc)))]
+        for a, b in answers:
+            if a != b:
+                raise AssertionError(f"predictions: a UC answer differs "
+                                     f"card vs CPU on slice {i}: {a} != {b}")
+            n_answers += 1
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    log(f"predictions card == CPU bit for bit: spline and linear on 400 rows "
+        f"(alone, in 7s, at once; the exact form too), {n_models} grid "
+        f"models on 400 rows, predict / predict_psnr at {len(probes)} ebs "
+        f"and {n_answers} UC1-UC3 answers on {test.shape[0]} slices "
+        f"({s:.2f} s)", card)
+    return s
+
+
 # ---------------------------------------------------------------------------
 # phase 15: the sweep service under concurrent clients
 # ---------------------------------------------------------------------------
@@ -1366,7 +1504,8 @@ def serve_direct(torch, req, ctx):
     cfg = ctx["cfg"]
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            ctx.get("device", "cuda"))
 
     x = dev(ctx["slices"][i])
     if kind == "featurize":
@@ -1433,38 +1572,39 @@ def serve_traffic(svc, plan, ctx):
 
 
 class PredictionCount:
-    """Counts the model predictions (``predict_log`` of the linear and
-    spline CR models) made from any thread while it is entered."""
+    """Counts the model predictions (``predict`` and ``predict_log`` of
+    the linear and spline CR models: ``regression._predicted``) made
+    from any thread while it is entered."""
 
     def __init__(self):
         import threading
         self.n = 0
         self._lock = threading.Lock()
-        self._saved = {}
+        self._saved = None
 
     def __enter__(self):
         from repro_torch.core import regression as R
-        for cls in (R.LinearCRModel, R.SplineCRModel):
-            self._saved[cls] = orig = cls.predict_log
+        self._saved = orig = R._predicted
 
-            def counted(model, features, _orig=orig):
-                with self._lock:
-                    self.n += 1
-                return _orig(model, features)
-            cls.predict_log = counted
+        def counted(*args, **kwargs):
+            with self._lock:
+                self.n += 1
+            return orig(*args, **kwargs)
+        R._predicted = counted
         return self
 
     def __exit__(self, *exc):
-        for cls, orig in self._saved.items():
-            cls.predict_log = orig
+        from repro_torch.core import regression as R
+        R._predicted = self._saved
 
 
 def prediction_cost(torch, models, feats, card) -> dict:
     """Host ms of one model prediction read back to the host, as the
     service's post-processing makes them (median of 200, in turns), for
-    1 and 2 rows: the port's fixed-order row sum beside the library
-    mat-vec ``x @ coef`` it replaced; and of one advise request's
-    ``cr_table`` (8 models x 6 ebs on 2 rows)."""
+    1 and 2 rows: the port's prediction (the reference's jitted bits, by
+    the checked short form on the host) beside the library mat-vec
+    ``x @ coef`` of the design; and of one advise request's ``cr_table``
+    (8 models x 6 ebs on 2 rows)."""
     from repro_torch.core import regression as R
     from repro_torch.serve.method import AdviseMethod
     m = models["sz3-lorenzo"].models[2].model
@@ -1494,7 +1634,7 @@ def prediction_cost(torch, models, feats, card) -> dict:
         rec[f"matvec_{rows}_ms"] = float(np.median(lib))
     rec["cr_table_ms"] = float(np.median(host_ms(
         lambda: AdviseMethod.cr_table(models, feats[:2]), 20)))
-    log("prediction host ms (median): fixed-order row sum 1 row "
+    log("prediction host ms (median): the jitted form's bits 1 row "
         f"{rec['predict_1_ms']:.4f}, 2 rows {rec['predict_2_ms']:.4f}; "
         f"library mat-vec 1 row {rec['matvec_1_ms']:.4f}, 2 rows "
         f"{rec['matvec_2_ms']:.4f}; one advise cr_table (8 x 6 on 2 rows) "
@@ -1502,38 +1642,53 @@ def prediction_cost(torch, models, feats, card) -> dict:
     return rec
 
 
-def serve_route(torch, cfg, models, hot_cold, ebs, leaves, card,
-                post_workers=2, second_pass=True):
-    """One route's run: a fresh service (``post_workers`` threads in its
-    post-processing pool) and the plan served, the model predictions of
-    the pass counted, and with ``second_pass`` served again (only the
-    hot rows and the kv leaves, which must come from the cache with no
-    launch).  Returns (record, the requests' context, each request with
-    its served results) for :func:`check_served`."""
+def serve_config(cfg, post_workers: int = 2):
+    """Phase 15's (and 18's) service configuration on ``cfg``."""
+    from repro_torch.serve.sweep_service import ServiceConfig
+    return ServiceConfig(max_batch_slices=64, max_wait_ms=2.0,
+                         cache_admit_after=2, cache_bytes=SERVE_CACHE_BYTES,
+                         post_workers=post_workers, pcfg=cfg)
+
+
+def route_ctx(cfg, models, hot_cold, ebs, leaves) -> dict:
+    """The requests' context of one route: phase 5's models on ``cfg``,
+    the held-out slices, the grids and the kv leaves."""
     import dataclasses
-    from repro_torch.kernels import wrappers
-    from repro_torch.serve.sweep_service import ServiceConfig, SweepService
 
     def on_route(gm):
         return dataclasses.replace(gm, cfg=cfg, models=[
             dataclasses.replace(m, cfg=cfg) for m in gm.models])
 
     models = {n: on_route(m) for n, m in models.items()}
-    n_hot = SERVE_HOT
     sub = [float(ebs[1]), float(np.sqrt(ebs[2] * ebs[3])), float(ebs[4])]
-    ctx = {"cfg": cfg, "slices": hot_cold, "ebs": [float(e) for e in ebs],
-           "sub": sub, "lorenzo": models["sz3-lorenzo"],
-           "uc2": {n: m.models[2] for n, m in models.items()},
-           "eps2": float(ebs[2]), "models": models, "leaves": leaves,
-           "pairs": [np.stack([hot_cold[i], hot_cold[(i + 1) % n_hot]])
-                     for i in range(len(hot_cold))]}
+    return {"cfg": cfg, "slices": hot_cold, "ebs": [float(e) for e in ebs],
+            "sub": sub, "lorenzo": models["sz3-lorenzo"],
+            "uc2": {n: m.models[2] for n, m in models.items()},
+            "eps2": float(ebs[2]), "models": models, "leaves": leaves,
+            "pairs": [np.stack([hot_cold[i], hot_cold[(i + 1) % SERVE_HOT]])
+                      for i in range(len(hot_cold))]}
+
+
+def serve_route(torch, cfg, models, hot_cold, ebs, leaves, card,
+                post_workers=2, second_pass=True, mesh=None):
+    """One route's run: a fresh service (``post_workers`` threads in its
+    post-processing pool; its launches sharded over ``mesh``) and the
+    plan served, the model predictions of the pass counted, and with
+    ``second_pass`` served again (only the hot rows and the kv leaves,
+    which must come from the cache with no launch).  Returns (record,
+    the requests' context, each request with its served results) for
+    :func:`check_served`."""
+    from repro_torch.kernels import wrappers
+    from repro_torch.serve.sweep_service import SweepService
+
+    n_hot = SERVE_HOT
+    ctx = route_ctx(cfg, models, hot_cold, ebs, leaves)
     plan = serve_plan(n_hot, len(hot_cold) - n_hot)
-    scfg = ServiceConfig(max_batch_slices=64, max_wait_ms=2.0,
-                         cache_admit_after=2, cache_bytes=SERVE_CACHE_BYTES,
-                         post_workers=post_workers, pcfg=cfg)
+    scfg = serve_config(cfg, post_workers)
     rec = {"post_workers": post_workers}
     results2 = {}
-    with SweepService(scfg, device="cuda") as svc:
+    with SweepService(scfg, device="cuda" if mesh is None else None,
+                      mesh=mesh) as svc:
         t = time.perf_counter()
         svc.warmup()
         rec["warmup_s"] = time.perf_counter() - t
@@ -1573,7 +1728,8 @@ def serve_route(torch, cfg, models, hot_cold, ebs, leaves, card,
                     f"serve ({cfg}): the second pass over cached rows "
                     f"launched {svc.launches - launches0} times, kernels "
                     f"{kernel_delta}")
-    what = f"serve use_kernels={cfg.use_kernels} post_workers={post_workers}"
+    what = (f"serve use_kernels={cfg.use_kernels} post_workers={post_workers}"
+            + ("" if mesh is None else f" on a mesh of {mesh.size} shards"))
     log(f"{what}: {n_req} requests from "
         f"{SERVE_CLIENTS} clients in {wall:.3f} s ({n_req / wall:.2f} req/s); "
         f"launches {rec['launches']}, rows launched {rec['rows_launched']} of "
@@ -1617,21 +1773,27 @@ def check_served(torch, rec, ctx, served, direct):
         f"the card ({len(direct)} distinct requests)")
 
 
-def phase_serve(torch, models, test, ebs, card):
-    """Phase 15: ``SweepService`` on the card, 8 client threads x 64
-    requests of the seven methods over 4 hot held-out slices and the
-    other 4 once each, under the default config (sort q-ent) and
-    ``use_kernels=True``, then the first pass once more on the default
-    config with 8 post-processing threads in place of 2 (does the pool
-    bound the rate?), its launches counted for the "Serve" path.  The
-    cost of one prediction is taken first, on the idle card."""
-    from repro_torch.core import predictors as P
-    hot_cold = test.cpu().numpy()
+def serve_leaves():
+    """The kv-gate leaves of phases 15 and 18: 12 distinct of 4 M float32
+    values, from ``SEED``, and 4 of them again."""
     rng = np.random.default_rng(SEED)
     distinct = [rng.standard_normal(KV_LEAF_N, dtype=np.float32)
                 * np.float32(10.0 ** (i % 4 - 2))
                 for i in range(KV_LEAVES - KV_REPEATS)]
-    leaves = distinct + [distinct[i].copy() for i in range(KV_REPEATS)]
+    return distinct + [distinct[i].copy() for i in range(KV_REPEATS)]
+
+
+def phase_serve(torch, models, test, ebs, card):
+    """Phase 15: ``SweepService`` on the card, 8 client threads x 64
+    requests of the seven methods over 4 hot held-out slices and the
+    other 4 once each, under the default config (sort q-ent) and
+    ``use_kernels=True``, its launches counted for the "Serve" path.
+    The cost of one prediction is taken first, on the idle card.
+    Returns (record, counts, the direct results by route) -- phase 18
+    holds its served results to the same direct calls."""
+    from repro_torch.core import predictors as P
+    hot_cold = test.cpu().numpy()
+    leaves = serve_leaves()
     feats = P.features_sweep(test[:2], ebs, P.PredictorConfig()).cpu().numpy()
     cost = prediction_cost(torch, models, feats, card)
     zero_counts(torch)
@@ -1639,9 +1801,6 @@ def phase_serve(torch, models, test, ebs, card):
     runs = {f"use_kernels={cfg.use_kernels}": serve_route(
         torch, cfg, models, hot_cold, ebs, leaves, card)
         for cfg in (sort_cfg, P.PredictorConfig(use_kernels=True))}
-    runs[f"post_workers={SERVE_PROBE_POST_WORKERS}"] = serve_route(
-        torch, sort_cfg, models, hot_cold, ebs, leaves, card,
-        post_workers=SERVE_PROBE_POST_WORKERS, second_pass=False)
     counts = read_counts(torch, "Serve", (
         "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
     directs = {}
@@ -1650,7 +1809,178 @@ def phase_serve(torch, models, test, ebs, card):
                      directs.setdefault(ctx["cfg"].use_kernels, {}))
     out = {k: rec for k, (rec, _, _) in runs.items()}
     out["prediction_cost"] = cost
-    return out, counts
+    return out, counts, directs
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the sweep service on a mesh and across processes
+# ---------------------------------------------------------------------------
+
+def fabric_child(job_file: str) -> int:
+    """Phase 18 (b)'s process-group member (``--fabric-child JOB``): joins
+    the job's group with its shards on the card and builds the service
+    on the spanning mesh.  The leader warms it up and serves phase 15's
+    plan on the kernel route from 8 client threads, a follower joins
+    every launch until the leader closes; each writes its wall time and
+    its kernels' launches by shape, and the leader its served results,
+    for the parent to hold to phase 15's direct calls."""
+    import pickle
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve.sweep_service import SweepService
+    job = json.loads(Path(job_file).read_text())
+    faulthandler.dump_traceback_later(FABRIC_TIMEOUT_S - 30, exit=True)
+    M.dist_init(job["init"], num_processes=job["nprocs"],
+                process_id=job["rank"], backend=job["backend"],
+                device=job["device"],
+                init_timeout_s=DIST_COLLECTIVE_TIMEOUT_S)
+    mesh = M.make_sweep_mesh(devices=[job["device"]] * job["shards"])
+    ctx = torch.load(job["ctx"], weights_only=False)
+    before = K.launch_counts()
+    svc = SweepService(serve_config(ctx["cfg"]), mesh=mesh)
+    rec = {"role": svc.role}
+    if svc.role == "leader":
+        t = time.perf_counter()
+        svc.warmup()
+        rec["warmup_s"] = time.perf_counter() - t
+        plan = serve_plan(SERVE_HOT, len(ctx["slices"]) - SERVE_HOT)
+        results, lat, wall = serve_traffic(svc, plan, ctx)
+        st = svc.stats()
+        svc.close()
+        n_req = sum(len(p) for p in plan)
+        rec.update(requests=n_req, wall_s=wall, req_per_s=n_req / wall,
+                   launches=st["launches"], rows_launched=st["rows_launched"],
+                   pad_rows=st["pad_rows"], batches=st["batches"],
+                   procs=st["procs"], transport=st["transport"])
+        with open(job["results"], "wb") as f:
+            pickle.dump(results, f)
+    else:
+        svc.serve()
+        rec["launches"] = svc.launches
+    total, by_shape = K.launches_since(before)
+    rec.update(kernels=total, by_shape=by_shape)
+    Path(job["out"]).write_text(json.dumps(rec))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_fabric(torch, models, test, ebs, directs, card):
+    """Phase 18: the sweep service on a mesh and across processes, each
+    form serving on the kernel route (``use_kernels=True``) and every
+    served result held to phase 15's direct call on the card: (a) this
+    process, ``SweepService(mesh=...)`` over two shards of the card,
+    phase 15's plan and its cached second pass; (b) process groups in
+    fresh interpreters (``--fabric-child``) serving the plan: a one-rank
+    NCCL group whose mesh has two shards on the card (the fabric's
+    broadcasts and gathers of CUDA tensors; NCCL refuses two ranks on one
+    GPU) and a two-rank gloo group, one shard each on the card, a leader
+    and a follower joining its launches;
+    (c) ``sweep_serve --mesh auto --coordinator ...`` in two processes
+    (zfp on 6 slices, 4 clients x 16 UC1/UC2 requests, ``--verify``:
+    every served result == the direct call).  Returns (record, the
+    launches of all of it by shape, as the "Fabric" path's)."""
+    import pickle
+    from repro_torch.core import predictors as P
+    from repro_torch.launch import mesh as M
+    cfg = P.PredictorConfig(use_kernels=True)
+    direct = directs[True]
+    hot_cold = test.cpu().numpy()
+    leaves = serve_leaves()
+    out = {}
+
+    # (a) one process, two shards of the card
+    zero_counts(torch)
+    mesh = M.make_sweep_mesh(devices=[DIST_DEVICE] * 2)
+    rec, ctx, served = serve_route(torch, cfg, models, hot_cold, ebs, leaves,
+                                   card, mesh=mesh)
+    counts = read_counts(torch, "Fabric (a)", (
+        "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
+    check_served(torch, rec, ctx, served, direct)
+    out["a"] = rec
+    parts = [{n: {str(k): v for k, v in c["by_shape"].items()}
+              for n, c in counts.items()}]
+
+    tmp = Path(tempfile.mkdtemp(prefix="fabric_", dir=ROOT / "build"))
+    try:
+        # (b) a one-rank NCCL group with two shards, then a leader and a
+        # follower in a two-rank gloo group
+        torch.save(ctx, tmp / "ctx.pt")
+        plan = serve_plan(SERVE_HOT, len(hot_cold) - SERVE_HOT)
+        for role, nprocs, backend, shards in (("nccl", 1, DIST_NCCL, 2),
+                                              ("gloo", 2, "gloo", 1)):
+            cmds, outs = [], []
+            for r in range(nprocs):
+                job = {"init": f"file://{tmp / ('init_' + role)}",
+                       "nprocs": nprocs, "rank": r, "backend": backend,
+                       "device": DIST_DEVICE, "shards": shards,
+                       "ctx": str(tmp / "ctx.pt"),
+                       "results": str(tmp / f"results_{role}.pkl"),
+                       "out": str(tmp / f"fabric_{role}_{r}.json")}
+                (tmp / f"job_{role}_{r}.json").write_text(json.dumps(job))
+                cmds.append([sys.executable, str(Path(__file__).resolve()),
+                             "--fabric-child",
+                             str(tmp / f"job_{role}_{r}.json")])
+                outs.append(Path(job["out"]))
+            out[f"b_{role}_wall_s"] = run_group(f"fabric (b) {role}", cmds,
+                                                tmp, FABRIC_TIMEOUT_S)
+            ranks = [json.loads(p.read_text()) for p in outs]
+            out[f"b_{role}"] = ranks
+            parts += [r["by_shape"] for r in ranks]
+            with open(tmp / f"results_{role}.pkl", "rb") as f:
+                results = pickle.load(f)
+            check_served(torch, dict(ranks[0], post_workers=2), ctx, [
+                (req, [results[(c, r)]]) for c, reqs in enumerate(plan)
+                for r, req in enumerate(reqs)], direct)
+            lead = ranks[0]
+            for follow in ranks[1:]:
+                if follow["launches"] != lead["launches"]:
+                    raise AssertionError(
+                        f"fabric (b) {role}: a follower joined "
+                        f"{follow['launches']} of the leader's "
+                        f"{lead['launches']} launches")
+            log(f"fabric (b) {role}, {nprocs} rank(s) x {shards} shard(s) "
+                f"on the card: {lead['requests']} requests in "
+                f"{lead['wall_s']:.3f} s ({lead['req_per_s']:.2f} req/s), "
+                f"{lead['launches']} launches over {lead['transport']}; "
+                "every served result == the direct call", card)
+
+        # (c) the load CLI, leader and follower
+        report = tmp / "serve_c.json"
+        cmds = [[sys.executable, "-m", "repro_torch.launch.sweep_serve",
+                 "--fields", FIELD, "--n", str(SERVE_CLI_N),
+                 "--train-slices", "6", "--compressor", "zfp", "--clients",
+                 "4", "--requests", "16", "--device", "cuda",
+                 "--use-kernels", "--verify", "--mesh", "auto",
+                 "--coordinator", f"file://{tmp / 'init_c'}",
+                 "--num-processes", "2", "--process-id", str(r),
+                 "--backend", "gloo", "--out", str(report)]
+                for r in range(2)]
+        out["c_wall_s"] = run_group("fabric (c)", cmds, tmp,
+                                    SERVE_CLI_TIMEOUT_S)
+        rep = json.loads(report.read_text())
+        if rep["verify"]["mismatches"] or rep["requests"] != 16:
+            raise AssertionError(f"fabric (c): {rep['verify']}, "
+                                 f"{rep['requests']} requests")
+        parts.append(rep["launches_by_shape"]["serve"])
+        out["c"] = {k: rep[k] for k in ("requests", "wall_s", "req_per_s",
+                                        "p50_ms", "p99_ms", "procs",
+                                        "verify", "launches_serve")}
+        log(f"fabric (c) sweep_serve over 2 processes: {rep['requests']} "
+            f"requests in {rep['wall_s']:.3f} s ({rep['req_per_s']:.2f} "
+            f"req/s); {rep['verify']['checked']} distinct results == the "
+            "direct call", card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    merged = by_shape_counts(parts)
+    require_launches("Fabric", {n: c["launches"] for n, c in merged.items()},
+                     ("gram_batched", "qent_histogram_sweep",
+                      "qdq_sse_sweep"))
+    log("Fabric launches " + json.dumps(
+        {n: {str(k): v for k, v in c["by_shape"].items()}
+         for n, c in merged.items() if c["launches"]}), card)
+    return out, merged
 
 
 def stream_run(torch, ST, src, name, epss, cfg, prefetch, quality,
@@ -2398,9 +2728,12 @@ def main(argv=None) -> int:
                     help="trace the main path with torch.profiler and "
                          "report the device's busy and idle time")
     ap.add_argument("--dist-child", metavar="JOB", help=argparse.SUPPRESS)
+    ap.add_argument("--fabric-child", metavar="JOB", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dist_child:
         return dist_child(args.dist_child)
+    if args.fabric_child:
+        return fabric_child(args.fabric_child)
     t_script = time.perf_counter()
 
     import torch
@@ -2645,13 +2978,25 @@ def main(argv=None) -> int:
         (f"{FIELD} slices", data[picks(data, 4)], ebs),
         (f"{VOL_FIELD} volumes", vols[picks(vols, 2)],
          vol_eps * 10.0 ** np.linspace(-1.0, 0.25, 6))], smi)
+    # ... and a prediction is the same bits on the card as on the CPU
+    stages["prediction_bits_s"] = check_prediction_bits(
+        torch, models, test, ebs, psnr_floor, smi)
     peak_gb = max(early_peak, torch.cuda.max_memory_allocated()) / 2 ** 30
 
     # ---- phase 15: the sweep service, with phase 5's models and held-out
     # slices, counters read around its traffic
     t = time.perf_counter()
-    served, counts["Serve"] = phase_serve(torch, models, test, ebs, smi)
+    served, counts["Serve"], directs = phase_serve(torch, models, test, ebs,
+                                                   smi)
     stages["serve_phase_s"] = time.perf_counter() - t
+
+    # ---- phase 18: the service on a mesh and across processes, with the
+    # same models, traffic and direct calls
+    (ROOT / "build").mkdir(exist_ok=True)
+    t = time.perf_counter()
+    fabric, counts["Fabric"] = phase_fabric(torch, models, test, ebs,
+                                            directs, smi)
+    stages["fabric_phase_s"] = time.perf_counter() - t
 
     # ---- phase 14: a dataset on disk, streamed and advised on; the
     # tensors of phases 1-13 go first, so that it and the advise
@@ -2729,7 +3074,7 @@ def main(argv=None) -> int:
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
-            dist=dist, sort_route_cost=sort_cost,
+            dist=dist, fabric=fabric, sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],
                         "by_shape": {str(k): v for k, v in c["by_shape"].items()}}

@@ -23,7 +23,11 @@ kernel route (exact while a grid eb's codes fit the 65536 bins, as the
 default grid's do) in place of the exact sort route.  ``--service``
 submits each chunk to an in-process ``serve.SweepService`` (its
 ``advise`` method, and ``quality`` under ``--psnr-floor``) in place of
-the direct stream; the report is the same.
+the direct stream, its launches sharded over ``--mesh``; the report is
+the same.  With ``--service`` across processes the mesh's first process
+is the service's leader: it trains the models alone and streams every
+chunk through the service, and the other processes join its launches
+(``SweepService.serve``) and report nothing.
 
 ``--mesh auto|none|N|DEV,DEV,...`` shards the training sweeps and the
 stream over a ``dist.sweep.SweepMesh``: ``auto`` takes every device of
@@ -401,10 +405,6 @@ def main(argv=None) -> dict:
                          "gloo on the CPU)")
     ap.add_argument("--out", default="", help="write the JSON report here")
     args = ap.parse_args(argv)
-    if args.service and (args.coordinator or args.mesh not in ("auto",
-                                                               "none")):
-        ap.error("--service runs in one process on one device: it takes "
-                 "no --mesh or --coordinator")
 
     source = SRC.open_dataset(args.dataset)
     stream = ST.StreamConfig(budget_bytes=int(args.budget_mb * 2**20),
@@ -420,41 +420,40 @@ def main(argv=None) -> dict:
                     process_id=args.process_id, backend=args.backend,
                     device=args.device)
     try:
-        mesh = None if args.service else _cli_mesh(args.mesh, args.device)
+        mesh = M.mesh_from_spec(args.mesh, args.device)
         if args.service:
             from repro_torch.serve.sweep_service import (ServiceConfig,
                                                          SweepService)
-            svc = SweepService(ServiceConfig(pcfg=cfg), device=args.device)
-        report = advise_dataset(
-            source, compressors=comps or None, grid_rels=grid_rels,
-            targets=targets, train_rows=args.train_rows, cfg=cfg,
-            stream=stream, fields=fields or None, psnr_floor=args.psnr_floor,
-            device=args.device, service=svc, mesh=mesh)
+            sharded = DS.active_sweep_mesh(mesh)
+            svc = SweepService(ServiceConfig(pcfg=cfg), mesh=sharded,
+                               device=args.device if sharded is None
+                               else None)
+            if DS.mesh_spans_processes(sharded):
+                # the leader trains alone and submits; followers join
+                # its launches until it closes the service
+                mesh = None
+        if svc is not None and svc.role == "follower":
+            svc.serve()
+            report = None
+        else:
+            report = advise_dataset(
+                source, compressors=comps or None, grid_rels=grid_rels,
+                targets=targets, train_rows=args.train_rows, cfg=cfg,
+                stream=stream, fields=fields or None,
+                psnr_floor=args.psnr_floor, device=args.device, service=svc,
+                mesh=mesh)
     finally:
         if svc is not None:
             svc.close()
         if args.coordinator:
             import torch.distributed as dist
             dist.destroy_process_group()
-    if args.process_id == 0:
+    if report is not None and args.process_id == 0:
         _print_report(report)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1)
     return report
-
-
-def _cli_mesh(spec: str, device: str):
-    """``--mesh``: None, or a mesh over this process's devices (``auto``:
-    all of them; ``N``: the first N, raising past their count; a comma
-    list: those devices), spanning the process group when there is one.
-    A mesh of one shard sweeps on one device."""
-    if spec == "none":
-        return None
-    if spec == "auto" or spec.isdigit():
-        return M.make_sweep_mesh(None if spec == "auto" else int(spec),
-                                 devices=["cpu"] if device == "cpu" else None)
-    return M.make_sweep_mesh(devices=spec.split(","))
 
 
 if __name__ == "__main__":

@@ -8,13 +8,21 @@ over ``torch.distributed``.
 
 ``dist_init`` joins a process group (``nccl`` for a rank on a CUDA
 device, ``gloo`` on the CPU, unless ``backend=`` says otherwise; the
-backend is never swapped after a failure).  ``make_sweep_mesh`` builds a
-``dist.sweep.SweepMesh``: inside a process group it spans every
+backend is never swapped after a failure).  It makes the group's
+key-value store itself (a ``TCPStore`` that process 0 serves, or a
+``FileStore``) and keeps a handle to it, :func:`coordination_store`:
+the sweep service's followers wait there for the next launch instead
+of inside a collective, which the group's timeout would end.
+``make_sweep_mesh`` builds a ``dist.sweep.SweepMesh``: inside a
+process group it spans every
 process's devices (each process contributes its own, and the mesh is
 collective to build), otherwise it covers this process's devices.  One
 device may carry several shards (``devices=["cuda:0", "cuda:0"]``).
-The reference's external coordinator belongs with the sweep service's
-fault-tolerant fabric and is not here.
+The reference's external coordinator (a store that outlives process
+0, ``serve_coordinator`` and ``dist_init(external_coordinator=)``)
+comes with the service's fault-tolerant fabric; until then the store
+lives in process 0 and a follower waits on it for the leader's next
+launch.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.dist.sweep import SweepMesh
 # subgroups they make.  Set once per process, like the process group.
 _RANK_DEVICE: Optional[torch.device] = None
 _TIMEOUT: Optional[datetime.timedelta] = None
+_STORE = None
 
 
 def _rank_device(device, process_id: int) -> torch.device:
@@ -63,7 +72,7 @@ def dist_init(coordinator_address: Optional[str] = None, *,
     others' calls instead of hanging them.  Returns (rank, world size).
     """
     import torch.distributed as dist
-    global _RANK_DEVICE, _TIMEOUT
+    global _RANK_DEVICE, _TIMEOUT, _STORE
     init = coordinator_address or "env://"
     if not init.startswith(("tcp://", "file://", "env://")):
         raise ValueError(f"dist_init: coordinator address {init!r} is not "
@@ -73,11 +82,39 @@ def dist_init(coordinator_address: Optional[str] = None, *,
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     timeout = datetime.timedelta(seconds=float(init_timeout_s))
-    dist.init_process_group(backend, init_method=init,
+    store = _make_store(init, int(num_processes), int(process_id), timeout)
+    dist.init_process_group(backend, store=store,
                             world_size=int(num_processes),
                             rank=int(process_id), timeout=timeout)
-    _RANK_DEVICE, _TIMEOUT = dev, timeout
+    _RANK_DEVICE, _TIMEOUT, _STORE = dev, timeout, store
     return dist.get_rank(), dist.get_world_size()
+
+
+def _make_store(init: str, world: int, rank: int,
+                timeout: datetime.timedelta):
+    """The group's key-value store for ``init``, as ``init_method``
+    would make it: a ``FileStore`` on ``file://path``, else a
+    ``TCPStore`` served by process 0 (``env://`` reads its address from
+    ``MASTER_ADDR``/``MASTER_PORT``)."""
+    import os
+    import torch.distributed as dist
+    if init.startswith("file://"):
+        return dist.FileStore(init[len("file://"):], world)
+    if init.startswith("env://"):
+        host, port = os.environ["MASTER_ADDR"], os.environ["MASTER_PORT"]
+    else:
+        host, _, port = init[len("tcp://"):].rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(f"dist_init: coordinator address {init!r} is "
+                             "not tcp://host:port")
+    return dist.TCPStore(host.strip("[]"), int(port), world, rank == 0,
+                         timeout=timeout)
+
+
+def coordination_store():
+    """The key-value store of the process group :func:`dist_init` made,
+    or None outside one (shared by every member; keys are global)."""
+    return _STORE
 
 
 def _local_devices(devices: Optional[Sequence], in_group: bool) -> list:
@@ -147,3 +184,17 @@ def make_sweep_mesh(num_devices: Optional[int] = None, *,
              else dist.new_group(list(ranks), timeout=_TIMEOUT))
     return SweepMesh(tuple(local[:shares[dist.get_rank()]]),
                      tuple(shares[r] for r in ranks), ranks, group)
+
+
+def mesh_from_spec(spec: Optional[str], device: str = "cuda"):
+    """A CLI's ``--mesh``: None for ``none`` (or no spec), else a mesh over
+    this process's devices (``auto``: all of them; ``N``: the first N,
+    raising past their count; a comma list: those devices, where
+    ``cuda:0,cuda:0`` puts two shards on one card), spanning the process
+    group when there is one.  A mesh of one shard sweeps on one device."""
+    if spec is None or spec == "none":
+        return None
+    if spec == "auto" or spec.isdigit():
+        return make_sweep_mesh(None if spec == "auto" else int(spec),
+                               devices=["cpu"] if device == "cpu" else None)
+    return make_sweep_mesh(devices=spec.split(","))

@@ -16,9 +16,26 @@ and during serving (in the ``--out`` report also by launch shape).
 The run is on the card unless ``--device cpu`` asks for the host;
 ``--use-kernels`` takes the hashed q-ent kernel route.  ``--queue-rows``
 enables bounded-queue admission control (overload rejects with
-``RetryAfter`` instead of queueing without limit).  The reference's
-mesh, multi-process and fault-injection options come with the
-distributed layer.
+``RetryAfter`` instead of queueing without limit).
+
+``--mesh auto|none|N|DEV,DEV,...`` shards the service's launches over a
+``dist.sweep.SweepMesh`` (as ``launch.advise --mesh``; ``none``, the
+default, serves on one device).  With ``--coordinator ADDRESS
+--num-processes P --process-id I`` (and ``--backend``) every process
+first joins a process group of P processes and the mesh spans them:
+process 0 (the leader) trains the models, runs the clients and prints
+the report, and every other process serves as a follower, joining the
+leader's launches until it closes the service::
+
+    python -m repro_torch.launch.sweep_serve --mesh auto \
+        --coordinator tcp://localhost:29500 --num-processes 2 \
+        --process-id $RANK --device cpu
+
+``--coordinator`` without a mesh that spans the processes fails on
+every process.  ``--verify`` makes every distinct request again as a
+direct call after the run and reports how many served results differ
+from it (the service's contract: none).  Fault tolerance (heartbeats,
+recovery) and its options are not ported yet.
 """
 from __future__ import annotations
 
@@ -65,9 +82,41 @@ def main(argv=None) -> dict:
                          "the exact sort route")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the service, training and compressors run")
+    ap.add_argument("--mesh", default="none",
+                    help="'none' (one device), 'auto' (every device of the "
+                         "process; one shard per process in a process "
+                         "group), a shard count, or a comma list of "
+                         "devices (cuda:0,cuda:0: two shards on one card)")
+    ap.add_argument("--coordinator", default=None,
+                    help="join a process group first: tcp://host:port or "
+                         "file://path, the same on every process")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="processes in the group (with --coordinator)")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this process's rank (with --coordinator)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the group's backend (default: nccl on the card, "
+                         "gloo on the CPU)")
+    ap.add_argument("--verify", action="store_true",
+                    help="after the run, make every distinct request again "
+                         "as a direct call and count the served results "
+                         "that differ from it")
     ap.add_argument("--out", default="", help="write the JSON report here")
     args = ap.parse_args(argv)
+    if args.coordinator is None:
+        return _serve(args)
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    M.dist_init(args.coordinator, num_processes=args.num_processes,
+                process_id=args.process_id, backend=args.backend,
+                device=args.device)
+    try:
+        return _serve(args)
+    finally:
+        dist.destroy_process_group()
 
+
+def _serve(args) -> dict:
     import torch
     from repro_torch import compressors as C
     from repro_torch.core import pipeline as PL
@@ -75,6 +124,8 @@ def main(argv=None) -> dict:
     from repro_torch.core import usecases as UC
     from repro_torch.kernels import launch_counts, launches_since
     from repro_torch.data import scientific
+    from repro_torch.dist import sweep as DS
+    from repro_torch.launch import mesh as M
     from repro_torch.serve.sweep_service import ServiceConfig, SweepService
 
     cfg = P.PredictorConfig(use_kernels=args.use_kernels)
@@ -85,6 +136,23 @@ def main(argv=None) -> dict:
                          max_live_batches=args.max_live_batches,
                          cache_bytes=args.cache_bytes,
                          max_queue_rows=args.queue_rows, pcfg=cfg)
+    mesh = DS.active_sweep_mesh(M.mesh_from_spec(args.mesh, args.device))
+    if args.coordinator is not None and not DS.mesh_spans_processes(mesh):
+        # on every process: a follower of a mesh that does not span the
+        # processes would serve a service that never stops
+        raise SystemExit("--coordinator needs a mesh that spans the "
+                         "processes: pass --mesh auto (or a device list)")
+    device = args.device if mesh is None else None
+    if DS.mesh_spans_processes(mesh) and args.process_id != 0:
+        svc = SweepService(scfg, mesh=mesh)
+        print(f"# follower {args.process_id} serving ...", flush=True)
+        try:
+            svc.serve()
+        finally:
+            svc.close()
+        print(f"# follower {args.process_id} done ({svc.launches} launches "
+              "joined)", flush=True)
+        return {"role": "follower", "launches": svc.launches}
 
     fields = args.fields.split(",")
     print(f"# training {args.compressor} grid models on {fields} "
@@ -118,28 +186,31 @@ def main(argv=None) -> dict:
           f"{json.dumps(train_launches)}", flush=True)
 
     lat, lock = [], threading.Lock()
-    errors = []
+    errors, served = [], {}
 
     def client(svc, cid: int, count: int):
         rnd = np.random.default_rng(cid)
         try:
             for _ in range(count):
                 f = fields[int(rnd.integers(len(fields)))]
-                x = hot[f][int(rnd.integers(args.hot_slices))]
+                i = int(rnd.integers(args.hot_slices))
+                x = hot[f][i]
                 t = time.perf_counter()
                 if rnd.random() < 0.5:
-                    svc.find_eb(grid_models[f], x,
-                                target_cr=float(rnd.uniform(3.0, 12.0)))
+                    req = ("find_eb", f, i, float(rnd.uniform(3.0, 12.0)))
+                    out = svc.find_eb(grid_models[f], x, target_cr=req[3])
                 else:
+                    req = ("best_compressor", f, i, None)
                     models, eps = uc2_models[f]
-                    svc.best_compressor(models, x, eps)
+                    out = svc.best_compressor(models, x, eps)
                 with lock:
                     lat.append(time.perf_counter() - t)
+                    served.setdefault(req, []).append(out)
         except Exception as exc:        # reported after the run
             errors.append(exc)
 
     per_client = max(1, args.requests // args.clients)
-    with SweepService(scfg, device=args.device) as svc:
+    with SweepService(scfg, device=device, mesh=mesh) as svc:
         svc.warmup([(args.n, args.n)], grid_sizes=(1, 4),
                    row_buckets=(1, args.clients))
         before = launch_counts()
@@ -155,6 +226,8 @@ def main(argv=None) -> dict:
         stats = svc.stats()
     if errors:
         raise errors[0]
+    verify = _verify(served, hot, grid_models, uc2_models, args.device,
+                     UC) if args.verify else None
 
     done = len(lat)
     lat_ms = np.sort(np.asarray(lat)) * 1e3
@@ -162,6 +235,7 @@ def main(argv=None) -> dict:
     probes = cache["hits"] + cache["misses"]
     report = {
         "device": args.device, "fields": fields, "n": args.n,
+        "mesh": stats["mesh"], "procs": stats["procs"],
         "compressor": args.compressor, "clients": args.clients,
         "requests": done, "train_s": train_s, "wall_s": wall,
         "req_per_s": done / wall,
@@ -172,7 +246,7 @@ def main(argv=None) -> dict:
         "hit_rate": cache["hits"] / max(probes, 1),
         "launches_train": train_launches, "launches_serve": serve_launches,
         "launches_by_shape": {"train": train_shapes, "serve": serve_shapes},
-        "stats": stats}
+        "verify": verify, "stats": stats}
     print(f"served {done} requests from {args.clients} clients in "
           f"{wall:.2f}s -> {done / wall:.1f} req/s")
     print(f"latency p50={report['p50_ms']:.1f}ms p95={report['p95_ms']:.1f}ms "
@@ -191,10 +265,31 @@ def main(argv=None) -> dict:
           f"bytes={cache['bytes']}")
     print(f"kernel launches while serving {json.dumps(serve_launches)}",
           flush=True)
+    if verify is not None:
+        print(f"verify: {verify['checked']} distinct requests, "
+              f"{verify['mismatches']} served results differ from the "
+              "direct call", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     return report
+
+
+def _verify(served: dict, hot: dict, grid_models: dict, uc2_models: dict,
+            device: str, UC) -> dict:
+    """Each distinct request of the run made again as a direct call
+    (``usecases``): how many served results differ from it."""
+    import torch
+    bad = 0
+    for (kind, f, i, target), outs in served.items():
+        x = torch.from_numpy(hot[f][i]).to(device)
+        if kind == "find_eb":
+            want = UC.find_error_bound_for_cr(grid_models[f], x, target)
+        else:
+            models, eps = uc2_models[f]
+            want = UC.best_compressor(models, x, eps)
+        bad += sum(out != want for out in outs)
+    return {"checked": len(served), "mismatches": int(bad)}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 The reference computes ZFP's block exponent as ``ceil(log2(amax))``, its
 scale as ``exp2(24 - e)`` and the size model's bit length as
-``ceil(log2(mag + 1))``.  XLA on the CPU evaluates ``log2(x)`` as
-``log(x) * f32(1/ln 2)`` and ``exp2(k)`` as ``exp(k * f32(ln 2))``, each
+``ceil(log2(mag + 1))``, and a CR model's prediction as ``exp`` of its
+log.  XLA on the CPU evaluates ``log2(x)`` as ``log(x) * f32(1/ln 2)``
+and ``exp2(k)`` as ``exp(k * f32(ln 2))``, each
 with a Cephes-style float32 polynomial whose multiply-adds the CPU
 contracts into FMAs.  Neither is exact: ``ceil(log2(2^k))`` comes out
 ``k + 1`` for some ``k`` and ``exp2(k)`` misses ``2^k`` by up to ~30 ulp.
@@ -13,9 +14,9 @@ here, with :func:`fma32` where XLA fuses, and the CUDA kernel of
 
 Domain: non-negative inputs for :func:`log2_f32`, a zero or subnormal
 giving ``-inf`` as XLA on the CPU (which reads a subnormal as zero)
-gives it; finite inputs for :func:`exp2_f32` (integer exponents for
-ZFP's scale, real ones for TTHRESH's decode), whose subnormal results
-are flushed to zero as XLA flushes them.
+gives it; any float32 for :func:`exp_f32` and :func:`exp2_f32` (integer
+exponents for ZFP's scale, real ones for TTHRESH's decode), whose
+subnormal results are flushed to zero as XLA flushes them.
 
 The reference totals ZFP's per-block bit counts with a float32
 ``jnp.sum``, which rounds once the total passes 2^24 (an 1800 x 1800
@@ -97,22 +98,52 @@ def ceil_log2(x: torch.Tensor) -> torch.Tensor:
     return torch.ceil(log2_f32(x)).to(torch.int32)
 
 
+class TorchOps:
+    """The steps :func:`exp_f32` takes, on torch tensors: exactly rounded
+    FMAs (``fma32``) and a flush of subnormal results."""
+
+    fma = staticmethod(fma32)
+    clip = staticmethod(torch.clamp)
+    floor = staticmethod(torch.floor)
+
+    @staticmethod
+    def f32(x):
+        return x.to(torch.float32)
+
+    @staticmethod
+    def pow2(k):
+        """2^k of integer-valued float32 ``k`` in [-127, 127] (0 at -127)."""
+        return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+
+    @staticmethod
+    def ftz(x):
+        return torch.where(x.abs() < MIN_NORMAL, torch.zeros_like(x), x)
+
+
+def exp_f32(a, ops=TorchOps):
+    """``jnp.exp`` of float32 values on the CPU, bit for bit: XLA's
+    Cephes polynomial, its multiply-adds contracted into FMAs.  The
+    argument is clamped to [-87.8, 88.8] (so ``+inf`` gives ``+inf`` by
+    overflow and a NaN stays NaN); subnormal results are flushed to zero
+    as XLA flushes them.  Held to ``jax.jit(jnp.exp)`` over the whole
+    finite float32 range.  ``ops`` supplies the steps (``TorchOps``; the
+    CR models' checked host form passes numpy ones)."""
+    a = ops.clip(ops.f32(a), EXP_LO, EXP_HI)
+    fx = ops.clip(ops.floor(ops.fma(a, LOG2E, 0.5)), -127.0, 127.0)
+    r = ops.fma(-fx, LN2_HI, a)
+    r = ops.fma(-fx, LN2_LO, r)
+    y = ops.fma(r, EXP_P[0], EXP_P[1])
+    for c in EXP_P[2:]:
+        y = ops.fma(y, r, c)
+    t = ops.fma(y, r * r, r) + 1.0
+    return ops.ftz(t * ops.pow2(fx))
+
+
 def exp2_f32(k: torch.Tensor) -> torch.Tensor:
     """``jnp.exp2`` of float32 exponents on the CPU, bit for bit:
-    ``exp(k * f32(ln 2))`` by XLA's Cephes polynomial.  Held to
-    ``jnp.exp2`` at every integer exponent and on sampled reals."""
-    a = k.to(torch.float32) * LN2
-    a = torch.clamp(a, EXP_LO, EXP_HI)
-    fx = torch.clamp(torch.floor(fma32(a, LOG2E, 0.5)), -127.0, 127.0)
-    r = fma32(-fx, LN2_HI, a)
-    r = fma32(-fx, LN2_LO, r)
-    y = torch.full_like(r, EXP_P[0])
-    for c in EXP_P[1:]:
-        y = fma32(y, r, c)
-    t = fma32(y, r * r, r) + 1.0
-    pow2n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
-    out = t * pow2n
-    return torch.where(out.abs() < MIN_NORMAL, torch.zeros_like(out), out)
+    ``exp(k * f32(ln 2))`` (:func:`exp_f32`).  Held to ``jnp.exp2`` at
+    every integer exponent and on sampled reals."""
+    return exp_f32(k.to(torch.float32) * LN2)
 
 
 XLA_WINDOW = 32     # the window of XLA's CPU tree-reduction rewrite

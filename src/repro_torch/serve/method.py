@@ -32,8 +32,15 @@ reduction over a row runs alone or in a fixed order
 (``core.predictors``).  Coalescing, in-batch dedup, eb unions and the
 cross-request cache are bit-equal to direct calls only because of them.
 
-Launchers take a (k, ...) float32 stack on the service's device and
-return the padded (k_pad, e, row_width) result on that device.
+Launchers take a (k, ...) float32 stack and the service's mesh (None
+for one device) and return the padded (k_pad, e, row_width) result:
+a tensor, or a ``dist.sweep.ShardedRows`` left on the mesh's shards.
+:meth:`Launcher.gather` brings it to the host, and is the collective
+point of a process-spanning mesh.  On such a mesh every process makes
+the same launch with the same stack, ebs and ``k_pad``: the leader's
+own, the followers' from the leader's broadcast, with the launch config
+of :meth:`Launcher.follower_cfg` (launches carry no per-request config
+across processes).
 """
 from __future__ import annotations
 
@@ -140,13 +147,18 @@ class Launcher:
     warmup_eps = 1.0                 # dummy eb of warmup launches
 
     def launch(self, stack: torch.Tensor, epss: np.ndarray, cfg,
-               k_pad: int) -> torch.Tensor:
+               k_pad: int, mesh=None):
         """One padded launch -> (k_pad, len(epss), row_width)."""
         raise NotImplementedError
 
-    def default_cfg(self, scfg):
-        """The launch config of the service's own engine config (what
-        ``warmup()`` launches with)."""
+    def gather(self, out) -> np.ndarray:
+        """A launch result as a host array (all-gathered over a
+        process-spanning mesh's group: every member makes this call)."""
+        return DS.gather_rows(out)
+
+    def follower_cfg(self, scfg):
+        """The launch config of the service's own engine config: what
+        ``warmup()`` launches with, and what a follower launches with."""
         return None
 
     def eps_bucket(self, e: int) -> int:
@@ -161,10 +173,10 @@ class SweepLauncher(Launcher):
     name = "sweep"
     row_width = 2
 
-    def launch(self, stack, epss, cfg, k_pad):
-        return DS.sweep_padded(stack, epss, cfg, k_pad=k_pad)
+    def launch(self, stack, epss, cfg, k_pad, mesh=None):
+        return DS.sweep_padded(stack, epss, cfg, k_pad=k_pad, mesh=mesh)
 
-    def default_cfg(self, scfg):
+    def follower_cfg(self, scfg):
         return scfg.pcfg
 
 
@@ -179,11 +191,11 @@ class QualityLauncher(Launcher):
     name = "quality"
     row_width = 2
 
-    def launch(self, stack, epss, cfg, k_pad):
-        return DS.sweep_padded(stack, epss, cfg[1], k_pad=k_pad,
+    def launch(self, stack, epss, cfg, k_pad, mesh=None):
+        return DS.sweep_padded(stack, epss, cfg[1], k_pad=k_pad, mesh=mesh,
                                mode="quality")
 
-    def default_cfg(self, scfg):
+    def follower_cfg(self, scfg):
         return ("quality", scfg.pcfg)
 
 
@@ -192,7 +204,9 @@ class Int8CRLauncher(Launcher):
     (``train.grad_compress.predicted_cr_rows``): rows are FLATTENED
     leaves (the CR does not depend on the leaf's shape).  Every step is
     elementwise, a max, an integer count or a fixed-order row sum, so a
-    row's CR is its bits alone."""
+    row's CR is its bits alone.  The launch is local, on the mesh's
+    first device of this process (no collective): on a spanning mesh
+    leader and followers each compute it on their copy of the rows."""
 
     name = "int8cr"
     row_width = 1
@@ -205,7 +219,9 @@ class Int8CRLauncher(Launcher):
     def cfg_key(self) -> tuple:
         return ("int8cr", self.bins)
 
-    def launch(self, stack, epss, cfg, k_pad):
+    def launch(self, stack, epss, cfg, k_pad, mesh=None):
+        if mesh is not None:
+            stack = stack.to(mesh.devices[0])
         k = stack.shape[0]
         if k_pad > k:
             stack = torch.cat([stack, stack[-1:].expand(
@@ -214,7 +230,7 @@ class Int8CRLauncher(Launcher):
         e = int(np.asarray(epss).reshape(-1).shape[0])
         return crs[:, None, None].expand(k_pad, e, 1).contiguous()
 
-    def default_cfg(self, scfg):
+    def follower_cfg(self, scfg):
         return self.cfg_key
 
 
@@ -300,7 +316,7 @@ class FeaturizeMethod(ServableMethod):
     name = "featurize"
 
     def pre_process(self, svc, slices, epss, cfg=None) -> MethodRequest:
-        cfg = cfg if cfg is not None else svc.scfg.pcfg
+        cfg = svc._check_cfg(cfg if cfg is not None else svc.scfg.pcfg)
         arr = _checked_stack(slices, "submit_featurize")
         eps_keys = _eps_keys(epss, "submit_featurize")
         return _request(self, _stack_items(arr, cfg, eps_keys),
@@ -325,7 +341,8 @@ class FindEbMethod(ServableMethod):
                 f"submit_find_eb: grid model '{grid_model.name}' was "
                 f"trained on {grid_model.ndim}-D data, got {x.shape}")
         eps_keys = tuple(_f32(e) for e in np.asarray(grid_model.ebs))
-        item = Item((slice_digest(x), grid_model.cfg), x, eps_keys)
+        item = Item((slice_digest(x), svc._check_cfg(grid_model.cfg)), x,
+                    eps_keys)
         return _request(self, [item], {
             "grid_model": grid_model, "device": svc.device,
             "target_cr": target_cr, "tol": tol, "max_iters": max_iters})
@@ -353,7 +370,7 @@ class BestCompressorMethod(ServableMethod):
         if not models:
             raise ValueError("submit_best_compressor needs trained models")
         x = _checked_rank(models, data, "submit_best_compressor")
-        cfg = next(iter(models.values())).cfg
+        cfg = svc._check_cfg(next(iter(models.values())).cfg)
         item = Item((slice_digest(x), cfg), x, (_f32(eps),))
         return _request(self, [item], {"models": models, "eps": eps})
 
@@ -409,7 +426,7 @@ class AdviseMethod(ServableMethod):
     def pre_process(self, svc, models: Dict[str, Any],
                     stack) -> MethodRequest:
         ebs, stack_ndim = self.check_models(models)
-        cfg = next(iter(models.values())).cfg
+        cfg = svc._check_cfg(next(iter(models.values())).cfg)
         arr = _host_f32(stack)
         if arr.ndim != stack_ndim:
             raise ValueError(
@@ -476,7 +493,7 @@ class QualityMethod(ServableMethod):
                          else QualityLauncher(), batch_buckets)
 
     def pre_process(self, svc, slices, epss, cfg=None) -> MethodRequest:
-        cfg = cfg if cfg is not None else svc.scfg.pcfg
+        cfg = svc._check_cfg(cfg if cfg is not None else svc.scfg.pcfg)
         arr = _checked_stack(slices, "submit_quality")
         eps_keys = _eps_keys(epss, "submit_quality")
         return _request(self, _stack_items(arr, ("quality", cfg), eps_keys),
@@ -515,7 +532,8 @@ class FindSettingMethod(ServableMethod):
         x = _checked_rank(models, data, "submit_find_setting")
         union = sorted({_f32(e) for m in models.values()
                         for e in np.asarray(m.ebs)})
-        item = Item((slice_digest(x), next(iter(cfgs))), x, tuple(union))
+        item = Item((slice_digest(x), svc._check_cfg(next(iter(cfgs)))), x,
+                    tuple(union))
         return _request(self, [item], {
             "models": dict(models), "union": union, "device": svc.device,
             "cr_floor": cr_floor, "psnr_floor": psnr_floor,

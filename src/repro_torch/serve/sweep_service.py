@@ -1,5 +1,6 @@
 """Method-agnostic serving core: micro-batching, a feature cache and one
-launch per batch group, on one device.
+launch per batch group, on one device, a mesh of shards, or a mesh that
+spans processes.
 
 ``serve.method`` holds the workloads (featurize, UC1 ``find_eb``, UC2
 ``best_compressor``, the int8 ``kv_gate``, the advisor, UC3
@@ -59,8 +60,54 @@ A cached digest is admitted only once ``cache_admit_after`` requests
 have sighted it (concurrent requests in one batch count one each), so a
 scan over cold fields never evicts the working set.
 
-The reference's leader/follower fabric over a process-spanning mesh
-(heartbeats, recovery) comes with the distributed layer.
+Meshes
+------
+``SweepService(mesh=...)`` (or a service made inside
+``dist.sharding.use_mesh``) captures the mesh at construction and shards
+every sweep launch over it (``dist.sweep.sweep_padded``): each bucket
+is rounded up to a multiple of the mesh's extent, the stack is staged on
+the host and each shard's block moves to its own device.  Rows are
+mesh-independent, so every served result is the same bits as without a
+mesh.
+
+Leader/follower on a process-spanning mesh
+------------------------------------------
+On a mesh made inside a process group (``launch.mesh.dist_init`` +
+``make_sweep_mesh``) the mesh's first process is the **leader**: it owns
+the queue, the cache and ``submit*``.  Every other process is a
+**follower**: its worker joins each of the leader's launches until the
+leader closes, and its :meth:`SweepService.serve` blocks until then.
+Per launch the leader, holding the launch lock (so followers see one
+stream of launches: batches, ``warmup()`` and ``close()``):
+
+1. sets the launch's sequence key in the group's store
+   (``launch.mesh.coordination_store``);
+2. broadcasts a fixed header over the mesh's group,
+   ``[op, k, k_pad, rank, t0, t1, t2, e_pad, launcher id]`` (the id from
+   ``registry.launcher_id``), then the k rows and the eb vector as raw
+   bytes (CPU tensors on gloo, CUDA tensors on NCCL);
+3. feeds the broadcast copies to the launcher, as each follower does
+   with the launcher's ``follower_cfg``; the gather is the one
+   synchronization point.
+
+A follower waits for the next sequence key in the store, in short
+polls, and enters the header broadcast only once it is set: an idle
+spell longer than the group's timeout never leaves a follower inside a
+collective.  ``close()`` drains the queue and broadcasts the shutdown
+header.  Every process must construct its services in the same order,
+with the same ``ServiceConfig`` and registry; while a service is live,
+its mesh's group carries nothing else.  The leader serves only the
+service's own engine config (``_check_cfg``).
+
+A broadcast or gather that raises or times out breaks the fabric: every
+pending and queued future fails with ``dist.fault.FabricError``, later
+``submit*`` calls raise, a follower's ``serve()`` re-raises, and
+``close()`` stays idempotent.  Nothing recovers (no heartbeats, no
+shrinking of the mesh).  That holds where a failed collective raises,
+as gloo's do.  On NCCL the process group's watchdog finds a collective
+stuck on a lost peer after the group's timeout and, under PyTorch's
+default ``TORCH_NCCL_ASYNC_ERROR_HANDLING=3``, tears the process down
+instead of raising; the port sets nothing there.
 
 Usage::
 
@@ -70,11 +117,20 @@ Usage::
         f2 = svc.submit_best_compressor(models, slice_b, eps)
         f3 = svc.submit_featurize(stack, ebs)
         eps, cr = f1.result()
+
+    # across processes: every process joins the group, then
+    M.dist_init(address, num_processes=n, process_id=rank)
+    svc = SweepService(mesh=M.make_sweep_mesh())
+    if svc.role == "leader":
+        ...                                         # submit*, then close()
+    else:
+        svc.serve()                                 # until the leader closes
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -85,6 +141,7 @@ import torch
 
 from repro_torch.core import predictors as P
 from repro_torch.dist import sweep as DS
+from repro_torch.dist.fault import FabricError
 from repro_torch.serve.method import (Item, Launcher, MethodRequest,
                                       _eps_bucket, _f32, _row_bucket,
                                       slice_digest)
@@ -94,6 +151,13 @@ __all__ = ["FeatureCache", "RetryAfter", "ServiceConfig", "SweepService",
            "_eps_bucket", "_f32", "_row_bucket", "slice_digest"]
 
 _LAT_RING = 512                       # per-method latency samples kept
+
+# A multi-process service's keys in the group's store are numbered by a
+# process-local counter: every process constructs its services in the
+# same order, so the numbers agree and a second service never reads the
+# first one's keys.
+_FABRIC_COUNTER = itertools.count()
+_POLL_MAX_S = 0.02                    # a follower's longest store poll gap
 
 
 class RetryAfter(RuntimeError):
@@ -234,16 +298,37 @@ def _resolve_device(device) -> torch.device:
 
 class SweepService:
     """Coalesces concurrent requests of every registered method into
-    batched launches on one device (module docstring)."""
+    batched launches (module docstring).
+
+    ``device``: where post-processing runs and, without a mesh, where
+    launches run (default: the mesh's first device of this process, else
+    ``"cuda"``).  ``mesh``: a ``dist.sweep.SweepMesh``, or None for the
+    thread's ``use_mesh`` mesh; captured here and used by every launch."""
+
+    HDR_LEN = 9         # [op, k, k_pad, rank, t0, t1, t2, e_pad, launcher id]
+    OP_SHUTDOWN, OP_LAUNCH, OP_WARMUP = 0, 1, 2
 
     def __init__(self, scfg: Optional[ServiceConfig] = None, *,
                  registry: Optional[MethodRegistry] = None,
-                 device="cuda"):
+                 device=None, mesh=None):
         self.scfg = scfg if scfg is not None else ServiceConfig()
         self.registry = registry if registry is not None else \
             default_registry()
+        self.mesh = DS.active_sweep_mesh(mesh)
+        if device is None:
+            device = self.mesh.devices[0] if self.mesh is not None else "cuda"
         self.device = _resolve_device(device)
         self.role = "leader"
+        self._multiproc = DS.mesh_spans_processes(self.mesh)
+        self._fabric_error: Optional[FabricError] = None
+        self._launch_lock = threading.Lock()
+        if self._multiproc:
+            self._init_fabric()
+        # where a launch's stack is staged: the device itself without a
+        # mesh; with one, the host, or this rank's card on NCCL (whose
+        # broadcasts move CUDA memory); the sweep moves each shard's block
+        self._stage = (self.device if self.mesh is None
+                       else DS._gather_device(self.mesh))
         self.cache = FeatureCache(self.scfg.cache_bytes,
                                   admit_after=self.scfg.cache_admit_after)
         self._queue: "collections.deque[MethodRequest]" = collections.deque()
@@ -273,9 +358,38 @@ class SweepService:
         self._rejected = 0
         self._ema_batch_s = 0.0      # drain-time estimate for RetryAfter
         self._ema_rows_per_s = 0.0   # drain-rate estimate for RetryAfter
-        self._worker = threading.Thread(target=self._loop,
-                                        name="sweep-service", daemon=True)
+        loop = (self._follower_loop if self.role == "follower"
+                else self._loop)
+        self._worker = threading.Thread(target=loop,
+                                        name=f"sweep-service-{self.role}",
+                                        daemon=True)
         self._worker.start()
+
+    def _init_fabric(self) -> None:
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as M
+        self._store = M.coordination_store()
+        if self._store is None:
+            raise ValueError(
+                "a SweepService on a process-spanning mesh needs the "
+                "process group of repro_torch.launch.mesh.dist_init (its "
+                "store carries the launch sequence)")
+        self._rank = dist.get_rank()
+        self._leader = self.mesh.ranks[0]
+        self.role = "leader" if self._rank == self._leader else "follower"
+        self._kvp = f"repro_torch/sweep_service/{next(_FABRIC_COUNTER)}"
+        self._seq = 0
+
+    def _check_cfg(self, cfg):
+        """Leader/follower launches carry no per-request engine config
+        (followers launch with the service's), so a multi-process
+        service accepts only its own."""
+        if self._multiproc and cfg != self.scfg.pcfg:
+            raise ValueError(
+                "a multi-process SweepService serves only its configured "
+                "engine config (ServiceConfig.pcfg); per-request configs "
+                "are a single-process feature")
+        return cfg
 
     def _bind_device(self) -> None:
         """Make the service's card the current device of this thread."""
@@ -387,6 +501,7 @@ class SweepService:
             live = self._live_now
         return {"role": self.role,
                 "device": str(self.device),
+                "mesh": None if self.mesh is None else self._mesh_key(),
                 "launches": self._launches,
                 "rows_launched": self._rows_launched,
                 "pad_rows": self._pad_rows,
@@ -400,16 +515,26 @@ class SweepService:
                 "window_grows": self._window_grows,
                 "live_batches": live,
                 "epoch": 0,
-                "transport": "local",
+                "transport": self._transport(),
                 "recoveries": 0,
                 "last_recovery_s": 0.0,
                 "rejected": self._rejected,
-                "procs": [0],
+                "procs": list(self.mesh.ranks) if self._multiproc else [0],
                 "cache": self.cache.stats()}
 
     @property
     def launches(self) -> int:
         return self._launches
+
+    def _transport(self) -> str:
+        if not self._multiproc:
+            return "local"
+        import torch.distributed as dist
+        return dist.get_backend(self.mesh.group)
+
+    def _mesh_key(self) -> tuple:
+        return (tuple(str(d) for d in self.mesh.devices), self.mesh.shares,
+                self.mesh.ranks)
 
     def warmup(self, shapes: Optional[Sequence[Tuple[int, ...]]] = None,
                grid_sizes: Sequence[int] = (1,),
@@ -423,7 +548,13 @@ class SweepService:
         x eb-grid sizes x row buckets) this warms the sweep launcher.
         With NO arguments it walks every registered method's
         ``warmup_spec``; methods sharing a launcher launch each shape
-        once.  Warmup launches are not counted in ``launches``."""
+        once.  Warmup launches are not counted in ``launches``.  On a
+        process-spanning mesh they ride the fabric: the leader warms up,
+        and followers join in their worker."""
+        if self.role == "follower":
+            raise RuntimeError(
+                "warmup runs on the leader; a follower joins its warmup "
+                "launches in its worker (call serve())")
         if self.device.type == "cuda":
             from repro_torch.kernels import _build
             _build.build()
@@ -431,7 +562,7 @@ class SweepService:
             done: set = set()
             for m in self.registry.methods():
                 spec = m.warmup_spec(self.scfg)
-                wcfg = m.launcher.default_cfg(self.scfg)
+                wcfg = m.launcher.follower_cfg(self.scfg)
                 for shape in spec.shapes:
                     for e in spec.grid_sizes:
                         for k in spec.row_buckets:
@@ -444,24 +575,41 @@ class SweepService:
                                 self._warm_one(m.launcher, tuple(shape),
                                                int(e), k_pad, wcfg)
             return
-        cfg = cfg if cfg is not None else self.scfg.pcfg
+        cfg = self._check_cfg(cfg if cfg is not None else self.scfg.pcfg)
         sweep = self.registry.get("featurize").launcher
         for shape in shapes:
             for e in grid_sizes:
                 for k in row_buckets:
                     self._warm_one(sweep, tuple(shape), int(e),
-                                   _row_bucket(int(k)), cfg)
+                                   self._k_pad((), int(k)), cfg)
 
     def _warm_one(self, launcher: Launcher, shape: Tuple[int, ...],
                   e: int, k_pad: int, cfg) -> None:
         e_pad = launcher.eps_bucket(e)
         epss = np.full((e_pad,), launcher.warmup_eps, np.float32)
-        self._run(launcher, [np.zeros(shape, np.float32)], epss, cfg, k_pad)
+        self._collective_sweep(launcher, [np.zeros(shape, np.float32)], epss,
+                               cfg, k_pad, op=self.OP_WARMUP)
         self._executables.add(self._sig(launcher, k_pad, shape, e_pad, cfg))
+
+    def serve(self) -> None:
+        """Block until the service stops: on a follower, until the
+        leader's ``close()`` (its worker joins every launch until then);
+        on a leader, until ``close()`` from another thread.  Raises the
+        ``FabricError`` that broke the fabric, if one did."""
+        self._worker.join()
+        if self._fabric_error is not None:
+            raise self._fabric_error
 
     def close(self) -> None:
         """Serve what is queued, then stop the worker and the
-        post-processing pool.  Idempotent."""
+        post-processing pool; on a process-spanning mesh the leader then
+        releases the followers (the shutdown header).  Idempotent, also
+        after a fabric failure (no collective is tried then).  A
+        follower's ``close()`` waits for the leader's."""
+        if self.role == "follower":
+            self._worker.join()
+            self._post.shutdown(wait=True)
+            return
         with self._cond:
             if self._closed:
                 return
@@ -470,6 +618,8 @@ class SweepService:
             self._cond.notify_all()
         self._worker.join()
         self._post.shutdown(wait=True)
+        if self._multiproc:
+            self._release_followers()
 
     def __enter__(self) -> "SweepService":
         return self
@@ -482,9 +632,14 @@ class SweepService:
     # ------------------------------------------------------------------
 
     def _submit(self, req: MethodRequest) -> Future:
+        if self.role == "follower":
+            raise RuntimeError(
+                "a follower process takes no requests: submit to the leader "
+                "(the mesh's first process) and call serve() here")
         with self._cond:
             if self._stop:
-                raise RuntimeError("SweepService is closed")
+                raise RuntimeError("SweepService is closed") \
+                    from self._fabric_error
             limit = self.scfg.max_queue_rows
             pending = sum(r.rows for r in self._queue) if limit else 0
             # never reject into an empty queue: a single over-wide
@@ -521,6 +676,10 @@ class SweepService:
             t0 = time.perf_counter()
             try:
                 self._process(batch)
+            except FabricError as exc:  # the fabric is gone: fail them all
+                self._release_live()
+                self._fail_fabric(exc, batch)
+                return
             except Exception as exc:  # fail this batch's requests only
                 self._release_live()
                 for req in batch:
@@ -537,6 +696,21 @@ class SweepService:
                     self._ema_rows_per_s = (
                         rps if not self._ema_rows_per_s
                         else 0.7 * self._ema_rows_per_s + 0.3 * rps)
+
+    def _fail_fabric(self, exc: FabricError,
+                     batch: List[MethodRequest]) -> None:
+        """Fail ``batch`` and every queued request with ``exc``, and refuse
+        later submissions."""
+        with self._cond:
+            if self._fabric_error is None:
+                self._fabric_error = exc
+            self._stop = True
+            queued = list(self._queue)
+            self._queue.clear()
+        for req in list(batch) + queued:
+            if not req.future.done():
+                req.future.set_exception(exc)
+            self._note_done(req, ok=False)
 
     def _release_live(self) -> None:
         with self._mlock:
@@ -608,23 +782,27 @@ class SweepService:
     # batch resolution, launch and scatter-back
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _sig(launcher: Launcher, k_pad: int, shape: Tuple[int, ...],
+    def _sig(self, launcher: Launcher, k_pad: int, shape: Tuple[int, ...],
              e_pad: int, cfg) -> tuple:
-        return (launcher.name, k_pad, shape, e_pad, cfg)
+        mesh = None if self.mesh is None else self._mesh_key()
+        return (launcher.name, k_pad, shape, e_pad, cfg, mesh)
 
     def _k_pad(self, methods, k: int) -> int:
         """Padded row count of a launch whose items came from
         ``methods``: the smallest covering bucket of their merged
         ladders, the power-of-two ladder when any method declares none,
-        and the power-of-two ladder past the largest declared bucket."""
+        and the power-of-two ladder past the largest declared bucket;
+        under a mesh, rounded up to a multiple of its extent (so the
+        launch shards; pad rows never change a real row)."""
         ladders = [m.batch_buckets for m in methods]
-        if not ladders or any(lad is None for lad in ladders):
-            return _row_bucket(k)
-        for b in sorted({b for lad in ladders for b in lad}):
-            if b >= k:
-                return b
-        return _row_bucket(k)
+        bucket = _row_bucket(k)
+        if ladders and all(lad is not None for lad in ladders):
+            bucket = next((b for b in sorted({b for lad in ladders
+                                              for b in lad}) if b >= k),
+                          bucket)
+        if self.mesh is None:
+            return bucket
+        return -(-bucket // self.mesh.size) * self.mesh.size
 
     def _process(self, batch: List[MethodRequest]) -> None:
         self._batches += 1
@@ -690,40 +868,188 @@ class SweepService:
         self._post.submit(complete)
 
     def _upload(self, rows: List[np.ndarray], k_pad: int) -> torch.Tensor:
-        """The (k_pad, ...) stack of ``rows`` on the device, pad rows
-        repeating the last one.  It is packed into a host buffer kept
-        per padded shape (pinned for a card) and copied without
-        blocking; an event after the copy is waited on before the buffer
-        is filled again.  The lock keeps warmup and the worker from
-        filling one buffer at once."""
+        """The (k_pad, ...) stack of ``rows`` where launches stage it
+        (``self._stage``), pad rows repeating the last one.  It is packed
+        into a host buffer kept per padded shape (pinned for a card) and
+        copied without blocking; an event after the copy is waited on
+        before the buffer is filled again.  The lock keeps warmup and the
+        worker from filling one buffer at once."""
         k = len(rows)
         shape = (k_pad,) + rows[0].shape
+        on_card = self._stage.type == "cuda"
         with self._staging_lock:
             slot = self._staging.get(shape)
             if slot is None:
                 slot = self._staging[shape] = [torch.empty(
-                    shape, dtype=torch.float32,
-                    pin_memory=self.device.type == "cuda"), None]
+                    shape, dtype=torch.float32, pin_memory=on_card), None]
             buf, done = slot
             if done is not None:
                 done.synchronize()
             for i, x in enumerate(rows):
                 buf[i].copy_(torch.from_numpy(x))
             buf[k:] = buf[k - 1]
-            if self.device.type != "cuda":
+            if not on_card:
                 return buf.clone()
-            stack = buf.to(self.device, non_blocking=True)
+            stack = buf.to(self._stage, non_blocking=True)
             slot[1] = torch.cuda.Event()
             slot[1].record()
             return stack
 
     def _run(self, launcher: Launcher, rows: List[np.ndarray],
              epss: np.ndarray, cfg, k_pad: int) -> List[np.ndarray]:
-        """Upload ``rows``, launch, and bring the k real (e, R) row
-        blocks back to the host in one device-to-host copy, which waits
-        for the launch (pad rows are dropped)."""
-        out = launcher.launch(self._upload(rows, k_pad), epss, cfg, k_pad)
-        return [b[0] for b in DS.scatter_requests(out, [1] * len(rows))]
+        """Launch ``rows`` and return their k real (e, R) row blocks on
+        the host (pad rows dropped)."""
+        host = self._collective_sweep(launcher, rows, epss, cfg, k_pad)
+        return [host[i] for i in range(len(rows))]
+
+    # ------------------------------------------------------------------
+    # launches: local, on a mesh, or over the leader/follower fabric
+    # ------------------------------------------------------------------
+
+    def _collective_sweep(self, launcher: Launcher, rows: List[np.ndarray],
+                          epss: np.ndarray, cfg, k_pad: int,
+                          op: int = OP_LAUNCH) -> np.ndarray:
+        """One padded launch of ``rows`` -> the host (k_pad, e, R) rows,
+        brought back in one device-to-host copy (or gather) that waits
+        for the launch.  On a process-spanning mesh the launch is the
+        leader's half of the fabric (module docstring); a collective
+        that fails raises :class:`FabricError`."""
+        stack = self._upload(rows, k_pad)
+        if not self._multiproc:
+            return launcher.gather(launcher.launch(stack, epss, cfg, k_pad,
+                                                   self.mesh))
+        k, trailing = len(rows), tuple(rows[0].shape)
+        hdr = [op, k, k_pad, 1 + len(trailing), 0, 0, 0, len(epss),
+               self.registry.launcher_id(launcher)]
+        hdr[7 - len(trailing):7] = trailing
+        with self._launch_lock:
+            if self._fabric_error is not None:
+                raise self._fabric_error
+            try:
+                self._seq += 1
+                self._store.set(f"{self._kvp}/launch/{self._seq}", "1")
+                self._bcast(torch.tensor(hdr, dtype=torch.int64,
+                                         device=self._stage))
+                st = stack[:k].contiguous()
+                self._bcast(st.reshape(-1).view(torch.uint8))
+                ep = torch.from_numpy(np.ascontiguousarray(epss, np.float32))
+                ep = self._bcast(ep.to(self._stage).view(torch.uint8))
+                out = launcher.launch(st, ep.view(torch.float32).cpu().numpy(),
+                                      cfg, k_pad, self.mesh)
+                return launcher.gather(out)
+            except Exception as exc:
+                raise self._fabric_failed(exc, "follower_lost") from exc
+
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Broadcast ``t`` in place from the leader over the mesh's group."""
+        import torch.distributed as dist
+        dist.broadcast(t, src=self._leader, group=self.mesh.group)
+        return t
+
+    def _fabric_failed(self, exc: BaseException, lost_kind: str
+                       ) -> FabricError:
+        """The :class:`FabricError` for a collective that raised ``exc``
+        (of kind ``lost_kind`` when a peer's connection went away),
+        recorded as the fabric's; a leader also marks the store so that
+        followers waiting there stop."""
+        text = str(exc)
+        if isinstance(exc, FabricError):
+            err = exc
+        elif "imed out" in text or "imeout" in text:
+            err = FabricError(f"a collective launch timed out: {text}",
+                              kind="timeout")
+        elif any(w in text for w in ("onnection", "reset", "peer", "closed",
+                                     "Broken pipe")):
+            err = FabricError(f"a peer left the fabric: {text}",
+                              kind=lost_kind)
+        else:
+            err = FabricError(f"a collective launch failed: {text}")
+        if self._fabric_error is None:
+            self._fabric_error = err
+        if self.role == "leader":
+            self._mark_shutdown("failed")
+        return err
+
+    def _mark_shutdown(self, how: str) -> None:
+        try:
+            self._store.set(f"{self._kvp}/shutdown", how)
+        except Exception:       # the store may be gone with the fabric
+            pass
+
+    def _release_followers(self) -> None:
+        """The leader's last launch: the shutdown header, then the
+        store's shutdown key (which alone releases the followers after a
+        failure, when no collective is tried)."""
+        with self._launch_lock:
+            if self._fabric_error is None:
+                try:
+                    self._seq += 1
+                    self._store.set(f"{self._kvp}/launch/{self._seq}", "1")
+                    self._bcast(torch.zeros(self.HDR_LEN, dtype=torch.int64,
+                                            device=self._stage))
+                except Exception as exc:
+                    self._fabric_failed(exc, "follower_lost")
+                    return
+            self._mark_shutdown("closed" if self._fabric_error is None
+                                else "failed")
+
+    def _await_launch(self, seq: int) -> bool:
+        """A follower's wait for the leader's launch ``seq``: True once its
+        key is in the store, False after a clean shutdown.  Polls, from
+        0.1 ms up to ``_POLL_MAX_S`` apart, outside any collective."""
+        key, stop = f"{self._kvp}/launch/{seq}", f"{self._kvp}/shutdown"
+        gap = 1e-4
+        while True:
+            try:
+                if self._store.check([key]):
+                    return True
+                if self._store.check([stop]):
+                    if self._store.get(stop) == b"closed":
+                        return False
+                    raise FabricError("the leader's fabric failed",
+                                      lost=(self._leader,))
+            except FabricError:
+                raise
+            except Exception as exc:
+                raise FabricError(
+                    f"the coordination store went away: {exc}",
+                    kind="leader_lost", lost=(self._leader,)) from exc
+            time.sleep(gap)
+            gap = min(2 * gap, _POLL_MAX_S)
+
+    def _follower_loop(self) -> None:
+        """Join every launch of the leader's, with the broadcast copies,
+        until its shutdown header (module docstring)."""
+        self._bind_device()
+        try:
+            while True:
+                self._seq += 1
+                if not self._await_launch(self._seq):
+                    return
+                hdr = self._bcast(torch.zeros(self.HDR_LEN, dtype=torch.int64,
+                                              device=self._stage))
+                op, k, k_pad, rank, *rest = hdr.cpu().tolist()
+                if op == self.OP_SHUTDOWN:
+                    return
+                trailing = tuple(rest[3 - (rank - 1):3])
+                e, gid = rest[3], rest[4]
+                launcher = self.registry.launcher(gid)
+                st = self._bcast(torch.empty(
+                    4 * k * int(np.prod(trailing)), dtype=torch.uint8,
+                    device=self._stage))
+                ep = self._bcast(torch.empty(4 * e, dtype=torch.uint8,
+                                             device=self._stage))
+                out = launcher.launch(
+                    st.view(torch.float32).reshape((k,) + trailing),
+                    ep.view(torch.float32).cpu().numpy(),
+                    launcher.follower_cfg(self.scfg), k_pad, self.mesh)
+                launcher.gather(out)
+                if op == self.OP_LAUNCH:
+                    self._launches += 1
+                    self._rows_launched += k
+                    self._pad_rows += k_pad - k
+        except Exception as exc:        # serve() raises it
+            self._fabric_failed(exc, "leader_lost")
 
     def _launch(self, launcher: Launcher, group: dict,
                 eps_chunk: List[float], cfg,

@@ -869,12 +869,12 @@ def test_advise_mesh_spec():
     """--mesh: 'none' is no mesh, N the first N devices of the process
     (more than it has raises, as make_sweep_mesh does), a comma list
     those devices (two shards on one device)."""
-    assert TADV._cli_mesh("none", CPU) is None
-    assert TADV._cli_mesh("auto", CPU).size == 1
-    assert TADV._cli_mesh("1", CPU).size == 1
+    assert M.mesh_from_spec("none", CPU) is None
+    assert M.mesh_from_spec("auto", CPU).size == 1
+    assert M.mesh_from_spec("1", CPU).size == 1
     with pytest.raises(ValueError, match="exceeds"):
-        TADV._cli_mesh("2", CPU)
-    mesh = TADV._cli_mesh("cpu,cpu", CPU)
+        M.mesh_from_spec("2", CPU)
+    mesh = M.mesh_from_spec("cpu,cpu", CPU)
     assert mesh.size == 2 and mesh.devices == (torch.device(CPU),) * 2
 
 

@@ -581,63 +581,82 @@ def test_retry_after_is_load_proportional():
 
 # ------------------------------------------------------ the port's own
 
-def test_every_method_bit_equal_to_direct_calls(setup):
-    """One batch of all seven methods, with eb unions, bucket padding and
-    a volume group, each result bit-equal to the port's direct call;
-    served again from the cache with zero launches."""
+def submit_all(svc, r: dict) -> list:
+    """One request of each of the seven methods on ``svc`` from the inputs
+    of :func:`all_methods`: futures in its order."""
+    x = r["x"]
+    return [svc.submit_featurize(x, r["ebs"]),
+            svc.submit_featurize(x[1:3], r["sub"]),
+            svc.submit_featurize(r["vols"], [r["ebs"][2]]),
+            svc.submit_find_eb(r["gm"], x[0], 6.0),
+            svc.submit_best_compressor(r["models"], x[1], r["eps"]),
+            svc.submit_advise(r["grid"], x[2:4]),
+            svc.submit_find_setting(r["grid"], x[3], cr_floor=4.0,
+                                    psnr_floor=40.0),
+            svc.submit_quality(x, r["ebs"], TP.PredictorConfig()),
+            svc.submit_kv_gate(r["leaves"])]
+
+
+def all_methods(setup):
+    """The inputs of :func:`submit_all` (with eb unions, bucket padding
+    and a volume group) and the port's direct calls' results in its
+    order."""
     slices, ebs, gm, eps, models = setup
     x = slices[10:14]
     vols = np.stack([slices[10:14], slices[11:15]])          # (2, 4, N, N)
     sub = [ebs[1], 0.5 * (ebs[1] + ebs[2]), ebs[3]]
-    qual_cfg = TP.PredictorConfig()
     grid = {"zfp": gm, "bitgrooming": TUC.EbGridModel.train(
         torch.from_numpy(slices[:10]), "bitgrooming", ebs)}
     leaves = [slices[0].ravel(), slices[1].ravel(), slices[0].ravel().copy()]
-
-    def submit_all(svc):
-        return [svc.submit_featurize(x, ebs), svc.submit_featurize(x[1:3], sub),
-                svc.submit_featurize(vols, [ebs[2]]),
-                svc.submit_find_eb(gm, x[0], 6.0),
-                svc.submit_best_compressor(models, x[1], eps),
-                svc.submit_advise(grid, x[2:4]),
-                svc.submit_find_setting(grid, x[3], cr_floor=4.0,
-                                        psnr_floor=40.0),
-                svc.submit_quality(x, ebs, qual_cfg),
-                svc.submit_kv_gate(leaves)]
-
+    req = dict(x=x, vols=vols, sub=sub, ebs=ebs, eps=eps, gm=gm,
+               models=models, grid=grid, leaves=leaves)
     t = {k: torch.from_numpy(v) for k, v in (("x", x), ("vols", vols))}
     want = [_feats(x, ebs), _feats(x[1:3], sub), _feats(vols, [ebs[2]]),
             TUC.find_error_bound_for_cr(gm, t["x"][0], 6.0),
             TUC.best_compressor(models, t["x"][1], eps),
             MM.AdviseMethod.cr_table(grid, _feats(x[2:4], ebs)),
             TUC.find_setting(grid, t["x"][3], cr_floor=4.0, psnr_floor=40.0),
-            TP.quality_sweep(t["x"], ebs, qual_cfg).numpy(),
+            TP.quality_sweep(t["x"], ebs, TP.PredictorConfig()).numpy(),
             np.stack([TGC.predicted_cr_int8(torch.from_numpy(v)).numpy()
                       for v in leaves])]
+    return req, want
+
+
+def assert_all_methods(got, want) -> None:
+    """Results of ``all_methods``' requests bit-equal to its direct calls."""
+    got = list(got)
+    advice = got.pop(5)
+    assert advice["compressors"] == ("zfp", "bitgrooming")
+    assert np.array_equal(advice["cr"], want[5])
+    for i, (g, w) in enumerate(zip(got, want[:5] + want[6:])):
+        if isinstance(w, np.ndarray):
+            assert np.array_equal(g, w), i
+        else:
+            assert g == w, i
+
+
+def test_every_method_bit_equal_to_direct_calls(setup):
+    """One batch of all seven methods, with eb unions, bucket padding and
+    a volume group, each result bit-equal to the port's direct call;
+    served again from the cache with zero launches."""
+    req, want = all_methods(setup)
     with _service(ServiceConfig(max_wait_ms=300.0, cache_admit_after=1,
                                 cache_bytes=1 << 20)) as svc:
         for rnd in range(2):
-            got = [f.result(timeout=120) for f in submit_all(svc)]
+            got = [f.result(timeout=120) for f in submit_all(svc, req)]
             if rnd == 0:
                 launched = svc.launches
                 assert launched == 4     # sweep (2-D, volumes), quality, int8
             else:
                 assert svc.launches == launched
-            advice = got.pop(5)
-            assert advice["compressors"] == ("zfp", "bitgrooming")
-            assert np.array_equal(advice["cr"], want[5])
-            for i, (g, w) in enumerate(zip(got, want[:5] + want[6:])):
-                if isinstance(w, np.ndarray):
-                    assert np.array_equal(g, w), i
-                else:
-                    assert g == w, i
+            assert_all_methods(got, want)
 
 
 def test_failed_launch_fails_its_requests():
     """A launch that raises fails every future of its batch with the
     error and the service goes on serving."""
     class Broken(MM.SweepLauncher):
-        def launch(self, stack, epss, cfg, k_pad):
+        def launch(self, stack, epss, cfg, k_pad, mesh=None):
             raise RuntimeError("launch failed")
 
     reg = MethodRegistry()
@@ -700,7 +719,9 @@ def _both(jsvc, tsvc, name, *args, **kw):
             tsvc.submit(name, *args[1], **kw).result(timeout=300))
 
 
-def test_parity_with_reference_service(parity):
+def check_parity_with_reference(parity, tsvc) -> None:
+    """The reference's single-device ``SweepService`` and the port's
+    ``tsvc`` serve the same requests (module docstring's tolerances)."""
     from repro.serve.registry import default_registry as jreg
     from repro.serve.sweep_service import ServiceConfig as JCfg
     from repro.serve.sweep_service import SweepService as JSvc
@@ -712,8 +733,7 @@ def test_parity_with_reference_service(parity):
         assert j.launcher_id(j.get(name).launcher) == \
             t.launcher_id(t.get(name).launcher), name
     leaves = [held[0].ravel(), held[1][:7] * 1e-3, held[2].ravel()]
-    with JSvc(JCfg(max_wait_ms=5.0)) as jsvc, \
-            _service(ServiceConfig(max_wait_ms=5.0)) as tsvc:
+    with JSvc(JCfg(max_wait_ms=5.0)) as jsvc:
         jf, tf = _both(jsvc, tsvc, "featurize", (held, ebs), (held, ebs))
         np.testing.assert_allclose(tf, jf, rtol=0, atol=1e-5)
         np.testing.assert_array_equal(tf[..., 0].view(np.int32),
@@ -738,6 +758,11 @@ def test_parity_with_reference_service(parity):
         ja, ta = _both(jsvc, tsvc, "advise", (jgrid, held), (tgrid, held))
         assert ja["compressors"] == ta["compressors"]
         np.testing.assert_allclose(ta["cr"], ja["cr"], rtol=1e-5)
+
+
+def test_parity_with_reference_service(parity):
+    with _service(ServiceConfig(max_wait_ms=5.0)) as tsvc:
+        check_parity_with_reference(parity, tsvc)
 
 
 # ------------------------------------------------------------ boundary

@@ -21,10 +21,21 @@ untimed call of each, these run in turns (forward, then backward):
 Then a process group of one fresh process per card (``nccl``, joined by
 ``file://`` under ``build/``): SPMD and process-local sweeps twice
 each, then the blocks alone and their gather.  Every result must equal
-the one-card sweep bit for bit.  ``--device cpu`` rehearses the control
-flow on the host (``cpu`` and ``cpu:0`` take turns as the cards, gloo
-ranks).  Prints ``nvidia-smi``'s name and power limit of every card,
-then one JSON object, last.
+the one-card sweep bit for bit.
+
+``--serve`` then serves ``chip_smoke.py``'s phase-15 plan (8 clients x
+64 requests of the seven methods over its 8 held-out slices, kernel
+q-ent) with models of sz3-lorenzo, zfp and bitgrooming trained on the
+first card, three ways in turn: a ``SweepService`` on the first card,
+one on a mesh of a shard per card in this process, and a leader with
+one follower per other card in an NCCL group (``chip_smoke.py
+--fabric-child``); every served result equal to the direct call on the
+first card, and each way's requests/s.
+
+``--device cpu`` rehearses the control flow on the host (``cpu`` and
+``cpu:0`` take turns as the cards, gloo ranks).  Prints
+``nvidia-smi``'s name and power limit of every card, then one JSON
+object, last.
 """
 from __future__ import annotations
 
@@ -48,10 +59,11 @@ TIMEOUT_S = 600
 
 
 def stack(torch, n: int, device):
-    """The training slices and the eb grid of ``chip_smoke.py``."""
+    """The 40 slices (32 training, 8 held out) and the eb grid of
+    ``chip_smoke.py``."""
     from repro_torch.data import scientific as TS
     spec = TS.FIELDS[FIELD]
-    x = TS.field_slices(FIELD, count=40, n=n, seed=0, device=device)[:K]
+    x = TS.field_slices(FIELD, count=40, n=n, seed=0, device=device)
     return x, spec.eps * 10.0 ** np.linspace(-0.5, 2.0, 6)
 
 
@@ -100,6 +112,7 @@ def child(job_file: str) -> int:
         device=dev, init_timeout_s=300))
     mesh = timed("mesh_s", lambda: M.make_sweep_mesh())
     x, ebs = stack(torch, job["n"], dev)
+    x = x[:K]
     want = np.load(job["want"])
     cfg = P.PredictorConfig(use_kernels=True)
     lo, hi = DS.process_block(K, mesh)
@@ -155,12 +168,76 @@ def group(devs, n: int, want_file: Path, tmp: Path) -> list:
     return [json.loads(o.read_text()) for o in outs]
 
 
+def serve(torch, devs, x_all, ebs, tmp: Path) -> dict:
+    """``--serve`` (module docstring): requests/s of each way."""
+    import pickle
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+    from repro_torch.core import predictors as P
+    from repro_torch.core import usecases as UC
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve.sweep_service import SweepService
+    cfg = P.PredictorConfig(use_kernels=True)
+    t = time.perf_counter()
+    models = {name: UC.EbGridModel.train(x_all[:8], name, ebs, cfg=cfg)
+              for name in ("sz3-lorenzo", "zfp", "bitgrooming")}
+    out = {"train_s": time.perf_counter() - t}
+    ctx = dict(CS.route_ctx(cfg, models, x_all[K:].cpu().numpy(), ebs,
+                            CS.serve_leaves()), device=str(devs[0]))
+    plan = CS.serve_plan(CS.SERVE_HOT, len(ctx["slices"]) - CS.SERVE_HOT)
+    direct = {}
+
+    def check(what, results, wall):
+        n_req = sum(len(p) for p in plan)
+        rec = {"post_workers": 2, "wall_s": wall, "req_per_s": n_req / wall}
+        CS.check_served(torch, rec, ctx, [
+            (req, [results[(c, r)]]) for c, reqs in enumerate(plan)
+            for r, req in enumerate(reqs)], direct)
+        print(f"serve, {what}: {n_req} requests in {wall:.3f} s "
+              f"({n_req / wall:.2f} req/s), every result == the direct "
+              "call", flush=True)
+        return rec
+
+    for what, kw in (("one card", {"device": devs[0]}),
+                     ("mesh over cards",
+                      {"mesh": M.make_sweep_mesh(devices=devs)})):
+        with SweepService(CS.serve_config(cfg), **kw) as svc:
+            svc.warmup()
+            results, _, wall = CS.serve_traffic(svc, plan, ctx)
+            launches = svc.launches
+        out[what] = dict(check(what, results, wall), launches=launches)
+    torch.save(ctx, tmp / "ctx.pt")
+    backend = "gloo" if devs[0].type == "cpu" else "nccl"
+    cmds = []
+    for r, d in enumerate(devs):
+        job = {"init": f"file://{tmp / 'init_serve'}", "nprocs": len(devs),
+               "rank": r, "backend": backend,
+               "device": "cpu" if d.type == "cpu" else str(d), "shards": 1,
+               "ctx": str(tmp / "ctx.pt"), "results": str(tmp / "res.pkl"),
+               "out": str(tmp / f"serve{r}.json")}
+        (tmp / f"serve{r}.job").write_text(json.dumps(job))
+        cmds.append([sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--fabric-child", str(tmp / f"serve{r}.job")])
+    CS.run_group("serve group", cmds, tmp, TIMEOUT_S)
+    ranks = [json.loads((tmp / f"serve{r}.json").read_text())
+             for r in range(len(devs))]
+    with open(tmp / "res.pkl", "rb") as f:
+        results = pickle.load(f)
+    out[f"{backend} group"] = dict(
+        check(f"{backend} group of {len(devs)}", results, ranks[0]["wall_s"]),
+        launches=[r["launches"] for r in ranks])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cards", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--n", type=int, default=None,
                     help="slice edge (default: the field's, 1800)")
+    ap.add_argument("--serve", action="store_true",
+                    help="also serve chip_smoke.py's phase-15 plan on one "
+                         "card, a mesh of every card and an NCCL group")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -186,6 +263,8 @@ def main(argv=None) -> int:
     devs = cards(torch, args.device, args.cards)
     n = args.n or TS.FIELDS[FIELD].full_n
     x, ebs = stack(torch, n, devs[0])
+    x_all = x
+    x = x[:K]
     cfg = P.PredictorConfig(use_kernels=True)
     spread = M.make_sweep_mesh(devices=devs)
     piled = M.make_sweep_mesh(devices=[devs[0]] * len(devs))
@@ -224,11 +303,12 @@ def main(argv=None) -> int:
     try:
         np.save(tmp / "want.npy", want)
         ranks = group(devs, n, tmp / "want.npy", tmp)
+        served = serve(torch, devs, x_all, ebs, tmp) if args.serve else None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"device": [s.strip() for s in smi], "k": K, "n": n,
                       "cards": len(devs), "sweep_s": times,
-                      "ranks": ranks}))
+                      "ranks": ranks, "serve": served}))
     return 0
 
 
