@@ -128,7 +128,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               Gram, q-ent and quality at the shapes the streams launched
               them with (a chunk of 41 slices, one of 3 volumes, read
               from the dataset), against their plain versions and timed,
-              as in phase 12.  Then the advise CLI on the dataset in a
+              as in phase 12.  Then the advise CLI on the dataset
+              (trained on 4 rows of each variable) in a
               subprocess (its ``main``, as ``python -m
               repro_torch.launch.advise`` runs it, with the launches of
               each variable's training and stream counted around the two
@@ -163,11 +164,11 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               to one device (the tables to the main path's, the streams
               to phase 14's in-memory sweeps, the reports byte for byte
               to phase 14's direct report);
-18. fabric   -- (run right after 15, on its models, plan and direct
-              calls) the service on a mesh and across processes, on the
-              kernel route: (a) ``SweepService(mesh=...)`` over two
-              shards of the card in this process, the plan and its
-              cached second pass; (b) a two-rank gloo group in fresh
+18. fabric   -- (run right after 15, on its models, plan cut to 8
+              clients x 16 requests, and direct calls) the service on a
+              mesh and across processes, on the kernel route: (a)
+              ``SweepService(mesh=...)`` over two shards of the card in
+              this process, the plan and its cached second pass; (b) a two-rank gloo group in fresh
               interpreters (``--fabric-child``), both shards on the card,
               a leader serving the plan and a follower joining every
               launch; (c) ``sweep_serve --mesh auto --coordinator ...`` in
@@ -175,7 +176,25 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               ``--verify``).  Every served result is bit-equal to the
               direct call; req/s, launches, and the kernels' launches by
               shape as the "Fabric" path;
-19. path rows -- every kernel at every shape a path below launched it
+19. fault    -- (run right after 18, on its models, plan and direct
+              calls) the service survives a lost process, on the kernel
+              route, gloo ranks with one shard each on the card and the
+              group's store served by rank 0 (``--fault-child``): (a) 3
+              ranks, rank 2 SIGKILLed inside its first launch after 16
+              requests were served (``dist.faultinject``), the leader
+              recovering onto [0, 1] and serving through the store; (b)
+              2 ranks, the follower hanging inside its first launch
+              after 16 requests and evicted by the leader's
+              deadline, 8 s once warm; both serve phase 15's plan cut to
+              8 clients x 16 requests, every result bit-equal to the
+              direct call, and log detection and recovery s, req/s before
+              and after the fault and the bytes through the store;
+              (c) ``sweep_serve --coordinator-only`` and two
+              ``--external-coordinator`` ranks, the leader SIGKILLed in
+              its sixth launch (``--chaos``): the follower exits 0 with
+              ``leader_lost`` within 30 s of the leader's death.
+              Launches by shape as the "Fault" path;
+20. path rows -- every kernel at every shape a path below launched it
               with that no row above holds (Serve's batches and warmup,
               the advise runs' training and padded service chunks, the
               load CLI, the Dist path's blocks), against its plain
@@ -185,8 +204,9 @@ Phases 5, 8-11, 14, 15, 17 and 18 (their form (a)) each set the
 kernels' launch counters to 0 just before they run and read them just
 after, and the subprocesses (advise, advise ``--service``, the load
 CLI, the process groups and advise runs of phase 17, phase 18's group
-and CLI) count theirs by shape around their work; phase 17's are summed
-into one path, "Dist", and phase 18's into "Fabric".  A
+and CLI, phase 19's groups) count theirs by shape around their work;
+phase 17's are summed into one path, "Dist", phase 18's into "Fabric"
+and phase 19's into "Fault".  A
 kernel a path needs that it did not launch fails the run.  A kernel
 row's ``launches`` is the count of the first of these paths that
 launched its shape (the main path where it did), and
@@ -235,6 +255,7 @@ STREAM_FIELD, N_STREAM, STREAM_N = "cesm-cloud", 96, 1800   # float64 on disk
 N_STREAM_VOL = 7                                # miranda-vx, float32 on disk
 STREAM_BUDGET_MB = 512
 ADVISE_TIMEOUT_S = 600
+ADVISE_TRAIN_ROWS = 4           # rows of each variable the advise runs train on
 # phase 15: the sweep service, 8 clients x 64 requests of the seven
 # methods (featurize on the grid and on a 3-eb subgrid with one eb off
 # it), 4 hot held-out slices and the other 4 once each
@@ -261,6 +282,15 @@ DIST_TIMEOUT_S = 400            # each group's wall-clock limit
 DIST_COLLECTIVE_TIMEOUT_S = 300 # a group's init and each of its collectives
 # phase 18: the service on a mesh and across processes
 FABRIC_TIMEOUT_S = 400          # (b)'s group's wall-clock limit
+FABRIC_REQUESTS = 16            # phase 15's plan cut to 8 clients x 16
+# phase 19: the service survives a lost process
+FAULT_TIMEOUT_S = 240           # (a)'s and (b)'s groups' wall-clock limit
+FAULT_REQUESTS = 16             # the plan cut to 8 clients x 16 requests
+FAULT_ARM_REQUESTS = 16         # requests served before a follower's fault
+FAULT_ARM_KEY = "chip_smoke/fault/arm"   # the leader's signal to arm it
+FAULT_HANG_TIMEOUT_S = 8.0      # (b)'s launch deadline once warm
+FAULT_LEADER_KILL = 6           # (c): 4 warmup launches, then the second
+LEADER_LOST_BOUND_S = 30.0      # (c): the follower's exit after the leader's
 PLANT_EBS = (1e-5, 1e-3, 256.0)     # 256: quotients of tiny normals underflow
 QENT_BINS = 65536
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
@@ -1453,15 +1483,15 @@ def check_prediction_bits(torch, models, test, ebs, psnr_floor, card):
 # phase 15: the sweep service under concurrent clients
 # ---------------------------------------------------------------------------
 
-def serve_plan(n_hot: int, n_cold: int):
-    """Each client's requests as (kind, slice index, target CR): kinds
-    and hot slices in rotation (every (kind, hot slice) pair recurs, so
-    each hot row is admitted to the cache), the cold slices once each as
-    the first request of the first clients."""
+def serve_plan(n_hot: int, n_cold: int, requests: int = SERVE_REQUESTS):
+    """Each client's ``requests`` requests as (kind, slice index, target
+    CR): kinds and hot slices in rotation (every (kind, hot slice) pair
+    recurs, so each hot row is admitted to the cache), the cold slices
+    once each as the first request of the first clients."""
     plan = []
     for c in range(SERVE_CLIENTS):
         reqs = []
-        for r in range(SERVE_REQUESTS):
+        for r in range(requests):
             kind = SERVE_KINDS[(c + r) % len(SERVE_KINDS)]
             reqs.append((kind, (c + r // len(SERVE_KINDS)) % n_hot,
                          SERVE_TARGETS[(c + r) % len(SERVE_TARGETS)]))
@@ -1538,10 +1568,11 @@ def same_result(got, want) -> bool:
     return got == want
 
 
-def serve_traffic(svc, plan, ctx):
+def serve_traffic(svc, plan, ctx, stamps=None):
     """Every client thread submits its requests one after another and
-    waits for each.  Returns (results by (client, request), latencies
-    in ms by kind, wall s)."""
+    waits for each (appending each completion's ``perf_counter`` to
+    ``stamps`` when given).  Returns (results by (client, request),
+    latencies in ms by kind, wall s)."""
     import threading
     results, lat, errors = {}, {}, []
     lock = threading.Lock()
@@ -1553,6 +1584,8 @@ def serve_traffic(svc, plan, ctx):
                 out = serve_submit(svc, req, ctx).result(timeout=600)
                 ms = (time.perf_counter() - t) * 1e3
                 with lock:
+                    if stamps is not None:
+                        stamps.append(time.perf_counter())
                     results[(c, r)] = out
                     lat.setdefault(req[0], []).append(ms)
         except Exception as exc:        # raised after the join
@@ -1670,10 +1703,12 @@ def route_ctx(cfg, models, hot_cold, ebs, leaves) -> dict:
 
 
 def serve_route(torch, cfg, models, hot_cold, ebs, leaves, card,
-                post_workers=2, second_pass=True, mesh=None):
+                post_workers=2, second_pass=True, mesh=None,
+                requests=SERVE_REQUESTS):
     """One route's run: a fresh service (``post_workers`` threads in its
     post-processing pool; its launches sharded over ``mesh``) and the
-    plan served, the model predictions of the pass counted, and with
+    plan of ``requests`` a client served, the model predictions of the
+    pass counted, and with
     ``second_pass`` served again (only the hot rows and the kv leaves,
     which must come from the cache with no launch).  Returns (record,
     the requests' context, each request with its served results) for
@@ -1683,7 +1718,7 @@ def serve_route(torch, cfg, models, hot_cold, ebs, leaves, card,
 
     n_hot = SERVE_HOT
     ctx = route_ctx(cfg, models, hot_cold, ebs, leaves)
-    plan = serve_plan(n_hot, len(hot_cold) - n_hot)
+    plan = serve_plan(n_hot, len(hot_cold) - n_hot, requests)
     scfg = serve_config(cfg, post_workers)
     rec = {"post_workers": post_workers}
     results2 = {}
@@ -1820,7 +1855,9 @@ def fabric_child(job_file: str) -> int:
     """Phase 18 (b)'s process-group member (``--fabric-child JOB``): joins
     the job's group with its shards on the card and builds the service
     on the spanning mesh.  The leader warms it up and serves phase 15's
-    plan on the kernel route from 8 client threads, a follower joins
+    plan (cut to the job's ``requests`` a client, default
+    ``FABRIC_REQUESTS``) on the kernel route from 8 client threads, a
+    follower joins
     every launch until the leader closes; each writes its wall time and
     its kernels' launches by shape, and the leader its served results,
     for the parent to hold to phase 15's direct calls."""
@@ -1844,7 +1881,8 @@ def fabric_child(job_file: str) -> int:
         t = time.perf_counter()
         svc.warmup()
         rec["warmup_s"] = time.perf_counter() - t
-        plan = serve_plan(SERVE_HOT, len(ctx["slices"]) - SERVE_HOT)
+        plan = serve_plan(SERVE_HOT, len(ctx["slices"]) - SERVE_HOT,
+                          job.get("requests", FABRIC_REQUESTS))
         results, lat, wall = serve_traffic(svc, plan, ctx)
         st = svc.stats()
         svc.close()
@@ -1894,7 +1932,7 @@ def phase_fabric(torch, models, test, ebs, directs, card):
     zero_counts(torch)
     mesh = M.make_sweep_mesh(devices=[DIST_DEVICE] * 2)
     rec, ctx, served = serve_route(torch, cfg, models, hot_cold, ebs, leaves,
-                                   card, mesh=mesh)
+                                   card, mesh=mesh, requests=FABRIC_REQUESTS)
     counts = read_counts(torch, "Fabric (a)", (
         "gram_batched", "qent_histogram_sweep", "qdq_sse_sweep"))
     check_served(torch, rec, ctx, served, direct)
@@ -1907,7 +1945,8 @@ def phase_fabric(torch, models, test, ebs, directs, card):
         # (b) a one-rank NCCL group with two shards, then a leader and a
         # follower in a two-rank gloo group
         torch.save(ctx, tmp / "ctx.pt")
-        plan = serve_plan(SERVE_HOT, len(hot_cold) - SERVE_HOT)
+        plan = serve_plan(SERVE_HOT, len(hot_cold) - SERVE_HOT,
+                          FABRIC_REQUESTS)
         for role, nprocs, backend, shards in (("nccl", 1, DIST_NCCL, 2),
                                               ("gloo", 2, "gloo", 1)):
             cmds, outs = [], []
@@ -1978,6 +2017,256 @@ def phase_fabric(torch, models, test, ebs, directs, card):
                      ("gram_batched", "qent_histogram_sweep",
                       "qdq_sse_sweep"))
     log("Fabric launches " + json.dumps(
+        {n: {str(k): v for k, v in c["by_shape"].items()}
+         for n, c in merged.items() if c["launches"]}), card)
+    return out, merged
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the service survives a lost process
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def fault_child(job_file: str) -> int:
+    """Phase 19 (a) and (b)'s process-group member (``--fault-child
+    JOB``): joins the job's group (gloo unless ``backend`` says nccl;
+    ``group_timeout_s``) with one shard on its device and builds the
+    service on the spanning mesh (``launch_timeout_s``).  The leader
+    warms it up (then, with ``hang_timeout_s``, cuts its launch deadline
+    to that) and serves the cut plan from 8 client threads, and sets
+    ``FAULT_ARM_KEY`` in the group's store once ``FAULT_ARM_REQUESTS``
+    requests are done; a follower with a ``chaos`` spec arms it
+    (``dist.faultinject``) when it sees the key, so the fault lands in
+    its next launch, mid-traffic.  Each stays ``linger_s`` after its
+    service ends (past the group's timeout: an NCCL watchdog that found
+    a collective stuck would end it meanwhile), writes its kernels'
+    launches by shape and what it saw, the leader also its served
+    results and the rates before and after the fault, and leaves with
+    ``os._exit(0)`` (a group that lost a peer is not torn down)."""
+    import dataclasses
+    import pickle
+    import threading
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.dist import faultinject as FI
+    from repro_torch.dist.fault import FabricError
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve.sweep_service import SweepService
+    job = json.loads(Path(job_file).read_text())
+    faulthandler.dump_traceback_later(FAULT_TIMEOUT_S - 30, exit=True)
+    M.dist_init(job["init"], num_processes=job["nprocs"],
+                process_id=job["rank"], backend=job.get("backend", "gloo"),
+                device=job["device"], init_timeout_s=job.get(
+                    "group_timeout_s", DIST_COLLECTIVE_TIMEOUT_S))
+    mesh = M.make_sweep_mesh(devices=[job["device"]])
+    ctx = torch.load(job["ctx"], weights_only=False)
+    before = K.launch_counts()
+    scfg = serve_config(ctx["cfg"])
+    if job.get("launch_timeout_s"):
+        scfg = dataclasses.replace(scfg,
+                                   launch_timeout_s=job["launch_timeout_s"])
+    svc = SweepService(scfg, mesh=mesh)
+    rec = {"role": svc.role}
+    if svc.role == "leader":
+        svc.warmup()
+        if job.get("hang_timeout_s"):
+            svc.scfg = dataclasses.replace(
+                svc.scfg, launch_timeout_s=job["hang_timeout_s"])
+        plan = serve_plan(SERVE_HOT, len(ctx["slices"]) - SERVE_HOT,
+                          FAULT_REQUESTS)
+        stamps = []
+
+        def signal_arm():
+            while len(stamps) < FAULT_ARM_REQUESTS:
+                time.sleep(0.002)
+            M.coordination_store().set(FAULT_ARM_KEY, "1")
+
+        threading.Thread(target=signal_arm, daemon=True).start()
+        t0 = time.perf_counter()
+        results, _, wall = serve_traffic(svc, plan, ctx, stamps)
+        st = svc.stats()
+        window = svc._fault_window
+        svc.close()
+        n_req = sum(len(p) for p in plan)
+        rec.update(requests=n_req, wall_s=wall, req_per_s=n_req / wall,
+                   **{k: st[k] for k in (
+                       "launches", "epoch", "transport", "recoveries",
+                       "last_recovery_s", "last_detect_s", "kv_bytes",
+                       "procs")})
+        if window is not None and window[1] is not None:
+            start, end = window
+            done_before = sum(s <= start for s in stamps)
+            done_after = sum(s >= end for s in stamps)
+            rec.update(fault_at_s=start - t0, recovered_at_s=end - t0,
+                       done_before=done_before, done_after=done_after,
+                       req_per_s_before=done_before / (start - t0),
+                       req_per_s_after=done_after / max(t0 + wall - end,
+                                                        1e-9))
+        with open(job["results"], "wb") as f:
+            pickle.dump(results, f)
+    else:
+        if job.get("chaos"):
+            def arm():
+                store = M.coordination_store()
+                while not store.check([FAULT_ARM_KEY]):
+                    time.sleep(0.002)
+                FI.configure(job["chaos"])
+            threading.Thread(target=arm, daemon=True).start()
+        t = time.perf_counter()
+        try:
+            svc.serve()
+            rec["serve"] = "clean"
+        except FabricError as exc:
+            rec["serve"] = exc.kind
+        rec["serve_s"] = time.perf_counter() - t
+        svc.close()
+        rec.update(launches=svc.launches, transport=svc.stats()["transport"])
+    time.sleep(job.get("linger_s", 0))
+    total, by_shape = K.launches_since(before)
+    rec.update(kernels=total, by_shape=by_shape)
+    Path(job["out"]).write_text(json.dumps(rec))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_fault(torch, models, test, ebs, directs, card):
+    """Phase 19: the service on the card survives a lost process, on the
+    kernel route, every served result held to phase 15's direct call:
+    (a) three gloo ranks, one shard each on the card (NCCL refuses two
+    ranks on one GPU), rank 2 SIGKILLed inside a launch mid-traffic: the
+    leader recovers onto [0, 1] and serves through the store; (b) two
+    ranks, the follower hangs inside a launch and the leader's deadline,
+    ``FAULT_HANG_TIMEOUT_S`` once warm, evicts it; (c) ``sweep_serve
+    --coordinator-only`` and two ``--external-coordinator`` ranks, the
+    leader SIGKILLed in its second launch after warmup: the follower
+    exits 0 with ``leader_lost`` within ``LEADER_LOST_BOUND_S`` of the
+    leader's death.  (a) and (b) serve phase 15's plan cut to 8 clients
+    x 16 requests.  Returns (record, their launches by shape, as the
+    "Fault" path's)."""
+    import pickle
+    import signal
+    import torch.distributed as dist
+    from repro_torch.core import predictors as P
+    cfg = P.PredictorConfig(use_kernels=True)
+    direct = directs[True]
+    hot_cold = test.cpu().numpy()
+    ctx = route_ctx(cfg, models, hot_cold, ebs, serve_leaves())
+    plan = serve_plan(SERVE_HOT, len(hot_cold) - SERVE_HOT, FAULT_REQUESTS)
+    c10d = dist.distributed_c10d
+    out = {"abort_calls": {
+        "_abort_process_group": hasattr(c10d, "_abort_process_group"),
+        "ProcessGroup.abort": hasattr(dist.ProcessGroup, "abort")}}
+    log("fault: this build aborts an NCCL group with " + json.dumps(
+        out["abort_calls"]), card)
+    parts = []
+    tmp = Path(tempfile.mkdtemp(prefix="fault_", dir=ROOT / "build"))
+    try:
+        torch.save(ctx, tmp / "ctx.pt")
+        for form, nprocs, chaos, hang in (
+                ("a", 3, "follower_launch:kill:1", None),
+                ("b", 2, "follower_launch:hang:1:3600",
+                 FAULT_HANG_TIMEOUT_S)):
+            init = f"tcp://127.0.0.1:{free_port()}"
+            cmds, outs = [], []
+            for r in range(nprocs):
+                job = {"init": init, "nprocs": nprocs, "rank": r,
+                       "device": DIST_DEVICE, "ctx": str(tmp / "ctx.pt"),
+                       "results": str(tmp / f"results_{form}.pkl"),
+                       "out": str(tmp / f"fault_{form}_{r}.json"),
+                       "chaos": chaos if r == nprocs - 1 else None,
+                       "hang_timeout_s": hang}
+                (tmp / f"job_{form}_{r}.json").write_text(json.dumps(job))
+                cmds.append([sys.executable, str(Path(__file__).resolve()),
+                             "--fault-child",
+                             str(tmp / f"job_{form}_{r}.json")])
+                outs.append(Path(job["out"]))
+            killed = {nprocs - 1: -signal.SIGKILL} if form == "a" else {}
+            out[f"{form}_wall_s"] = run_group(f"fault ({form})", cmds, tmp,
+                                              FAULT_TIMEOUT_S, expect=killed)
+            ranks = [json.loads(p.read_text()) for i, p in enumerate(outs)
+                     if i not in killed]
+            out[form] = ranks
+            parts += [r["by_shape"] for r in ranks]
+            lead = ranks[0]
+            with open(tmp / f"results_{form}.pkl", "rb") as f:
+                results = pickle.load(f)
+            check_served(torch, dict(lead, post_workers=2), ctx, [
+                (req, [results[(c, r)]]) for c, reqs in enumerate(plan)
+                for r, req in enumerate(reqs)], direct)
+            want = ([0, 1], "clean") if form == "a" else ([0], "evicted")
+            if (lead["recoveries"], lead["procs"], ranks[1]["serve"]) != (
+                    1, want[0], want[1]) or "req_per_s_after" not in lead:
+                raise AssertionError(f"fault ({form}): leader {lead}, "
+                                     f"follower {ranks[1]}")
+            log(f"fault ({form}) {nprocs} gloo ranks on the card, "
+                f"{chaos} on rank {nprocs - 1} once {FAULT_ARM_REQUESTS} "
+                f"requests were done: {lead['requests']} requests in "
+                f"{lead['wall_s']:.3f} s ({lead['req_per_s']:.2f} req/s; "
+                f"{lead['req_per_s_before']:.2f} before the fault "
+                f"[{lead['done_before']} done by {lead['fault_at_s']:.3f} s], "
+                f"{lead['req_per_s_after']:.2f} after "
+                f"[{lead['done_after']} from {lead['recovered_at_s']:.3f} s]"
+                f"); detection {lead['last_detect_s']:.3f} s, recovery "
+                f"{lead['last_recovery_s']:.3f} s, epoch {lead['epoch']}, "
+                f"procs {lead['procs']}, transport {lead['transport']}, "
+                f"{lead['kv_bytes']} bytes through the store, "
+                f"{lead['launches']} launches; follower: {ranks[1]['serve']} "
+                f"after {ranks[1]['serve_s']:.3f} s; every served result == "
+                "the direct call", card)
+
+        # (c) the store in a process of its own; the leader killed
+        init = f"tcp://127.0.0.1:{free_port()}"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        coord = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.sweep_serve",
+             "--coordinator-only", "--coordinator", init,
+             "--num-processes", "2"], env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT)
+        try:
+            cmds = [[sys.executable, "-m", "repro_torch.launch.sweep_serve",
+                     "--fields", FIELD, "--n", str(SERVE_CLI_N),
+                     "--train-slices", "6", "--compressor", "zfp",
+                     "--clients", "4", "--requests", "16", "--device",
+                     "cuda", "--use-kernels", "--mesh", "auto",
+                     "--coordinator", init, "--external-coordinator",
+                     "--num-processes", "2", "--process-id", str(r),
+                     "--backend", "gloo"]
+                    + (["--chaos", f"leader_launch:kill:{FAULT_LEADER_KILL}"]
+                       if r == 0 else []) for r in range(2)]
+            exits, logs = {}, {}
+            out["c_wall_s"] = run_group(
+                "fault (c)", cmds, tmp, SERVE_CLI_TIMEOUT_S,
+                expect={0: -signal.SIGKILL}, exits=exits, logs=logs)
+        finally:
+            coord.send_signal(signal.SIGINT)
+            try:
+                coord.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                coord.kill()
+                coord.wait()
+        lost_s = exits[1] - exits[0]
+        out["c"] = {"leader_exit_s": exits[0], "follower_exit_s": exits[1],
+                    "follower_after_leader_s": lost_s}
+        if ("leader_lost" not in logs[1]
+                or not 0 <= lost_s < LEADER_LOST_BOUND_S):
+            raise AssertionError(f"fault (c): the follower left {lost_s:.3f}"
+                                 f" s after the leader:\n{logs[1][-3000:]}")
+        log(f"fault (c) sweep_serve under --coordinator-only, leader "
+            f"killed at its launch {FAULT_LEADER_KILL}: the follower exited 0 "
+            f"with leader_lost {lost_s:.3f} s after the leader died", card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    merged = by_shape_counts(parts)
+    require_launches("Fault", {n: c["launches"] for n, c in merged.items()},
+                     ("gram_batched", "qent_histogram_sweep",
+                      "qdq_sse_sweep"))
+    log("Fault launches " + json.dumps(
         {n: {str(k): v for k, v in c["by_shape"].items()}
          for n, c in merged.items() if c["launches"]}), card)
     return out, merged
@@ -2095,7 +2384,8 @@ def advise_args(dataset) -> list:
     its mesh and process-group options to them)."""
     return [str(dataset), "--targets", "4,8,16", "--compressors",
             "sz2,sz3-lorenzo,zfp", "--psnr-floor", "60", "--budget-mb",
-            str(STREAM_BUDGET_MB), "--use-kernels", "--device", "cuda"]
+            str(STREAM_BUDGET_MB), "--train-rows", str(ADVISE_TRAIN_ROWS),
+            "--use-kernels", "--device", "cuda"]
 
 
 def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
@@ -2240,8 +2530,8 @@ def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
     var = report["variables"][STREAM_FIELD]
     models, aebs, _ = ADV.train_models(
         src, STREAM_FIELD, compressors=["sz2", "sz3-lorenzo", "zfp"],
-        grid_rels=ADV.DEFAULT_GRID_RELS, train_rows=6, cfg=kernel_cfg,
-        device="cuda")
+        grid_rels=ADV.DEFAULT_GRID_RELS, train_rows=ADVISE_TRAIN_ROWS,
+        cfg=kernel_cfg, device="cuda")
     feats = P.features_sweep(torch.from_numpy(src.read(STREAM_FIELD)).to(
         "cuda"), aebs, kernel_cfg).cpu().numpy()
     var_cr = ADV.harmonic_cr(AdviseMethod.cr_table(models, feats))
@@ -2430,16 +2720,23 @@ def dist_child(job_file: str) -> int:
     return 0
 
 
-def run_group(what: str, cmds, logs_dir: Path, timeout: float) -> float:
+def run_group(what: str, cmds, logs_dir: Path, timeout: float,
+              expect: dict | None = None, exits: dict | None = None,
+              logs: dict | None = None) -> float:
     """Start ``cmds`` together (one process each, output to files under
     ``logs_dir``), wait for all within ``timeout`` s and raise if one
-    fails or the time runs out; every process is gone on return.
-    Returns the wall time.  Each process gets its share of the host's
+    exits with another code than ``expect`` gives it (default 0) or the
+    time runs out; every process is gone on return.  Returns the wall
+    time; ``exits`` gets each process's exit time (s after the start),
+    ``logs`` its output.  Each process gets its share of the host's
     cores for its thread pools, as ``torchrun`` gives its ranks: ranks
     that each spin up a pool of every core starve each other's CPU work
     (LAPACK's above all)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // len(cmds))))
+    env.pop("REPRO_FAULT_INJECT", None)
+    expect = expect or {}
+    exits = {} if exits is None else exits
     procs, files = [], []
     t = time.perf_counter()
     try:
@@ -2449,11 +2746,11 @@ def run_group(what: str, cmds, logs_dir: Path, timeout: float) -> float:
             procs.append(subprocess.Popen(cmd, env=env, stdout=files[-1],
                                           stderr=subprocess.STDOUT, text=True))
         deadline = time.monotonic() + timeout
-        for p in procs:
-            try:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                break
+        while len(exits) < len(procs) and time.monotonic() < deadline:
+            for i, p in enumerate(procs):
+                if i not in exits and p.poll() is not None:
+                    exits[i] = time.perf_counter() - t
+            time.sleep(0.05)
         wall = time.perf_counter() - t
     finally:
         for p in procs:
@@ -2463,10 +2760,13 @@ def run_group(what: str, cmds, logs_dir: Path, timeout: float) -> float:
     tails = []
     for i, (p, f) in enumerate(zip(procs, files)):
         f.seek(0)
+        text = f.read()
+        if logs is not None:
+            logs[i] = text
         tails.append(f"--- {what} process {i} (exit {p.returncode}) ---\n"
-                     + f.read()[-3000:])
+                     + text[-3000:])
         f.close()
-    if any(p.returncode != 0 for p in procs):
+    if any(p.returncode != expect.get(i, 0) for i, p in enumerate(procs)):
         raise AssertionError(f"{what} failed or ran past {timeout} s:\n"
                              + "\n".join(tails))
     return wall
@@ -2729,11 +3029,14 @@ def main(argv=None) -> int:
                          "report the device's busy and idle time")
     ap.add_argument("--dist-child", metavar="JOB", help=argparse.SUPPRESS)
     ap.add_argument("--fabric-child", metavar="JOB", help=argparse.SUPPRESS)
+    ap.add_argument("--fault-child", metavar="JOB", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dist_child:
         return dist_child(args.dist_child)
     if args.fabric_child:
         return fabric_child(args.fabric_child)
+    if args.fault_child:
+        return fault_child(args.fault_child)
     t_script = time.perf_counter()
 
     import torch
@@ -2998,6 +3301,13 @@ def main(argv=None) -> int:
                                             directs, smi)
     stages["fabric_phase_s"] = time.perf_counter() - t
 
+    # ---- phase 19: the service survives a lost process, same models,
+    # traffic and direct calls
+    t = time.perf_counter()
+    fault, counts["Fault"] = phase_fault(torch, models, test, ebs, directs,
+                                         smi)
+    stages["fault_phase_s"] = time.perf_counter() - t
+
     # ---- phase 14: a dataset on disk, streamed and advised on; the
     # tensors of phases 1-13 go first, so that it and the advise
     # subprocess find the card free
@@ -3074,7 +3384,7 @@ def main(argv=None) -> int:
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
-            dist=dist, fabric=fabric, sort_route_cost=sort_cost,
+            dist=dist, fabric=fabric, fault=fault, sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],
                         "by_shape": {str(k): v for k, v in c["by_shape"].items()}}

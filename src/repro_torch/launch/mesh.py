@@ -9,24 +9,34 @@ over ``torch.distributed``.
 ``dist_init`` joins a process group (``nccl`` for a rank on a CUDA
 device, ``gloo`` on the CPU, unless ``backend=`` says otherwise; the
 backend is never swapped after a failure).  It makes the group's
-key-value store itself (a ``TCPStore`` that process 0 serves, or a
-``FileStore``) and keeps a handle to it, :func:`coordination_store`:
-the sweep service's followers wait there for the next launch instead
-of inside a collective, which the group's timeout would end.
-``make_sweep_mesh`` builds a ``dist.sweep.SweepMesh``: inside a
-process group it spans every
-process's devices (each process contributes its own, and the mesh is
-collective to build), otherwise it covers this process's devices.  One
-device may carry several shards (``devices=["cuda:0", "cuda:0"]``).
-The reference's external coordinator (a store that outlives process
-0, ``serve_coordinator`` and ``dist_init(external_coordinator=)``)
-comes with the service's fault-tolerant fabric; until then the store
-lives in process 0 and a follower waits on it for the leader's next
-launch.
+key-value store itself and keeps a handle to it,
+:func:`coordination_store`: the sweep service's followers wait there for
+the next launch instead of inside a collective, which the group's
+timeout would end, and the fabric's heartbeats, recovery epochs and
+post-recovery launches (``dist.fault``) run over it.  Where the store
+lives decides which deaths the fabric survives:
+
+* ``tcp://host:port`` -- a ``TCPStore`` that process 0 serves.  It dies
+  with process 0, so a follower sees the leader's death as a store
+  error (``FabricError(kind="leader_lost")``);
+* ``tcp://...`` with ``external_coordinator=True`` -- every rank,
+  process 0 included, is a client of a ``TCPStore`` that
+  :func:`serve_coordinator` serves in a process of its own, so the
+  store outlives any rank and a follower learns of the leader's death
+  from its heartbeat;
+* ``file://path`` -- a ``FileStore``, which already outlives every
+  process.
+
+``make_sweep_mesh`` builds a ``dist.sweep.SweepMesh``: inside a process
+group it spans every process's devices (each process contributes its
+own, and the mesh is collective to build), otherwise it covers this
+process's devices.  One device may carry several shards
+(``devices=["cuda:0", "cuda:0"]``).
 """
 from __future__ import annotations
 
 import datetime
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -58,7 +68,8 @@ def _rank_device(device, process_id: int) -> torch.device:
 def dist_init(coordinator_address: Optional[str] = None, *,
               num_processes: int, process_id: int,
               backend: Optional[str] = None, device=None,
-              init_timeout_s: float = 60.0) -> tuple:
+              init_timeout_s: float = 60.0,
+              external_coordinator: bool = False) -> tuple:
     """Join the process group of a multi-process sweep: call once per
     process, on every process, before building a spanning mesh.
 
@@ -69,7 +80,12 @@ def dist_init(coordinator_address: Optional[str] = None, *,
     ``process_id`` maps to); ``backend`` defaults to ``nccl`` for a CUDA
     device and ``gloo`` for the CPU.  ``init_timeout_s`` bounds the join
     and every collective of the group, so a lost process fails the
-    others' calls instead of hanging them.  Returns (rank, world size).
+    others' calls instead of hanging them.  ``external_coordinator=True``
+    (on every process) joins the ``TCPStore`` that
+    :func:`serve_coordinator` serves at the ``tcp://`` address as a
+    client, process 0 included, so the store outlives every rank; it
+    needs ``tcp://``, or ``file://``, whose store outlives every process
+    anyway.  Returns (rank, world size).
     """
     import torch.distributed as dist
     global _RANK_DEVICE, _TIMEOUT, _STORE
@@ -82,7 +98,11 @@ def dist_init(coordinator_address: Optional[str] = None, *,
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     timeout = datetime.timedelta(seconds=float(init_timeout_s))
-    store = _make_store(init, int(num_processes), int(process_id), timeout)
+    if external_coordinator and not init.startswith(("tcp://", "file://")):
+        raise ValueError("dist_init(external_coordinator=True) needs a "
+                         f"tcp:// (or file://) address, got {init!r}")
+    store = _make_store(init, int(num_processes), int(process_id), timeout,
+                        serve=not external_coordinator)
     dist.init_process_group(backend, store=store,
                             world_size=int(num_processes),
                             rank=int(process_id), timeout=timeout)
@@ -90,25 +110,57 @@ def dist_init(coordinator_address: Optional[str] = None, *,
     return dist.get_rank(), dist.get_world_size()
 
 
+def _tcp_address(init: str) -> tuple:
+    """(host, port) of a ``tcp://host:port`` address."""
+    host, _, port = init[len("tcp://"):].rpartition(":")
+    if not init.startswith("tcp://") or not host or not port.isdigit():
+        raise ValueError(f"coordinator address {init!r} is not "
+                         "tcp://host:port")
+    return host.strip("[]"), int(port)
+
+
 def _make_store(init: str, world: int, rank: int,
-                timeout: datetime.timedelta):
+                timeout: datetime.timedelta, serve: bool = True):
     """The group's key-value store for ``init``, as ``init_method``
     would make it: a ``FileStore`` on ``file://path``, else a
     ``TCPStore`` served by process 0 (``env://`` reads its address from
-    ``MASTER_ADDR``/``MASTER_PORT``)."""
+    ``MASTER_ADDR``/``MASTER_PORT``), or by no rank when ``serve`` is
+    False (:func:`serve_coordinator` serves it)."""
     import os
     import torch.distributed as dist
     if init.startswith("file://"):
         return dist.FileStore(init[len("file://"):], world)
     if init.startswith("env://"):
-        host, port = os.environ["MASTER_ADDR"], os.environ["MASTER_PORT"]
+        host, port = os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"])
     else:
-        host, _, port = init[len("tcp://"):].rpartition(":")
-        if not host or not port.isdigit():
-            raise ValueError(f"dist_init: coordinator address {init!r} is "
-                             "not tcp://host:port")
-    return dist.TCPStore(host.strip("[]"), int(port), world, rank == 0,
+        host, port = _tcp_address(init)
+    return dist.TCPStore(host, port, world, serve and rank == 0,
                          timeout=timeout)
+
+
+def serve_coordinator(address: str, num_processes: int, block: bool = True):
+    """Serve the process group's ``TCPStore`` at ``address``
+    (``tcp://host:port``) in this process, for ``num_processes`` ranks
+    that join with ``dist_init(address, ..., external_coordinator=True)``.
+
+    Run it in a process of its own, never a rank of the fabric: the
+    point is that every rank's death, the leader's included, leaves the
+    store up for the survivors' heartbeats, barriers and launches.
+    ``block=True`` serves until SIGINT (or the process is killed);
+    ``block=False`` returns the store, which serves while the caller
+    keeps it."""
+    import torch.distributed as dist
+    host, port = _tcp_address(address)
+    store = dist.TCPStore(host, port, int(num_processes), True,
+                          wait_for_workers=False)
+    if not block:
+        return store
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    return store
 
 
 def coordination_store():

@@ -34,13 +34,31 @@ leader's launches until it closes the service::
 ``--coordinator`` without a mesh that spans the processes fails on
 every process.  ``--verify`` makes every distinct request again as a
 direct call after the run and reports how many served results differ
-from it (the service's contract: none).  Fault tolerance (heartbeats,
-recovery) and its options are not ported yet.
+from it (the service's contract: none, also across a recovery).
+
+The fabric survives a lost follower (``serve.sweep_service``):
+``--launch-timeout-s`` bounds each of the leader's launches and
+``--heartbeat-s`` sets the liveness beat; the report gives
+``recoveries``, ``epoch`` and the surviving ``procs``.  A follower whose
+fabric fails (evicted, or the leader lost) prints the ``FabricError``
+and exits 0.  ``--chaos SPEC`` arms ``dist.faultinject`` in this process
+(e.g. ``follower_launch:kill:2``).  For a store that outlives the leader,
+serve it in a process of its own and join it from every rank::
+
+    python -m repro_torch.launch.sweep_serve --coordinator-only \
+        --coordinator tcp://localhost:29500 --num-processes 3 &
+    python -m repro_torch.launch.sweep_serve --mesh auto \
+        --coordinator tcp://localhost:29500 --external-coordinator \
+        --num-processes 3 --process-id $RANK --device cpu
+
+``--coordinator-only`` serves until SIGINT.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 import threading
 import time
 
@@ -97,23 +115,61 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="the group's backend (default: nccl on the card, "
                          "gloo on the CPU)")
+    ap.add_argument("--external-coordinator", action="store_true",
+                    help="join the store --coordinator-only serves at "
+                         "--coordinator (tcp://) as a client, so the ranks "
+                         "survive the leader's death")
+    ap.add_argument("--coordinator-only", action="store_true",
+                    help="serve the process group's store at --coordinator "
+                         "for --num-processes ranks until SIGINT; not a "
+                         "rank of the fabric")
+    ap.add_argument("--launch-timeout-s", type=float, default=60.0,
+                    help="the leader's bound per fabric launch; must cover "
+                         "a first launch's kernel build")
+    ap.add_argument("--heartbeat-s", type=float, default=0.5,
+                    help="the fabric's liveness publish interval")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="arm repro_torch.dist.faultinject in this process, "
+                         "e.g. follower_launch:kill:2")
     ap.add_argument("--verify", action="store_true",
                     help="after the run, make every distinct request again "
                          "as a direct call and count the served results "
                          "that differ from it")
     ap.add_argument("--out", default="", help="write the JSON report here")
     args = ap.parse_args(argv)
+    from repro_torch.launch import mesh as M
+    if args.coordinator_only:
+        if (args.coordinator is None or args.num_processes < 2
+                or not args.coordinator.startswith("tcp://")):
+            raise SystemExit("--coordinator-only needs --coordinator "
+                             "tcp://host:port and --num-processes")
+        print(f"# serving the store at {args.coordinator} for "
+              f"{args.num_processes} processes ...", flush=True)
+        M.serve_coordinator(args.coordinator, args.num_processes)
+        return {}
+    if args.chaos is not None:
+        from repro_torch.dist import faultinject
+        faultinject.configure(args.chaos)
+        print(f"# chaos armed: {args.chaos}", flush=True)
     if args.coordinator is None:
         return _serve(args)
     import torch.distributed as dist
-    from repro_torch.launch import mesh as M
     M.dist_init(args.coordinator, num_processes=args.num_processes,
                 process_id=args.process_id, backend=args.backend,
-                device=args.device)
-    try:
-        return _serve(args)
-    finally:
+                device=args.device,
+                external_coordinator=args.external_coordinator)
+    report = _serve(args)
+    if not _faulted(report):
+        # a faulted group is never used again, nor torn down: a peer may
+        # be gone and a collective abandoned on it
         dist.destroy_process_group()
+    return report
+
+
+def _faulted(report: dict) -> bool:
+    """True when this process's fabric faulted: recovered onto the
+    store transport, or failed."""
+    return report.get("transport") == "kv" or bool(report.get("fabric_error"))
 
 
 def _serve(args) -> dict:
@@ -135,6 +191,8 @@ def _serve(args) -> dict:
                          adapt_window=not args.no_adaptive_window,
                          max_live_batches=args.max_live_batches,
                          cache_bytes=args.cache_bytes,
+                         launch_timeout_s=args.launch_timeout_s,
+                         heartbeat_s=args.heartbeat_s,
                          max_queue_rows=args.queue_rows, pcfg=cfg)
     mesh = DS.active_sweep_mesh(M.mesh_from_spec(args.mesh, args.device))
     if args.coordinator is not None and not DS.mesh_spans_processes(mesh):
@@ -143,16 +201,26 @@ def _serve(args) -> dict:
         raise SystemExit("--coordinator needs a mesh that spans the "
                          "processes: pass --mesh auto (or a device list)")
     device = args.device if mesh is None else None
-    if DS.mesh_spans_processes(mesh) and args.process_id != 0:
-        svc = SweepService(scfg, mesh=mesh)
+    # the service comes before training: the leader's heartbeat starts
+    # here, so followers can tell a leader busy training from a dead one
+    svc = SweepService(scfg, device=device, mesh=mesh)
+    if svc.role == "follower":
+        from repro_torch.dist.fault import FabricError
         print(f"# follower {args.process_id} serving ...", flush=True)
+        error = None
         try:
             svc.serve()
+        except FabricError as exc:
+            error = str(exc)
+            print(f"# follower {args.process_id} fabric error: {exc}",
+                  flush=True)
         finally:
             svc.close()
-        print(f"# follower {args.process_id} done ({svc.launches} launches "
-              "joined)", flush=True)
-        return {"role": "follower", "launches": svc.launches}
+        if error is None:
+            print(f"# follower {args.process_id} done ({svc.launches} "
+                  "launches joined)", flush=True)
+        return {"role": "follower", "launches": svc.launches,
+                "transport": svc.stats()["transport"], "fabric_error": error}
 
     fields = args.fields.split(",")
     print(f"# training {args.compressor} grid models on {fields} "
@@ -210,7 +278,7 @@ def _serve(args) -> dict:
             errors.append(exc)
 
     per_client = max(1, args.requests // args.clients)
-    with SweepService(scfg, device=device, mesh=mesh) as svc:
+    with svc:
         svc.warmup([(args.n, args.n)], grid_sizes=(1, 4),
                    row_buckets=(1, args.clients))
         before = launch_counts()
@@ -228,6 +296,8 @@ def _serve(args) -> dict:
         raise errors[0]
     verify = _verify(served, hot, grid_models, uc2_models, args.device,
                      UC) if args.verify else None
+    if verify is not None:
+        verify.update({k: stats[k] for k in ("recoveries", "epoch", "procs")})
 
     done = len(lat)
     lat_ms = np.sort(np.asarray(lat)) * 1e3
@@ -246,7 +316,8 @@ def _serve(args) -> dict:
         "hit_rate": cache["hits"] / max(probes, 1),
         "launches_train": train_launches, "launches_serve": serve_launches,
         "launches_by_shape": {"train": train_shapes, "serve": serve_shapes},
-        "verify": verify, "stats": stats}
+        "recoveries": stats["recoveries"], "epoch": stats["epoch"],
+        "transport": stats["transport"], "verify": verify, "stats": stats}
     print(f"served {done} requests from {args.clients} clients in "
           f"{wall:.2f}s -> {done / wall:.1f} req/s")
     print(f"latency p50={report['p50_ms']:.1f}ms p95={report['p95_ms']:.1f}ms "
@@ -265,10 +336,16 @@ def _serve(args) -> dict:
           f"bytes={cache['bytes']}")
     print(f"kernel launches while serving {json.dumps(serve_launches)}",
           flush=True)
+    if stats["recoveries"]:
+        print(f"recoveries={stats['recoveries']} epoch={stats['epoch']} "
+              f"transport={stats['transport']} procs={stats['procs']} "
+              f"last_recovery_s={stats['last_recovery_s']:.3f} "
+              f"last_detect_s={stats['last_detect_s']:.3f}", flush=True)
     if verify is not None:
         print(f"verify: {verify['checked']} distinct requests, "
               f"{verify['mismatches']} served results differ from the "
-              "direct call", flush=True)
+              f"direct call (recoveries={stats['recoveries']}, epoch="
+              f"{stats['epoch']}, procs={stats['procs']})", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
@@ -293,4 +370,10 @@ def _verify(served: dict, hot: dict, grid_models: dict, uc2_models: dict,
 
 
 if __name__ == "__main__":
-    main()
+    if _faulted(main()):
+        # a collective abandoned on the faulted group may still be waiting
+        # in a daemon thread; if it returned while the interpreter shut
+        # down, the process would abort, so it leaves at once
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)

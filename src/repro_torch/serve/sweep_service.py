@@ -44,8 +44,9 @@ the copy; the buffer is refilled only after that event has completed,
 so a batch never reads the next batch's rows.  The results come back in
 one device-to-host copy, which waits for the launch.  The worker and
 the post-processing threads set the service's device; rows handed to
-futures are host numpy arrays.  A launch that fails fails its batch's
-futures with the error; nothing retries elsewhere.
+futures are host numpy arrays.  In one process a launch that fails
+fails its batch's futures with the error; across processes a lost peer
+is retried on the survivors (Faults and recovery, below).
 
 Adaptive window and admission control
 -------------------------------------
@@ -99,15 +100,58 @@ with the same ``ServiceConfig`` and registry; while a service is live,
 its mesh's group carries nothing else.  The leader serves only the
 service's own engine config (``_check_cfg``).
 
-A broadcast or gather that raises or times out breaks the fabric: every
-pending and queued future fails with ``dist.fault.FabricError``, later
-``submit*`` calls raise, a follower's ``serve()`` re-raises, and
-``close()`` stays idempotent.  Nothing recovers (no heartbeats, no
-shrinking of the mesh).  That holds where a failed collective raises,
-as gloo's do.  On NCCL the process group's watchdog finds a collective
-stuck on a lost peer after the group's timeout and, under PyTorch's
-default ``TORCH_NCCL_ASYNC_ERROR_HANDLING=3``, tears the process down
-instead of raising; the port sets nothing there.
+Faults and recovery
+-------------------
+The fabric survives the loss of followers (``dist.fault``).  Every
+process of the mesh publishes a heartbeat to the store every
+``heartbeat_s`` on a client of its own; the leader watches its
+followers', a follower the leader's.  The leader runs each launch on a
+sacrificial thread under ``launch_timeout_s`` (keep it below the group's
+timeout, and above a first launch's kernel build).  When the launch
+raises or its deadline passes, the leader watches the heartbeats for one
+staleness window (``6 * heartbeat_s``, at least 1 s):
+
+* a plain error with every heartbeat fresh is the batch's own and fails
+  only its futures;
+* a failed collective or store call marks the followers whose heartbeat
+  stood still as lost (none, if every one beats: the group is left all
+  the same);
+* an expired deadline with fresh heartbeats evicts every follower (a
+  wedged peer cannot be told apart from inside the collective).
+
+It then publishes a new *epoch* with the surviving ranks in the store,
+meets them at a bounded barrier (shedding whoever misses it) and runs
+the launch again on the survivors: the in-flight batch's futures, and
+every later one, complete with the same bits.  No collective runs on the
+group after that -- a faulted gloo group keeps broken pair connections,
+and on NCCL the survivors abort the group first, so that the watchdog,
+which under PyTorch's default ``TORCH_NCCL_ASYNC_ERROR_HANDLING=3`` would
+end the process, finds nothing stuck.  Each later launch goes through the
+store: the leader writes each survivor's contiguous block of rows
+(proportional to its share of the original mesh) under its own key, the
+ebs and a JSON header (``{_kvp}/l/{epoch}/{seq}/...``); every survivor
+sweeps its block on its own device, without a mesh, and writes its rows
+back; the leader deletes the launch's keys once it has read them all.
+Left alone, the leader serves on its own device.
+
+A follower waits for each launch in the store while it watches the
+shutdown key, the epoch and the leader's heartbeat, and joins the launch
+on a sacrificial thread with no deadline of its own: it abandons the join
+only on a new epoch, the shutdown key or a stale leader.  It then rejoins
+the published epoch at the barrier, or learns it was evicted
+(``FabricError(kind="evicted")``) or that the leader is gone
+(``kind="leader_lost"``; a leader that served the store itself shows as a
+store error), and its ``serve()`` raises that.  On the way out it writes
+a goodbye key, which the leader's ``close()`` waits for, within a bound,
+before it lets its store go.  A fault the leader cannot recover from
+fails every pending and queued future with ``FabricError``, refuses later
+``submit*`` calls and marks the store's shutdown key "failed".
+
+A collective abandoned on a faulted group may still wait in a daemon
+thread when its process ends; should it return while the interpreter
+shuts down, the process aborts.  So a process whose fabric faulted
+(``stats()["transport"] == "kv"``, or ``serve()`` raised) leaves with
+``os._exit`` once its work is written, as ``launch.sweep_serve`` does.
 
 Usage::
 
@@ -131,6 +175,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import json
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -140,6 +185,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import predictors as P
+from repro_torch.dist import fault as F
+from repro_torch.dist import faultinject as FI
 from repro_torch.dist import sweep as DS
 from repro_torch.dist.fault import FabricError
 from repro_torch.serve.method import (Item, Launcher, MethodRequest,
@@ -158,6 +205,8 @@ _LAT_RING = 512                       # per-method latency samples kept
 # first one's keys.
 _FABRIC_COUNTER = itertools.count()
 _POLL_MAX_S = 0.02                    # a follower's longest store poll gap
+_WATCH_S = 0.2                        # how often a waiting follower looks
+#                                       at the epoch and the leader's beat
 
 
 class RetryAfter(RuntimeError):
@@ -175,6 +224,51 @@ class RetryAfter(RuntimeError):
             f"~{self.retry_after_s:.3f}s)")
 
 
+class _Boxed:
+    """Run ``fn`` on a sacrificial daemon thread (after ``init``, which
+    binds the thread's device), so that a collective stuck on a lost peer
+    can be abandoned: ``torch.distributed``'s collectives cannot be
+    interrupted, so the fabric's bounded waits park them here and walk
+    away at their deadline.  The thread ends with the collective's own
+    error (the group's timeout, or an abort), or with the process."""
+
+    def __init__(self, fn, name: str, init=None):
+        self.value = None
+        self.error: Optional[BaseException] = None
+        self.done = threading.Event()
+
+        def run():
+            try:
+                if init is not None:
+                    init()
+                self.value = fn()
+            except BaseException as exc:          # noqa: BLE001
+                self.error = exc
+            finally:
+                self.done.set()
+
+        self.thread = threading.Thread(target=run, name=name, daemon=True)
+        self.thread.start()
+
+    def wait(self, timeout: float) -> bool:
+        return self.done.wait(timeout)
+
+
+class _CommError(RuntimeError):
+    """A collective or store call of a launch failed: a fault of the
+    fabric, which the leader attributes by heartbeats, never of the
+    request (gloo raises a plain ``RuntimeError`` when a peer's
+    connection closes, so the call site, not the type, tells them
+    apart)."""
+
+
+def _comm(fn, *args):
+    try:
+        return fn(*args)
+    except Exception as exc:
+        raise _CommError(f"{type(exc).__name__}: {exc}") from exc
+
+
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     max_batch_slices: int = 64       # flush when this many rows are pending
@@ -186,6 +280,9 @@ class ServiceConfig:
     cache_bytes: int = 4 << 20       # cross-request feature-cache budget
     max_eps_per_launch: int = 32     # chunk wider eb unions across launches
     cache_admit_after: int = 2       # sightings before a digest is cached
+    launch_timeout_s: float = 60.0   # leader's bound per fabric launch
+    #   (must cover a first launch's kernel build; followers have none)
+    heartbeat_s: float = 0.5         # fabric liveness publish interval
     max_queue_rows: int = 0          # 0 = unbounded; else RetryAfter beyond
     pcfg: P.PredictorConfig = dataclasses.field(
         default_factory=P.PredictorConfig)
@@ -322,6 +419,15 @@ class SweepService:
         self._multiproc = DS.mesh_spans_processes(self.mesh)
         self._fabric_error: Optional[FabricError] = None
         self._launch_lock = threading.Lock()
+        self._transport = "local"
+        self._procs = self._procs0 = [0]
+        self._epoch = 0              # bumps on every recovery
+        self._recoveries = 0
+        self._last_recovery_s = 0.0
+        self._last_detect_s = 0.0
+        self._fault_window: Optional[tuple] = None   # perf_counter span
+        self._kv_bytes = 0           # bytes the store transport moved
+        self._hb: Optional[F.Heartbeat] = None
         if self._multiproc:
             self._init_fabric()
         # where a launch's stack is staged: the device itself without a
@@ -379,6 +485,34 @@ class SweepService:
         self.role = "leader" if self._rank == self._leader else "follower"
         self._kvp = f"repro_torch/sweep_service/{next(_FABRIC_COUNTER)}"
         self._seq = 0
+        self._mesh0 = self.mesh
+        self._procs = list(self.mesh.ranks)
+        self._procs0 = list(self._procs)
+        self._shares = dict(zip(self.mesh.ranks, self.mesh.shares))
+        self._backend = self._transport = dist.get_backend(self.mesh.group)
+        self._aborted = ""
+        self._hb = F.Heartbeat(self._store, self._kvp, self._rank,
+                               interval_s=self.scfg.heartbeat_s).start()
+        # the leader watches its followers, a follower its leader
+        self._monitor = F.PeerMonitor(self._store, self._kvp)
+        self._monitor.track([p for p in self._procs if p != self._rank]
+                            if self.role == "leader" else [self._leader])
+        # a follower does not call the leader lost before its first beat
+        # could have come
+        self._first_beat_deadline = time.monotonic() + max(
+            self.scfg.launch_timeout_s, 2 * self._stale_after)
+
+    @property
+    def _stale_after(self) -> float:
+        """Heartbeat silence that marks a peer dead or wedged: a few
+        missed beats, never longer than one launch deadline."""
+        return max(1.0, min(self.scfg.launch_timeout_s,
+                            6 * self.scfg.heartbeat_s))
+
+    @property
+    def _barrier_timeout(self) -> float:
+        return min(self.scfg.launch_timeout_s,
+                   max(2.0, 2 * self._stale_after))
 
     def _check_cfg(self, cfg):
         """Leader/follower launches carry no per-request engine config
@@ -514,23 +648,19 @@ class SweepService:
                 "window_shrinks": self._window_shrinks,
                 "window_grows": self._window_grows,
                 "live_batches": live,
-                "epoch": 0,
-                "transport": self._transport(),
-                "recoveries": 0,
-                "last_recovery_s": 0.0,
+                "epoch": self._epoch,
+                "transport": self._transport,
+                "recoveries": self._recoveries,
+                "last_recovery_s": self._last_recovery_s,
+                "last_detect_s": self._last_detect_s,
+                "kv_bytes": self._kv_bytes,
                 "rejected": self._rejected,
-                "procs": list(self.mesh.ranks) if self._multiproc else [0],
+                "procs": list(self._procs),
                 "cache": self.cache.stats()}
 
     @property
     def launches(self) -> int:
         return self._launches
-
-    def _transport(self) -> str:
-        if not self._multiproc:
-            return "local"
-        import torch.distributed as dist
-        return dist.get_backend(self.mesh.group)
 
     def _mesh_key(self) -> tuple:
         return (tuple(str(d) for d in self.mesh.devices), self.mesh.shares,
@@ -595,7 +725,9 @@ class SweepService:
         """Block until the service stops: on a follower, until the
         leader's ``close()`` (its worker joins every launch until then);
         on a leader, until ``close()`` from another thread.  Raises the
-        ``FabricError`` that broke the fabric, if one did."""
+        ``FabricError`` that broke the fabric, if one did (on a
+        follower: ``evicted``, ``leader_lost`` or the leader's
+        failure)."""
         self._worker.join()
         if self._fabric_error is not None:
             raise self._fabric_error
@@ -603,12 +735,16 @@ class SweepService:
     def close(self) -> None:
         """Serve what is queued, then stop the worker and the
         post-processing pool; on a process-spanning mesh the leader then
-        releases the followers (the shutdown header).  Idempotent, also
-        after a fabric failure (no collective is tried then).  A
-        follower's ``close()`` waits for the leader's."""
+        releases the followers (the shutdown header on an unfaulted
+        group, the store's shutdown key in any case) and waits, within a
+        bound, for their goodbye keys, so that a store it serves outlives
+        their last reads.  Idempotent, also after a fabric failure (no
+        collective is tried then).  A follower's ``close()`` waits for
+        the leader's."""
         if self.role == "follower":
             self._worker.join()
             self._post.shutdown(wait=True)
+            self._stop_heartbeat()
             return
         with self._cond:
             if self._closed:
@@ -618,8 +754,13 @@ class SweepService:
             self._cond.notify_all()
         self._worker.join()
         self._post.shutdown(wait=True)
-        if self._multiproc:
+        if len(self._procs0) > 1:
             self._release_followers()
+        self._stop_heartbeat()
+
+    def _stop_heartbeat(self) -> None:
+        if self._hb is not None:
+            self._hb.stop()
 
     def __enter__(self) -> "SweepService":
         return self
@@ -711,6 +852,8 @@ class SweepService:
             if not req.future.done():
                 req.future.set_exception(exc)
             self._note_done(req, ok=False)
+        if len(self._procs0) > 1:
+            self._mark_shutdown("failed")
 
     def _release_live(self) -> None:
         with self._mlock:
@@ -909,103 +1052,368 @@ class SweepService:
     def _collective_sweep(self, launcher: Launcher, rows: List[np.ndarray],
                           epss: np.ndarray, cfg, k_pad: int,
                           op: int = OP_LAUNCH) -> np.ndarray:
-        """One padded launch of ``rows`` -> the host (k_pad, e, R) rows,
-        brought back in one device-to-host copy (or gather) that waits
-        for the launch.  On a process-spanning mesh the launch is the
-        leader's half of the fabric (module docstring); a collective
-        that fails raises :class:`FabricError`."""
+        """One padded launch of ``rows`` -> the host (k_pad, e, R) rows
+        (at least the k real ones), brought back in one device-to-host
+        copy (or gather) that waits for the launch.  On a
+        process-spanning mesh the launch is the leader's half of the
+        fabric (module docstring): a retriable :class:`FabricError`
+        shrinks the fabric to the survivors (:meth:`_recover`) and the
+        launch runs again there, so its rows are the same bits whichever
+        fabric made them; a non-retriable one breaks the fabric."""
         stack = self._upload(rows, k_pad)
         if not self._multiproc:
-            return launcher.gather(launcher.launch(stack, epss, cfg, k_pad,
-                                                   self.mesh))
-        k, trailing = len(rows), tuple(rows[0].shape)
-        hdr = [op, k, k_pad, 1 + len(trailing), 0, 0, 0, len(epss),
-               self.registry.launcher_id(launcher)]
-        hdr[7 - len(trailing):7] = trailing
+            return self._local_launch(launcher, stack, epss, cfg, k_pad)
         with self._launch_lock:
             if self._fabric_error is not None:
                 raise self._fabric_error
-            try:
-                self._seq += 1
-                self._store.set(f"{self._kvp}/launch/{self._seq}", "1")
-                self._bcast(torch.tensor(hdr, dtype=torch.int64,
-                                         device=self._stage))
-                st = stack[:k].contiguous()
-                self._bcast(st.reshape(-1).view(torch.uint8))
-                ep = torch.from_numpy(np.ascontiguousarray(epss, np.float32))
-                ep = self._bcast(ep.to(self._stage).view(torch.uint8))
-                out = launcher.launch(st, ep.view(torch.float32).cpu().numpy(),
-                                      cfg, k_pad, self.mesh)
-                return launcher.gather(out)
-            except Exception as exc:
-                raise self._fabric_failed(exc, "follower_lost") from exc
+            err = None
+            for _ in range(len(self._procs0) + 1):
+                try:
+                    if not self._multiproc:     # shrunk to this process
+                        return self._local_launch(launcher, stack, epss,
+                                                  cfg, k_pad)
+                    if self._transport == "kv":
+                        return self._kv_launch(launcher, rows, stack, epss,
+                                               cfg, op)
+                    return self._group_launch(launcher, len(rows), stack,
+                                              epss, cfg, k_pad, op)
+                except FabricError as exc:
+                    if not exc.retriable:
+                        raise self._fabric_failed(exc)
+                    err = exc
+                    try:
+                        self._recover(exc)
+                    except FabricError as fatal:
+                        raise self._fabric_failed(fatal) from exc
+            raise self._fabric_failed(FabricError(
+                "a launch kept failing across mesh shrinks")) from err
+
+    def _local_launch(self, launcher: Launcher, stack: torch.Tensor,
+                      epss: np.ndarray, cfg, k_pad: int) -> np.ndarray:
+        if self.mesh is None:       # also a stack staged for a lost fabric
+            stack = stack.to(self.device)
+        return launcher.gather(launcher.launch(stack, epss, cfg, k_pad,
+                                               self.mesh))
+
+    def _group_launch(self, launcher: Launcher, k: int, stack: torch.Tensor,
+                      epss: np.ndarray, cfg, k_pad: int,
+                      op: int) -> np.ndarray:
+        """A launch over the mesh's group -- the store's sequence key, the
+        header, the k rows and the ebs broadcast, the launch, the gather
+        -- under the launch deadline (:meth:`_bounded`)."""
+        FI.fire("leader_launch")
+        t0 = time.perf_counter()
+        trailing = tuple(stack.shape[1:])
+        hdr = [op, k, k_pad, 1 + len(trailing), 0, 0, 0, len(epss),
+               self.registry.launcher_id(launcher)]
+        hdr[7 - len(trailing):7] = trailing
+        self._seq += 1
+        key = f"{self._kvp}/launch/{self._seq}"
+
+        def launch():
+            _comm(self._store.set, key, "1")
+            _comm(self._bcast, torch.tensor(hdr, dtype=torch.int64,
+                                            device=self._stage))
+            st = stack[:k].contiguous()
+            _comm(self._bcast, st.reshape(-1).view(torch.uint8))
+            ep = torch.from_numpy(np.ascontiguousarray(epss, np.float32))
+            ep = _comm(self._bcast, ep.to(self._stage).view(torch.uint8))
+            out = launcher.launch(st, ep.view(torch.float32).cpu().numpy(),
+                                  cfg, k_pad, self.mesh)
+            return _comm(launcher.gather, out)
+
+        return self._bounded(launch, t0)
 
     def _bcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Broadcast ``t`` in place from the leader over the mesh's group."""
+        """Broadcast ``t`` in place from the leader over the mesh's group
+        (fault-injection site ``bcast``)."""
         import torch.distributed as dist
+        FI.fire("bcast")
         dist.broadcast(t, src=self._leader, group=self.mesh.group)
         return t
 
-    def _fabric_failed(self, exc: BaseException, lost_kind: str
-                       ) -> FabricError:
-        """The :class:`FabricError` for a collective that raised ``exc``
-        (of kind ``lost_kind`` when a peer's connection went away),
-        recorded as the fabric's; a leader also marks the store so that
-        followers waiting there stop."""
-        text = str(exc)
-        if isinstance(exc, FabricError):
-            err = exc
-        elif "imed out" in text or "imeout" in text:
-            err = FabricError(f"a collective launch timed out: {text}",
-                              kind="timeout")
-        elif any(w in text for w in ("onnection", "reset", "peer", "closed",
-                                     "Broken pipe")):
-            err = FabricError(f"a peer left the fabric: {text}",
-                              kind=lost_kind)
+    def _bounded(self, launch, t0: float):
+        """Run ``launch`` on a sacrificial thread under
+        ``launch_timeout_s`` and attribute a fault by the followers'
+        heartbeats.  A plain error with every heartbeat fresh is the
+        batch's own and is raised as it is; a failed collective or store
+        call, or a lost follower, is a retriable ``follower_lost``; an
+        expired deadline with fresh heartbeats evicts every follower (a
+        wedged peer cannot be told apart from inside the collective)."""
+        box = _Boxed(launch, "sweep-service-launch", self._bind_device)
+        if box.wait(self.scfg.launch_timeout_s):
+            if box.error is None:
+                return box.value
+            lost = self._observe_lost()
+            if not lost and not isinstance(box.error, _CommError):
+                raise box.error
+            why = f"a fabric launch failed: {box.error}"
         else:
-            err = FabricError(f"a collective launch failed: {text}")
+            lost = (self._observe_lost()
+                    or [p for p in self._procs if p != self._rank])
+            why = (f"a fabric launch exceeded launch_timeout_s="
+                   f"{self.scfg.launch_timeout_s}")
+        raise self._fault(why, lost, t0) from box.error
+
+    def _fault(self, why: str, lost, t0: float) -> FabricError:
+        """The retriable fault of a launch begun at ``t0``, its detection
+        time recorded."""
+        self._last_detect_s = time.perf_counter() - t0
+        self._fault_window = (t0, None)
+        return FabricError(why, kind="follower_lost", lost=lost,
+                           retriable=True)
+
+    def _observe_lost(self) -> list:
+        """The followers whose heartbeat stood still for one staleness
+        window."""
+        followers = [p for p in self._procs if p != self._rank]
+        return self._monitor.observe_stale(followers, self._stale_after)
+
+    def _kv_launch(self, launcher: Launcher, rows: List[np.ndarray],
+                   stack: torch.Tensor, epss: np.ndarray, cfg,
+                   op: int) -> np.ndarray:
+        """A launch after a recovery, through the store only: each
+        survivor's block of rows under its own key, the ebs, then a JSON
+        header (op, shape, e, launcher id, every survivor's (lo, hi)
+        block); each survivor sweeps its block on its own device and
+        writes its rows back.  The leader deletes the launch's keys once
+        it has read every block."""
+        FI.fire("leader_launch")
+        t0 = time.perf_counter()
+        seq = self._seq + 1
+        base = f"{self._kvp}/l/{self._epoch}/{seq}"
+        k, e, width = len(rows), len(epss), launcher.row_width
+        parts = self._partition(k)
+        payloads = [f"{base}/eps"]
+        try:
+            for p, (lo, hi) in parts.items():
+                if p != self._rank and hi > lo:
+                    data = np.ascontiguousarray(np.stack(rows[lo:hi]),
+                                                np.float32).tobytes()
+                    F.kv_put_bytes(self._store, f"{base}/x/{p}", data)
+                    payloads.append(f"{base}/x/{p}")
+                    self._kv_bytes += len(data)
+            F.kv_put_bytes(self._store, f"{base}/eps",
+                           np.ascontiguousarray(epss, np.float32).tobytes())
+            self._store.set(f"{base}/hdr", json.dumps({
+                "op": op, "shape": [k, *rows[0].shape], "e": e,
+                "g": self.registry.launcher_id(launcher),
+                "parts": {str(p): list(b) for p, b in parts.items()}}))
+        except Exception as exc:
+            raise FabricError(f"the coordination store went away: {exc}"
+                              ) from exc
+        lo, hi = parts[self._rank]
+        blocks = {self._rank: self._local_rows(launcher, stack[lo:hi], epss,
+                                               cfg, e)}
+        deadline = time.monotonic() + self.scfg.launch_timeout_s
+        lost = []
+        for p in self._procs:
+            plo, phi = parts[p]
+            if p == self._rank:
+                continue
+            if phi <= plo:
+                blocks[p] = np.zeros((0, e, width), np.float32)
+                continue
+            data = self._collect_block(f"{base}/out/{p}", p, deadline)
+            if data is None or len(data) != (phi - plo) * e * width * 4:
+                lost.append(p)
+                continue
+            self._kv_bytes += len(data)
+            payloads.append(f"{base}/out/{p}")
+            blocks[p] = np.frombuffer(data, np.float32).reshape(
+                phi - plo, e, width)
+        if lost:
+            raise self._fault("survivor(s) never returned their rows", lost,
+                              t0)
+        for key in payloads:
+            F.kv_delete_bytes(self._store, key)
+        F.kv_delete(self._store, f"{base}/hdr")
+        self._seq = seq
+        return np.concatenate([blocks[p] for p in self._procs])
+
+    def _collect_block(self, key: str, rank: int,
+                       deadline: float) -> Optional[bytes]:
+        """``rank``'s rows under the launch deadline, given up as soon as
+        its heartbeat goes stale (a slow but live peer gets the whole
+        deadline)."""
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return None
+            data = F.kv_get_bytes(self._store, key, min(500, left * 1e3))
+            if data is not None:
+                return data
+            self._monitor.poll()
+            if self._monitor.age(rank) > self._stale_after:
+                return None
+
+    def _partition(self, k: int) -> dict:
+        """Contiguous row blocks {rank: (lo, hi)} over the current
+        processes, proportional to their shares of the original mesh."""
+        total = sum(self._shares[p] for p in self._procs)
+        parts, lo, cum = {}, 0, 0
+        for p in self._procs:
+            cum += self._shares[p]
+            hi = (k * cum) // total
+            parts[p] = (lo, hi)
+            lo = hi
+        return parts
+
+    def _local_rows(self, launcher: Launcher, block, epss: np.ndarray, cfg,
+                    e: int) -> np.ndarray:
+        """Sweep ``block``'s rows on this process's own device, without
+        the group (rows are mesh-independent: the same bits)."""
+        n = block.shape[0]
+        if n == 0:
+            return np.zeros((0, e, launcher.row_width), np.float32)
+        out = launcher.launch(block.to(self.device), epss, cfg,
+                              _row_bucket(n), None)
+        return launcher.gather(out)[:n]
+
+    def _recover(self, err: FabricError) -> None:
+        """Shrink the fabric to the survivors of ``err`` (the leader's
+        side): publish a new epoch with its processes, meet them at a
+        bounded barrier, shed whoever misses it (every follower when that
+        cannot be attributed) and publish again, then move onto the
+        store transport.  Alone, the leader serves on its own device."""
+        t0 = time.perf_counter()
+        self._abort_group()
+        dead = set(err.lost)
+        alive = [p for p in self._procs if p == self._rank or p not in dead]
+        for _ in range(len(self._procs0) + 2):
+            self._epoch += 1
+            if not F.kv_set(self._store, f"{self._kvp}/epoch", json.dumps(
+                    {"epoch": self._epoch, "procs": alive})):
+                raise FabricError("cannot recover: the coordination store "
+                                  "is unreachable") from err
+            if len(alive) <= 1 or F.fabric_barrier(
+                    self._store, f"{self._kvp}-rec-{self._epoch}",
+                    self._barrier_timeout, alive, rank=self._rank):
+                break
+            others = [p for p in alive if p != self._rank]
+            shed = set(self._monitor.observe_stale(others,
+                                                   self._stale_after))
+            alive = [p for p in alive
+                     if p == self._rank or p not in (shed or set(others))]
+        self._adopt_store_fabric(alive)
+        if len(alive) <= 1:
+            self._multiproc = False
+        self._recoveries += 1
+        now = time.perf_counter()
+        self._last_recovery_s = now - t0
+        self._fault_window = ((self._fault_window or (t0,))[0], now)
+
+    def _adopt_store_fabric(self, alive: Sequence[int]) -> None:
+        """Move this process onto the recovered fabric: shares from the
+        survivors' submesh, launches through the store, each block swept
+        on this process's device without a mesh."""
+        sub = F.surviving_submesh(self._mesh0, alive)
+        self._shares = dict(zip(sub.ranks, sub.shares))
+        self._procs = list(sub.ranks)
+        self.mesh = None
+        self._stage = self.device
+        self._transport = "kv"
+        self._seq = 0
+        self._executables.clear()
+
+    def _abort_group(self) -> None:
+        """On NCCL, abort the mesh's group before its watchdog finds a
+        collective stuck on a lost peer (under PyTorch's default
+        ``TORCH_NCCL_ASYNC_ERROR_HANDLING=3`` the watchdog ends the
+        process).  A gloo group is left alone: no collective runs on it
+        again."""
+        if self._backend == "nccl" and not self._aborted:
+            self._aborted = F.abort_group(self._mesh0.group)
+
+    def _fabric_failed(self, err: FabricError) -> FabricError:
+        """Record ``err`` as the fabric's failure and mark the store's
+        shutdown key, so that followers waiting there stop."""
         if self._fabric_error is None:
             self._fabric_error = err
-        if self.role == "leader":
-            self._mark_shutdown("failed")
+        self._mark_shutdown("failed")
         return err
 
     def _mark_shutdown(self, how: str) -> None:
-        try:
-            self._store.set(f"{self._kvp}/shutdown", how)
-        except Exception:       # the store may be gone with the fabric
-            pass
+        F.kv_set(self._store, f"{self._kvp}/shutdown", how)
 
     def _release_followers(self) -> None:
-        """The leader's last launch: the shutdown header, then the
-        store's shutdown key (which alone releases the followers after a
-        failure, when no collective is tried)."""
+        """The leader's last act: on an unfaulted group the shutdown
+        header (under the launch deadline), then the store's shutdown key
+        (which alone releases followers on the store transport or after
+        a failure), then a bounded wait for their goodbyes."""
         with self._launch_lock:
-            if self._fabric_error is None:
-                try:
-                    self._seq += 1
-                    self._store.set(f"{self._kvp}/launch/{self._seq}", "1")
-                    self._bcast(torch.zeros(self.HDR_LEN, dtype=torch.int64,
-                                            device=self._stage))
-                except Exception as exc:
-                    self._fabric_failed(exc, "follower_lost")
-                    return
+            if (self._fabric_error is None and self._transport != "kv"
+                    and len(self._procs) > 1):
+                self._seq += 1
+                key = f"{self._kvp}/launch/{self._seq}"
+
+                def release():
+                    _comm(self._store.set, key, "1")
+                    _comm(self._bcast, torch.zeros(
+                        self.HDR_LEN, dtype=torch.int64, device=self._stage))
+
+                _Boxed(release, "sweep-service-release",
+                       self._bind_device).wait(self.scfg.launch_timeout_s)
             self._mark_shutdown("closed" if self._fabric_error is None
                                 else "failed")
+            self._wait_byes()
 
-    def _await_launch(self, seq: int) -> bool:
-        """A follower's wait for the leader's launch ``seq``: True once its
-        key is in the store, False after a clean shutdown.  Polls, from
-        0.1 ms up to ``_POLL_MAX_S`` apart, outside any collective."""
-        key, stop = f"{self._kvp}/launch/{seq}", f"{self._kvp}/shutdown"
-        gap = 1e-4
+    def _wait_byes(self) -> None:
+        """Wait, within a bound, for every follower's goodbye key (a
+        follower whose heartbeat went stale is excused)."""
+        pending = [p for p in self._procs0 if p != self._rank]
+        deadline = time.monotonic() + max(2.0, 2 * self._stale_after)
+        while pending and time.monotonic() < deadline:
+            self._monitor.poll()
+            pending = [p for p in pending
+                       if F.kv_get(self._store, f"{self._kvp}/bye/{p}", 0)
+                       is None and self._monitor.age(p) <= self._stale_after]
+            time.sleep(0.05)
+
+    # ------------------------------------------------------------------
+    # follower: the launch stream and the epoch state machine
+    # ------------------------------------------------------------------
+
+    def _follower_loop(self) -> None:
+        """Join every launch of the leader's -- over the group until a
+        fault, then through the store -- and follow its epochs, until the
+        shutdown (module docstring).  A fault this process cannot
+        recover from is recorded for ``serve()``; the goodbye key is
+        written on the way out."""
+        self._bind_device()
+        try:
+            while True:
+                step = (self._follower_store_step if self._transport == "kv"
+                        else self._follower_group_step)
+                res = step()
+                if res == "shutdown":
+                    return
+                if res == "fault":
+                    self._follower_recover()
+        except Exception as exc:        # serve() raises it
+            err = exc if isinstance(exc, FabricError) else FabricError(
+                f"the follower's worker failed: {type(exc).__name__}: {exc}")
+            err.__cause__ = exc if err is not exc else exc.__cause__
+            self._fabric_error = err
+        finally:
+            F.kv_set(self._store, f"{self._kvp}/bye/{self._rank}", "1")
+            self._stop_heartbeat()
+
+    def _await(self, key: str) -> str:
+        """A follower's wait for ``key`` in the store, in short polls:
+        "launch" once it is there, "shutdown" after a clean shutdown,
+        "fault" on an epoch advance; raises ``FabricError`` when the
+        leader's fabric failed, the store went away or the leader's
+        heartbeat went stale (``leader_lost``)."""
+        stop = f"{self._kvp}/shutdown"
+        gap, watch = 1e-4, time.monotonic() + _WATCH_S
         while True:
             try:
                 if self._store.check([key]):
-                    return True
+                    return "launch"
                 if self._store.check([stop]):
                     if self._store.get(stop) == b"closed":
-                        return False
+                        return "shutdown"
                     raise FabricError("the leader's fabric failed",
                                       lost=(self._leader,))
             except FabricError:
@@ -1014,42 +1422,183 @@ class SweepService:
                 raise FabricError(
                     f"the coordination store went away: {exc}",
                     kind="leader_lost", lost=(self._leader,)) from exc
+            if time.monotonic() >= watch:
+                if self._epoch_advanced():
+                    return "fault"
+                self._check_leader("the leader stopped heartbeating")
+                watch = time.monotonic() + _WATCH_S
             time.sleep(gap)
             gap = min(2 * gap, _POLL_MAX_S)
 
-    def _follower_loop(self) -> None:
-        """Join every launch of the leader's, with the broadcast copies,
-        until its shutdown header (module docstring)."""
-        self._bind_device()
+    def _follower_group_step(self) -> Optional[str]:
+        """Join one launch over the group, once its sequence key is in
+        the store: the header, the rows and ebs, the launch, the
+        gather."""
+        self._seq += 1
+        res = self._await(f"{self._kvp}/launch/{self._seq}")
+        if res != "launch":
+            return res
+
+        def join():
+            hdr = _comm(self._bcast, torch.zeros(
+                self.HDR_LEN, dtype=torch.int64, device=self._stage))
+            op, k, k_pad, rank, *rest = hdr.cpu().tolist()
+            if op == self.OP_SHUTDOWN:
+                return None
+            FI.fire("follower_launch")
+            trailing = tuple(rest[3 - (rank - 1):3])
+            e, gid = rest[3], rest[4]
+            launcher = self.registry.launcher(gid)
+            st = _comm(self._bcast, torch.empty(
+                4 * k * int(np.prod(trailing)), dtype=torch.uint8,
+                device=self._stage))
+            ep = _comm(self._bcast, torch.empty(4 * e, dtype=torch.uint8,
+                                                device=self._stage))
+            out = launcher.launch(
+                st.view(torch.float32).reshape((k,) + trailing),
+                ep.view(torch.float32).cpu().numpy(),
+                launcher.follower_cfg(self.scfg), k_pad, self.mesh)
+            _comm(launcher.gather, out)
+            return op, k, k_pad
+
+        box = self._bounded_join(join)
+        if box is None:
+            return "fault"
+        if box.value is None:
+            return "shutdown"
+        self._count_launch(*box.value)
+        return None
+
+    def _follower_store_step(self) -> Optional[str]:
+        """Take part in one launch through the store: read this process's
+        block and the ebs, sweep them on its own device, write the rows
+        back."""
+        base = f"{self._kvp}/l/{self._epoch}/{self._seq + 1}"
+        res = self._await(f"{base}/hdr")
+        if res != "launch":
+            return res
+        raw = F.kv_get(self._store, f"{base}/hdr", 0)
+        if raw is None:
+            raise FabricError("the coordination store went away",
+                              kind="leader_lost", lost=(self._leader,))
+        hdr = json.loads(raw)
+        launcher = self.registry.launcher(int(hdr["g"]))
+        lo, hi = hdr["parts"].get(str(self._rank), (0, 0))
+        shape, e = tuple(hdr["shape"]), int(hdr["e"])
+        wait_ms = self.scfg.launch_timeout_s * 1e3
+
+        def join():
+            FI.fire("kv_launch")
+            if hi <= lo:
+                return True
+            st = F.kv_get_bytes(self._store, f"{base}/x/{self._rank}",
+                                wait_ms)
+            ep = F.kv_get_bytes(self._store, f"{base}/eps", wait_ms)
+            if st is None or ep is None:
+                raise FabricError("a launch's rows never arrived through "
+                                  "the store", kind="timeout")
+            block = torch.from_numpy(np.frombuffer(st, np.float32).reshape(
+                (hi - lo,) + shape[1:]).copy())
+            rows = self._local_rows(launcher, block,
+                                    np.frombuffer(ep, np.float32).copy(),
+                                    launcher.follower_cfg(self.scfg), e)
+            out = np.ascontiguousarray(rows, np.float32).tobytes()
+            F.kv_put_bytes(self._store, f"{base}/out/{self._rank}", out)
+            self._kv_bytes += len(st) + len(out)
+            return True
+
+        if self._bounded_join(join) is None:
+            return "fault"
+        self._seq += 1
+        n = hi - lo
+        self._count_launch(int(hdr["op"]), n, _row_bucket(n) if n else 0)
+        return None
+
+    def _bounded_join(self, join) -> Optional[_Boxed]:
+        """Run a follower's part of a launch on a sacrificial thread, with
+        no deadline of its own: abandon it only when the leader publishes
+        a new epoch, marks the shutdown or stops heartbeating (a bare
+        deadline would misfire on a slow join the leader still waits
+        for).  The box on success, None on a fault."""
+        box = _Boxed(join, "sweep-service-join", self._bind_device)
+        while not box.wait(_WATCH_S):
+            if self._epoch_advanced() or self._shutdown_set():
+                self._abort_group()
+                return None
+            if self._leader_stale():
+                self._abort_group()
+                raise FabricError("the leader stopped heartbeating "
+                                  "mid-launch", kind="leader_lost",
+                                  lost=(self._leader,))
+        return None if box.error is not None else box
+
+    def _count_launch(self, op: int, k: int, k_pad: int) -> None:
+        if op == self.OP_LAUNCH:
+            self._launches += 1
+            self._rows_launched += k
+            self._pad_rows += k_pad - k
+
+    def _shutdown_set(self) -> bool:
+        return F.kv_get(self._store, f"{self._kvp}/shutdown", 0) is not None
+
+    def _read_epoch(self) -> Optional[dict]:
+        raw = F.kv_get(self._store, f"{self._kvp}/epoch", 0)
         try:
-            while True:
-                self._seq += 1
-                if not self._await_launch(self._seq):
+            desc = json.loads(raw)
+            return {"epoch": int(desc["epoch"]),
+                    "procs": [int(p) for p in desc["procs"]]}
+        except Exception:
+            return None
+
+    def _epoch_advanced(self) -> bool:
+        desc = self._read_epoch()
+        return desc is not None and desc["epoch"] > self._epoch
+
+    def _leader_stale(self) -> bool:
+        self._monitor.poll()
+        if not self._monitor.seen(self._leader):
+            return time.monotonic() > self._first_beat_deadline
+        return self._monitor.age(self._leader) > 2 * self._stale_after
+
+    def _check_leader(self, what: str) -> None:
+        if self._leader_stale():
+            raise FabricError(what, kind="leader_lost", lost=(self._leader,))
+
+    def _follower_recover(self) -> None:
+        """Rejoin the fabric at the epoch the leader published, or learn
+        that this process was evicted (``kind="evicted"``) or that the
+        leader is gone (``kind="leader_lost"``).  Bounded."""
+        self._abort_group()
+        deadline = time.monotonic() + max(self.scfg.launch_timeout_s,
+                                          4 * self._stale_after)
+        while True:
+            desc = self._read_epoch()
+            if desc is not None and desc["epoch"] > self._epoch:
+                if self._rank not in desc["procs"]:
+                    raise FabricError("this process was dropped from the "
+                                      "recovered fabric", kind="evicted",
+                                      lost=(self._rank,))
+                if F.fabric_barrier(
+                        self._store, f"{self._kvp}-rec-{desc['epoch']}",
+                        self._barrier_timeout, desc["procs"],
+                        rank=self._rank):
+                    self._epoch = desc["epoch"]
+                    self._adopt_store_fabric(desc["procs"])
                     return
-                hdr = self._bcast(torch.zeros(self.HDR_LEN, dtype=torch.int64,
-                                              device=self._stage))
-                op, k, k_pad, rank, *rest = hdr.cpu().tolist()
-                if op == self.OP_SHUTDOWN:
+                # missed this rendezvous: the leader may publish a
+                # further-shrunk epoch (perhaps without this process)
+            if self._shutdown_set():
+                return               # the next step reads the marker
+            self._check_leader("the leader was lost during recovery")
+            if time.monotonic() > deadline:
+                if desc is None or desc["epoch"] <= self._epoch:
+                    # the epoch never moved and the leader still beats:
+                    # no fault to recover from; a real one announces
+                    # itself as an epoch advance
                     return
-                trailing = tuple(rest[3 - (rank - 1):3])
-                e, gid = rest[3], rest[4]
-                launcher = self.registry.launcher(gid)
-                st = self._bcast(torch.empty(
-                    4 * k * int(np.prod(trailing)), dtype=torch.uint8,
-                    device=self._stage))
-                ep = self._bcast(torch.empty(4 * e, dtype=torch.uint8,
-                                             device=self._stage))
-                out = launcher.launch(
-                    st.view(torch.float32).reshape((k,) + trailing),
-                    ep.view(torch.float32).cpu().numpy(),
-                    launcher.follower_cfg(self.scfg), k_pad, self.mesh)
-                launcher.gather(out)
-                if op == self.OP_LAUNCH:
-                    self._launches += 1
-                    self._rows_launched += k
-                    self._pad_rows += k_pad - k
-        except Exception as exc:        # serve() raises it
-            self._fabric_failed(exc, "leader_lost")
+                raise FabricError("the recovery window expired "
+                                  "mid-rendezvous", kind="timeout")
+            time.sleep(0.1)
 
     def _launch(self, launcher: Launcher, group: dict,
                 eps_chunk: List[float], cfg,

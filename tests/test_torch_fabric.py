@@ -12,7 +12,9 @@
   ``tests/test_multihost.py::test_leader_follower_sweep_service`` and
   ``tests/test_methods.py::test_kv_gate_across_processes``, three
   processes with uneven shares, an idle spell longer than the group's
-  timeout, and a follower that exits mid-traffic.
+  timeout, a follower that exits mid-traffic (the fabric recovers onto
+  the survivors; ``tests/test_torch_fault.py`` has the other faults) and
+  a leader whose store goes with it (the follower's ``leader_lost``).
 * The single-process ``FabricError`` case of the reference's
   ``tests/test_fault.py``.
 """
@@ -177,26 +179,33 @@ def caught(fn):
 EPILOGUE = """
 with open(os.path.join(OUT, f"rank{RANK}.pkl"), "wb") as f:
     pickle.dump(RESULTS, f)
+if FAULTED:
+    sys.stdout.flush()
+    os._exit(0)
 torch.distributed.destroy_process_group()
 """
 
 
 def run_cohort(tmp_path, body: str, nprocs: int, req: dict,
-               consts: dict = None, wall_s: float = WALL_S) -> list:
+               consts: dict = None, wall_s: float = WALL_S,
+               init: str = None, faulted: bool = False) -> list:
     """Run ``body`` in ``nprocs`` fresh interpreters of one gloo group
-    (``RANK``, ``NPROCS``, ``REQ``, ``RESULTS`` and ``consts`` in scope)
-    under a wall-clock limit; returns each rank's (return code, output,
-    RESULTS or None)."""
+    (``RANK``, ``NPROCS``, ``REQ``, ``RESULTS`` and ``consts`` in scope;
+    the group's store at ``init``, default a ``FileStore`` under
+    ``tmp_path``) under a wall-clock limit; returns each rank's (return
+    code, output, RESULTS or None).  With ``faulted`` the ranks end with
+    ``os._exit(0)`` instead of tearing down a group that lost a peer."""
     with open(tmp_path / "req.pkl", "wb") as f:
         pickle.dump(req, f)
-    header = "".join(f"{k} = {v!r}\n" for k, v in (consts or {}).items())
+    consts = dict(consts or {}, FAULTED=faulted)
+    header = "".join(f"{k} = {v!r}\n" for k, v in consts.items())
     script = tmp_path / "rank.py"
     script.write_text(PRELUDE.format(timeout=GROUP_TIMEOUT_S) + header
                       + textwrap.dedent(body) + EPILOGUE)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [SRC, TESTS, os.environ.get("PYTHONPATH", "")]))
-    init = f"file://{tmp_path / 'init'}"
+    init = init or f"file://{tmp_path / 'init'}"
     procs = [subprocess.Popen(
         [sys.executable, str(script), init, str(nprocs), str(r),
          str(tmp_path)], env=env, stdout=subprocess.PIPE,
@@ -337,7 +346,8 @@ mesh = M.make_sweep_mesh(devices=["cpu"])
 group = torch.distributed.new_group(
     list(range(NPROCS)), timeout=datetime.timedelta(seconds=SHORT_S))
 mesh = dataclasses.replace(mesh, group=group)
-svc = SweepService(ServiceConfig(max_wait_ms=5.0), mesh=mesh)
+svc = SweepService(ServiceConfig(max_wait_ms=5.0, heartbeat_s=0.5,
+                                 launch_timeout_s=SHORT_S - 1.0), mesh=mesh)
 if svc.role == "leader":
     RESULTS["first"] = svc.featurize(REQ["x"][:2], REQ["ebs"])
     gone = os.path.join(OUT, "gone")
@@ -348,13 +358,10 @@ if svc.role == "leader":
     t0 = time.monotonic()
     futs = [svc.submit_featurize(REQ["x"][i:i + 1], REQ["ebs"])
             for i in range(3)]
-    errs = [caught(lambda f=f: f.result(timeout=120)) for f in futs]
-    RESULTS["fail_s"] = time.monotonic() - t0
-    RESULTS["errs"] = errs
-    RESULTS["kind"] = svc._fabric_error.kind
-    RESULTS["later"] = caught(lambda: svc.submit_featurize(
-        REQ["x"][:1], REQ["ebs"]))
-    RESULTS["serve"] = caught(svc.serve)
+    RESULTS["got"] = [f.result(timeout=120) for f in futs]
+    RESULTS["recover_s"] = time.monotonic() - t0
+    RESULTS["later"] = svc.featurize(REQ["x"][3:5], REQ["ebs"])
+    RESULTS["stats"] = svc.stats()
     svc.close()
     svc.close()
 elif RANK == NPROCS - 1:
@@ -368,26 +375,68 @@ elif RANK == NPROCS - 1:
 else:
     RESULTS["serve"] = caught(svc.serve)
     svc.close()
+    RESULTS["launches"] = svc.launches
 """
 
 
 def test_lost_follower_fails_pending_futures(tmp_path, methods):
-    """A follower exits mid-traffic: every pending future fails with
-    ``FabricError`` within the group's timeout and a few seconds, later
-    submissions raise, the other follower's ``serve()`` raises, and no
-    process hangs."""
+    """A follower exits mid-traffic.  The pending futures no longer fail:
+    the leader recovers onto the two survivors within the group's
+    timeout and a few seconds, every future and a later request complete
+    bit-equal to the direct call through the store, the other follower's
+    ``serve()`` returns cleanly, and no process hangs."""
     req, want = methods
     short = 5.0
-    res = run_cohort(tmp_path, LOSS, 3, req, {"SHORT_S": short})
+    res = run_cohort(tmp_path, LOSS, 3, req, {"SHORT_S": short},
+                     faulted=True)
     (rc0, _, lead), (rc1, _, mid), (rc2, _, _) = res
     assert (rc0, rc1, rc2) == (0, 0, 3), _report(res)
     assert np.array_equal(lead["first"], want[0][:2])
-    assert all(e is not None and e[0] == "FabricError"
-               for e in lead["errs"]), lead["errs"]
-    assert lead["fail_s"] < short + 5.0, lead["fail_s"]
-    assert lead["later"][0] == "RuntimeError" and "closed" in lead["later"][1]
-    assert lead["serve"][0] == "FabricError"
-    assert mid["serve"][0] == "FabricError"
+    for i, got in enumerate(lead["got"]):
+        assert np.array_equal(got, want[0][i:i + 1]), i
+    assert np.array_equal(lead["later"], want[0][3:5])
+    assert lead["recover_s"] < short + 5.0, lead["recover_s"]
+    st = lead["stats"]
+    assert (st["recoveries"], st["procs"], st["transport"]) == \
+        (1, [0, 1], "kv"), st
+    assert mid["serve"] is None and mid["launches"] == 3, mid
+
+
+LEADER_GONE = """
+mesh = M.make_sweep_mesh(devices=["cpu"])
+svc = SweepService(ServiceConfig(max_wait_ms=5.0, heartbeat_s=0.5),
+                   mesh=mesh)
+if svc.role == "leader":
+    RESULTS["first"] = svc.featurize(REQ["x"][:2], REQ["ebs"])
+    with open(os.path.join(OUT, f"rank{RANK}.pkl"), "wb") as f:
+        pickle.dump(RESULTS, f)
+    os._exit(3)                     # the store it serves goes with it
+t0 = time.monotonic()
+RESULTS["serve"] = caught(svc.serve)
+RESULTS["kind"] = svc._fabric_error.kind
+RESULTS["serve_s"] = time.monotonic() - t0
+RESULTS["launches"] = svc.launches
+"""
+
+
+def test_leader_store_lost_raises_on_follower(tmp_path, methods):
+    """The leader serves the group's ``TCPStore`` itself (``tcp://``
+    without an external coordinator) and exits: its follower cannot go
+    on, and its ``serve()`` raises ``FabricError(kind="leader_lost")``
+    promptly, from the store's error, instead of hanging."""
+    import socket
+    req, want = methods
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    res = run_cohort(tmp_path, LEADER_GONE, 2, req,
+                     init=f"tcp://127.0.0.1:{port}", faulted=True)
+    (rc0, _, lead), (rc1, _, follower) = res
+    assert (rc0, rc1) == (3, 0), _report(res)
+    assert np.array_equal(lead["first"], want[0][:2])
+    assert follower["serve"][0] == "FabricError", follower
+    assert follower["kind"] == "leader_lost", follower
+    assert follower["serve_s"] < 10.0 and follower["launches"] == 1
 
 
 # ---------------------------------------------------------------------------

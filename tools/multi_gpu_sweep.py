@@ -32,6 +32,17 @@ one follower per other card in an NCCL group (``chip_smoke.py
 --fabric-child``); every served result equal to the direct call on the
 first card, and each way's requests/s.
 
+``--serve --chaos`` then serves the plan cut to 8 clients x 16
+requests over an NCCL group of one rank per card again, the last rank
+SIGKILLed inside its first launch after 16 requests were served
+(``chip_smoke.py --fault-child``, ``dist.faultinject``), the group's
+timeout 30 s and the leader's launch deadline 15 s: the survivors abort
+the group
+(``dist.fault.abort_group``) and finish through the store, every served
+result equal to the direct call, and each survivor stays 35 s more, past
+the group's timeout, so that an NCCL watchdog that found a collective
+stuck would end it (exit code not 0) before it reports.
+
 ``--device cpu`` rehearses the control flow on the host (``cpu`` and
 ``cpu:0`` take turns as the cards, gloo ranks).  Prints
 ``nvidia-smi``'s name and power limit of every card, then one JSON
@@ -168,7 +179,7 @@ def group(devs, n: int, want_file: Path, tmp: Path) -> list:
     return [json.loads(o.read_text()) for o in outs]
 
 
-def serve(torch, devs, x_all, ebs, tmp: Path) -> dict:
+def serve(torch, devs, x_all, ebs, tmp: Path, chaos: bool = False) -> dict:
     """``--serve`` (module docstring): requests/s of each way."""
     import pickle
     sys.path.insert(0, str(ROOT))
@@ -214,7 +225,8 @@ def serve(torch, devs, x_all, ebs, tmp: Path) -> dict:
                "rank": r, "backend": backend,
                "device": "cpu" if d.type == "cpu" else str(d), "shards": 1,
                "ctx": str(tmp / "ctx.pt"), "results": str(tmp / "res.pkl"),
-               "out": str(tmp / f"serve{r}.json")}
+               "out": str(tmp / f"serve{r}.json"),
+               "requests": CS.SERVE_REQUESTS}
         (tmp / f"serve{r}.job").write_text(json.dumps(job))
         cmds.append([sys.executable, str(ROOT / "chip_smoke.py"),
                      "--fabric-child", str(tmp / f"serve{r}.job")])
@@ -226,7 +238,57 @@ def serve(torch, devs, x_all, ebs, tmp: Path) -> dict:
     out[f"{backend} group"] = dict(
         check(f"{backend} group of {len(devs)}", results, ranks[0]["wall_s"]),
         launches=[r["launches"] for r in ranks])
+    if chaos:
+        out[f"{backend} group, a rank killed"] = lost_rank(
+            torch, devs, backend, ctx, direct, tmp)
     return out
+
+
+def lost_rank(torch, devs, backend: str, ctx: dict, direct: dict,
+              tmp: Path) -> dict:
+    """``--chaos`` (module docstring): the last rank of a group of one
+    rank per card killed mid-traffic; the survivors' records."""
+    import pickle
+    import signal
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+    plan = CS.serve_plan(CS.SERVE_HOT, len(ctx["slices"]) - CS.SERVE_HOT,
+                         CS.FAULT_REQUESTS)
+    init = f"tcp://127.0.0.1:{CS.free_port()}"
+    last = len(devs) - 1
+    cmds = []
+    for r, d in enumerate(devs):
+        job = {"init": init, "nprocs": len(devs), "rank": r,
+               "backend": backend, "device": "cpu" if d.type == "cpu"
+               else str(d), "ctx": str(tmp / "ctx.pt"),
+               "results": str(tmp / "chaos.pkl"),
+               "out": str(tmp / f"chaos{r}.json"),
+               "chaos": "follower_launch:kill:1" if r == last else None,
+               "group_timeout_s": 30.0,
+               "launch_timeout_s": 15.0, "linger_s": 35.0}
+        (tmp / f"chaos{r}.job").write_text(json.dumps(job))
+        cmds.append([sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--fault-child", str(tmp / f"chaos{r}.job")])
+    CS.run_group("chaos group", cmds, tmp, TIMEOUT_S,
+                 expect={last: -signal.SIGKILL})
+    ranks = [json.loads((tmp / f"chaos{r}.json").read_text())
+             for r in range(last)]
+    with open(tmp / "chaos.pkl", "rb") as f:
+        results = pickle.load(f)
+    lead = ranks[0]
+    CS.check_served(torch, dict(lead, post_workers=2), ctx, [
+        (req, [results[(c, r)]]) for c, reqs in enumerate(plan)
+        for r, req in enumerate(reqs)], direct)
+    if lead["recoveries"] != 1 or lead["procs"] != list(range(last)) or any(
+            r["serve"] != "clean" for r in ranks[1:]):
+        raise AssertionError(f"chaos group: {ranks}")
+    print(f"serve, {backend} group of {len(devs)}, rank {last} killed: "
+          f"{lead['requests']} requests ({lead['req_per_s_before']:.2f} "
+          f"req/s before the fault, {lead['req_per_s_after']:.2f} after), "
+          f"detection {lead['last_detect_s']:.3f} s, recovery "
+          f"{lead['last_recovery_s']:.3f} s; the {last} survivors outlived "
+          "the group's timeout; every result == the direct call", flush=True)
+    return {"leader": lead, "followers": ranks[1:]}
 
 
 def main(argv=None) -> int:
@@ -238,6 +300,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve", action="store_true",
                     help="also serve chip_smoke.py's phase-15 plan on one "
                          "card, a mesh of every card and an NCCL group")
+    ap.add_argument("--chaos", action="store_true",
+                    help="with --serve: kill one rank of the group "
+                         "mid-traffic and check the survivors' recovery")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -303,7 +368,8 @@ def main(argv=None) -> int:
     try:
         np.save(tmp / "want.npy", want)
         ranks = group(devs, n, tmp / "want.npy", tmp)
-        served = serve(torch, devs, x_all, ebs, tmp) if args.serve else None
+        served = (serve(torch, devs, x_all, ebs, tmp, args.chaos)
+                  if args.serve else None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"device": [s.strip() for s in smi], "k": K, "n": n,
