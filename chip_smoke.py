@@ -194,7 +194,14 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               its sixth launch (``--chaos``): the follower exits 0 with
               ``leader_lost`` within 30 s of the leader's death.
               Launches by shape as the "Fault" path;
-20. path rows -- every kernel at every shape a path below launched it
+20. tune     -- (run right after 19) the q-ent kernel's offline launch
+              search on the card (``kernels/tune.py``; its candidate
+              builds, ``-DREPRO_QENT_MIN_PER_CTA``, compiled with the
+              kernels at the start): (a) the smoke search (one cell,
+              every candidate through the bit filter, timed); (b) every
+              candidate's histograms equal to the plain build's at each
+              shape of the full search, on fresh data;
+21. path rows -- every kernel at every shape a path below launched it
               with that no row above holds (Serve's batches and warmup,
               the advise runs' training and padded service chunks, the
               load CLI, the Dist path's blocks), against its plain
@@ -293,6 +300,9 @@ FAULT_LEADER_KILL = 6           # (c): 4 warmup launches, then the second
 LEADER_LOST_BOUND_S = 30.0      # (c): the follower's exit after the leader's
 PLANT_EBS = (1e-5, 1e-3, 256.0)     # 256: quotients of tiny normals underflow
 QENT_BINS = 65536
+# phase 20: the full search's q-ent shapes are divided by this (1: their
+# own lengths)
+TUNE_SHAPE_DIV = 1
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -2932,6 +2942,56 @@ def eps_for(grid, e: int) -> list:
     return (both + [both[-1]] * e)[:e]
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the q-ent kernel's offline launch search
+# ---------------------------------------------------------------------------
+
+def phase_tune(torch, card) -> dict:
+    """Phase 20 (module docstring): the smoke search, then every
+    candidate build against the plain one at the full search's shapes."""
+    from repro_torch.kernels import tune as KT
+    from repro_torch.kernels.qent import ops as qent_ops
+    rec = {}
+    t = time.perf_counter()
+    smoke = KT.run_search(smoke=True, device="cuda")
+    rec["smoke_s"] = time.perf_counter() - t
+    (key, cell), = smoke["cells"].items()
+    if (cell["discarded_bit_unsafe"]
+            or cell["tile"] not in KT.QENT_TILE_CANDIDATES
+            or set(cell["times"]) != {str(c) for c in KT.QENT_TILE_CANDIDATES}):
+        raise AssertionError(f"smoke search cell {key}: {cell}")
+    rec["smoke"] = smoke["cells"]
+    log(f"tune (a): smoke search {key} {cell['shape']} in "
+        f"{rec['smoke_s']:.2f} s, choice {cell['tile']}, "
+        f"{'cold' if cell['cold'] else 'warm'} ms by tile "
+        + json.dumps({k: 1e3 * v for k, v in cell["times"].items()}), card)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    t = time.perf_counter()
+    rec["cells"] = []
+    for k, n, bins, e in KT.FULL_QENT_CELLS:
+        n = max(1, n // TUNE_SHAPE_DIV)
+        x = torch.randn((k, n), generator=g, device="cuda")
+        eps = torch.logspace(-3, -1, e, device="cuda")
+
+        def hist(tile):
+            return qent_ops.launch(x, eps, bins, KT.tile_defines(tile))
+        want = hist(KT.DEFAULT_TILE)
+        for tile in KT.QENT_TILE_CANDIDATES:
+            if not torch.equal(hist(tile), want):
+                raise AssertionError(
+                    f"q-ent at {tile} elements a CTA differs from the plain "
+                    f"build at ({k}, {n}) x {e}, {bins} bins")
+        rec["cells"].append([k, n, bins, e])
+        del x, want
+    torch.cuda.synchronize()
+    rec["cells_s"] = time.perf_counter() - t
+    zero_counts(torch)
+    log(f"tune (b): every q-ent candidate {list(KT.QENT_TILE_CANDIDATES)} "
+        f"== the plain build at {rec['cells']} in {rec['cells_s']:.2f} s",
+        card)
+    return rec
+
+
 def path_rows(torch, TS, counts, rows, ebs, vol_eps):
     """Every kernel at every shape a path launched it with that no row
     above holds -- Serve's own batches and its warmup's, the advise
@@ -3051,6 +3111,7 @@ def main(argv=None) -> int:
     from repro_torch.data import scientific as TS
     from repro_torch.dist import sweep as DS
     from repro_torch.kernels import _build, wrappers
+    from repro_torch.kernels import tune as KT
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3061,10 +3122,11 @@ def main(argv=None) -> int:
     stages = {}
 
     t = time.perf_counter()
-    _build.build()
+    _build.build(variants=KT.qent_variants())
     stages["build_s"] = time.perf_counter() - t
-    log(f"build: {len(_build.KERNELS)} kernels in {stages['build_s']:.2f} s",
-        smi)
+    log(f"build: {len(_build.KERNELS)} kernels and "
+        f"{len(KT.qent_variants())} q-ent search candidates in "
+        f"{stages['build_s']:.2f} s", smi)
 
     spec = TS.FIELDS[FIELD]
     t = time.perf_counter()
@@ -3308,6 +3370,11 @@ def main(argv=None) -> int:
                                          smi)
     stages["fault_phase_s"] = time.perf_counter() - t
 
+    # ---- phase 20: the q-ent kernel's offline launch search
+    t = time.perf_counter()
+    tuned = phase_tune(torch, smi)
+    stages["tune_phase_s"] = time.perf_counter() - t
+
     # ---- phase 14: a dataset on disk, streamed and advised on; the
     # tensors of phases 1-13 go first, so that it and the advise
     # subprocess find the card free
@@ -3342,8 +3409,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- every shape a path launched that no row above holds: its
-    # kernel against the plain version there, timed
+    # ---- phase 21: every shape a path launched that no row above holds:
+    # its kernel against the plain version there, timed
     t = time.perf_counter()
     kernels += path_rows(torch, TS, counts, kernels, ebs, vol_eps)
     stages["path_rows_s"] = time.perf_counter() - t
@@ -3384,7 +3451,8 @@ def main(argv=None) -> int:
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
-            dist=dist, fabric=fabric, fault=fault, sort_route_cost=sort_cost,
+            dist=dist, fabric=fabric, fault=fault, tune=tuned,
+            sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],
                         "by_shape": {str(k): v for k, v in c["by_shape"].items()}}

@@ -54,7 +54,10 @@
 //     eps of a slice run together and re-read it from L2, not device
 //     memory; the number of runs is chosen from the co-resident cluster
 //     count (cudaOccupancyMaxActiveClusters) so that k = 32 x 6 eps and
-//     k = 1 x 1 eps both fill the card in whole waves;
+//     k = 1 x 1 eps both fill the card in whole waves, with at least
+//     MIN_PER_CTA elements a CTA (16384; a build with
+//     -DREPRO_QENT_MIN_PER_CTA=n is a candidate of the offline search in
+//     kernels/tune.py, which found no other value faster on the H100);
 //   * at the end each CTA adds its non-zero bins to the global histogram
 //     with atomicAdd: one flush per cluster, however many elements.
 // Integer counts make every schedule give the same histogram bits.  If
@@ -80,7 +83,11 @@ constexpr int UNROLL = 8;           // elements in flight per thread
 constexpr int BATCH = THREADS * UNROLL;    // elements a CTA takes per batch
 constexpr int MAX_CLUSTER = 8;      // portable cluster size
 constexpr int MAX_EPS = 8;          // eps one CTA holds side by side
-constexpr long long MIN_PER_CTA = 16384;   // elements a CTA takes at least
+#ifndef REPRO_QENT_MIN_PER_CTA
+#define REPRO_QENT_MIN_PER_CTA 16384
+#endif
+constexpr long long MIN_PER_CTA = REPRO_QENT_MIN_PER_CTA;  // elements a
+                                    // CTA takes at least
 constexpr int CNT_BITS = 6;         // an outbox entry: slot << 6 | count
 constexpr int MAX_SMEM_INTS = 232448 / 4;  // shared memory of one CTA
 

@@ -15,6 +15,9 @@ to match the plain versions bit for bit.  The library name carries a hash of the
 the headers beside it (``csrc/*.cuh``), so an edited source is rebuilt
 on its next use.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them together.
+A *variant* is a source built with ``-D`` defines of its own (the
+candidates of ``kernels/tune.py``'s offline search); the kernels' entry
+points load the plain build.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
@@ -28,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Tuple
 
 import torch
 
@@ -39,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -58,41 +61,54 @@ def nvcc() -> str:
         "repro_torch are compiled at first use")
 
 
-def source_digest(csrc: Path, name: str) -> str:
-    """Hash of the nvcc flags, ``<csrc>/<name>.cu`` and every header it
-    may include."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Tuple[str, ...] = ()) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def source_digest(csrc: Path, name: str,
+                  defines: Tuple[str, ...] = ()) -> str:
+    """Hash of the nvcc flags (``defines`` included), ``<csrc>/<name>.cu``
+    and every header it may include."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by the sources' hash."""
-    return BUILD_DIR / f"{name}-{source_digest(CSRC, name)}.so"
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Where ``csrc/<name>.cu`` (with ``defines``) builds to, keyed by the
+    sources' hash."""
+    return BUILD_DIR / f"{name}-{source_digest(CSRC, name, defines)}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together.  Returns name -> library path."""
-    paths = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
+def build(names: Iterable[str] = KERNELS,
+          variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()
+          ) -> Dict[Any, Path]:
+    """Compile every named kernel and every ``(name, defines)`` variant
+    whose library is missing, one ``nvcc`` per library, all started
+    together.  Returns name (or the variant's pair) -> library path."""
+    specs = list(dict.fromkeys(
+        [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]))
+    paths = {(n if not d else (n, d)): library_path(n, d) for n, d in specs}
+    todo = [(n, d, library_path(n, d)) for n, d in specs
+            if not library_path(n, d).exists()]
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
-    procs = {}
-    for n, p in todo.items():
+    procs = []
+    for n, d, p in todo:
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, p)
+        cmd = [exe, *_flags(d), "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs.append((n, d, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, p))
     failed = []
-    for n, (proc, tmp, p) in procs.items():
+    for n, d, proc, tmp, p in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{out}")
+            failed.append(f"{n}.cu {' '.join(_flags(d)[len(NVCC_FLAGS):])} "
+                          f"(nvcc exit {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, p)        # atomic: a reader never sees half a .so
     if failed:
@@ -100,12 +116,17 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with ``defines``: a
+    variant), built first if needed."""
+    key = (name, tuple(defines))
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+            path = library_path(name, key[1])
+            if not path.exists():
+                build((), [key])
+            lib = _LIBS[key] = ctypes.CDLL(str(path))
         return lib
 
 

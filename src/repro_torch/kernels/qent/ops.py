@@ -3,7 +3,10 @@
 A CUDA tensor launches the kernel; a CPU tensor takes the plain
 version in ``ref``.  The kernel masks each cluster's element range, so
 unlike the TPU route there is no padding and no pad correction: the
-histogram is the same either way.
+histogram is the same either way.  The shared memory one CTA may spend
+on counters is the card's (``kernels.tune.smem_budget``: 196 608 bytes
+on an H100, where 65536 bins need a cluster of 2 CTAs of 128 KiB each
+and 4096 bins x 6 eps fit one CTA of 96 KiB).
 """
 from __future__ import annotations
 
@@ -13,16 +16,18 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import tune as _tune
 from repro_torch.kernels.qent import ref as _ref
 from repro_torch.quant import validate_eps_positive as _check_eps
 
 DEFAULT_BINS = 4096
-# shared memory one CTA may spend on counters: 65536 bins need a cluster
-# of 2 CTAs (128 KiB each), 4096 bins x 6 eps fit one CTA (96 KiB)
-SMEM_BUDGET = 192 * 1024
 
 
-def _launch(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
+def launch(x: torch.Tensor, epss: torch.Tensor, bins: int,
+           defines: tuple = ()) -> torch.Tensor:
+    """The kernel's launch on a contiguous (k, n) CUDA stack, from the
+    plain build of ``csrc/qent.cu`` or, with ``defines``, from a variant
+    (the offline search's candidates, ``kernels/tune.py``)."""
     _build.require_cuda(x, "qent_histogram_sweep")
     _build.require_cuda(epss, "qent_histogram_sweep eps")
     k, n = x.shape
@@ -31,14 +36,15 @@ def _launch(x: torch.Tensor, epss: torch.Tensor, bins: int) -> torch.Tensor:
         raise ValueError(f"qent_histogram_sweep: unsupported k={k}, e={e}, "
                          f"bins={bins}")
     hist = torch.zeros((k, e, bins), dtype=torch.int32, device=x.device)
-    fn = _build.load("qent").repro_qent_hist
+    budget = _tune.smem_budget(_tune.backend_kind(x.device))
+    fn = _build.load("qent", defines).repro_qent_hist
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         code = fn(_build.ptr(x), _build.ptr(epss), _build.ptr(hist), k, n, e,
-                  bins, SMEM_BUDGET, _build.stream(x))
+                  bins, budget, _build.stream(x))
     _build.check(code, "qent_histogram_sweep")
     _build.count(qent_histogram_sweep, (k, n, e, bins))
     return hist
@@ -56,7 +62,7 @@ def qent_histogram_sweep(x: torch.Tensor, epss: torch.Tensor,
     epss = epss.to(device=x.device, dtype=torch.float32).reshape(-1)
     if x.device.type == "cpu":
         return _ref.qent_histogram_sweep(x, epss, bins)
-    return _launch(x.contiguous(), epss.contiguous(), bins)
+    return launch(x.contiguous(), epss.contiguous(), bins)
 
 
 qent_histogram_sweep.launches = 0

@@ -769,13 +769,24 @@ def test_parity_with_reference_service(parity):
 
 def test_port_modules_load_without_jax_or_reference():
     """Importing every module of ``repro_torch`` (and constructing a CPU
-    service) loads neither ``jax`` nor ``repro`` into the process."""
+    service, reading the card's hardware from ``kernels.tune`` and
+    sweeping with the kernels' route) loads neither ``jax`` nor
+    ``repro`` into the process, and the CPU route never initializes
+    CUDA."""
     code = (
         "import pkgutil, importlib, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from repro_torch.serve.sweep_service import SweepService\n"
         "SweepService(device='cpu').close()\n"
+        "import torch\n"
+        "from repro_torch.kernels import tune as KT\n"
+        "from repro_torch.core import predictors as P\n"
+        "assert KT.backend_kind('cpu') == 'cpu'\n"
+        "assert KT.smem_budget('h100') == 196608\n"
+        "P.features_sweep(torch.ones((2, 8, 8)), [0.1],\n"
+        "                 P.PredictorConfig(use_kernels=True))\n"
+        "print('CUDA_INIT', torch.cuda.is_initialized())\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('BAD', bad)\n")
@@ -785,6 +796,7 @@ def test_port_modules_load_without_jax_or_reference():
                          env=dict(os.environ, PYTHONPATH=str(src)))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "CUDA_INIT False" in out.stdout, out.stdout
 
 
 def test_advise_cli_service_equals_direct(tmp_path):

@@ -13,7 +13,8 @@ zfp_block}.cu`` must keep the C entry points ``repro_gram_batched``,
 ``repro_zfp_forward2d``; each ZFP is bound by its own tree's argument
 list (the grid's CTAs from ``launch_plan`` where its
 ``kernels/zfp_block/ops.py`` has one, none before); each q-ent is given the
-counter budget its own ``kernels/qent/ops.py`` sets, and each Gram the
+counter budget its own ``kernels/qent/ops.py`` sets (the H100's
+196 608 bytes of ``kernels/tune.smem_budget`` where it sets none), and each Gram the
 argument list of its own tree: the contraction chunks and scratch
 where its ``kernels/gram/ops.py`` sets a ``CHUNK_T`` (the chunked
 kernel), none before (the cluster-split kernel).  Each library is
@@ -165,9 +166,11 @@ def ptxas_info(text: str) -> dict:
 def qent_budget(tree: Path) -> int:
     text = (tree / "src/repro_torch/kernels/qent/ops.py").read_text()
     m = re.search(r"^SMEM_BUDGET = (\d+) \* 1024", text, re.M)
-    if m is None:
-        raise RuntimeError(f"no SMEM_BUDGET in {tree}'s qent/ops.py")
-    return int(m.group(1)) * 1024
+    if m is not None:
+        return int(m.group(1)) * 1024
+    if "smem_budget" in text:          # kernels/tune.smem_budget("h100")
+        return 196608
+    raise RuntimeError(f"no SMEM_BUDGET in {tree}'s qent/ops.py")
 
 
 def zfp_planned(tree: Path) -> bool:

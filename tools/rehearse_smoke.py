@@ -8,7 +8,8 @@ cut (12 + 4 slices of 128 x 128, 10 Gaussian samples of 64 x 64, 8
 volumes of 16 x 24 x 32; a streamed dataset of 10 slices of 64 x 64 and
 7 volumes at a 64 KiB budget; the service's clients 16 requests each
 over 2 hot slices and kv leaves of 4096 values; the load CLI at 64 x
-64; phase 17's process groups all gloo, every shard on the CPU), every
+64; phase 17's process groups all gloo, every shard on the CPU; phase
+20's q-ent shapes at 1/64 of their lengths, on the plain version), every
 tensor on the CPU, the kernel build,
 the quotient proof and the launch-count and built-library checks left
 out and the
@@ -44,7 +45,10 @@ CUTS = [
     ('DIST_NCCL = "nccl"', 'DIST_NCCL = "gloo"'),
     ('            if not r["libraries_found"]:', '            if False:'),
     ('"cuda"', '"cpu"'),
-    ('_build.build()', 'pass'),
+    ('_build.build(variants=KT.qent_variants())', 'pass'),
+    ('TUNE_SHAPE_DIV = 1', 'TUNE_SHAPE_DIV = 64'),
+    ('return qent_ops.launch(x, eps, bins, KT.tile_defines(tile))',
+     'return qent_ops.qent_histogram_sweep(x, eps, bins)'),
     ('    check_quotient(torch, ebs_t)\n', ''),
     ('    missing = [n for n in needs if launches.get(n, 0) <= 0]',
      '    missing = []'),
