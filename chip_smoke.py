@@ -140,11 +140,12 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               (every chunk through an in-process ``SweepService``,
               counted the same way) gives the same report.  The tensors
               of phases 1-13 and 15 are freed before it.
-16. serve CLI -- ``python -m repro_torch.launch.sweep_serve`` in a
-              subprocess (cesm-cloud at 1800^2, zfp trained on 10
-              slices, 8 clients x 8 UC1/UC2 requests): a finite report,
-              ZFP launched in its training and Gram in its serving, its
-              launches by shape read from its report;
+16. serve CLI -- ``launch.sweep_serve.main`` (the CLI's code, in this
+              process: a subprocess's start-up and library load cost
+              the script time it lacks) at cesm-cloud 1800^2, zfp
+              trained on 10 slices, 8 clients x 8 UC1/UC2 requests: a
+              finite report, ZFP launched in its training and Gram in
+              its serving, its launches by shape read from its report;
 17. dist     -- the sharded sweep layer (``repro_torch.dist``) on the
               card, on the training sweep (32 cesm-cloud slices of
               1800^2, the 6-eb grid, ``use_kernels=True``, features and
@@ -206,12 +207,30 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               the advise runs' training and padded service chunks, the
               load CLI, the Dist path's blocks), against its plain
               version and timed, on fresh cesm-cloud slices and
-              miranda-vx volumes.
+              miranda-vx volumes;
+22. llm      -- the LLM serving path (``repro_torch.models``,
+              ``serve.engine``, ``launch.serve``; no kernel of its own:
+              products are ``torch.matmul``) at granite-3-2b's full
+              width and depth, random parameters, in this process:
+              (a) ``launch.serve.main`` with ``--batch 4 --prompt-len 32
+              --steps 16 --max-len 256 --kv-compress``, then again with
+              ``--kv-gate-service``: the same ids and metering, one
+              kv_gate request of 2 rows, times and peak memory logged;
+              (b) float32, prefill 15 tokens and decode the 16th against
+              the full forward's last logits (bound 1e-4, the
+              reference's); (c) at 2 layers, parameters made on the CPU
+              and copied to the card, prefill logits, K/V caches and 4
+              teacher-forced decode steps card against CPU within the
+              CPU tests' bounds (float32 rtol 1e-5 / atol 2e-5, bfloat16
+              4 ulps of the largest |value|); (d) (a)'s K and V leaves:
+              the gate's CRs, rewritten leaves and metering on the card
+              bit-equal to the CPU's.
 Phases 5, 8-11, 14, 15, 17 and 18 (their form (a)) each set the
 kernels' launch counters to 0 just before they run and read them just
-after, and the subprocesses (advise, advise ``--service``, the load
-CLI, the process groups and advise runs of phase 17, phase 18's group
-and CLI, phase 19's groups) count theirs by shape around their work;
+after, and the load CLI (in this process) and the subprocesses
+(advise, advise ``--service``, the process groups and advise runs of
+phase 17, phase 18's group and CLI, phase 19's groups) count theirs by
+shape around their work;
 phase 17's are summed into one path, "Dist", phase 18's into "Fabric"
 and phase 19's into "Fault".  A
 kernel a path needs that it did not launch fails the run.  A kernel
@@ -232,8 +251,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import faulthandler
 import gc
+import io
 import json
 import math
 import os
@@ -303,6 +324,14 @@ QENT_BINS = 65536
 # phase 20: the full search's q-ent shapes are divided by this (1: their
 # own lengths)
 TUNE_SHAPE_DIV = 1
+# phase 22: the LLM serving path at granite-3-2b's full width and depth
+LLM_ARCH = "granite-3-2b"
+LLM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--steps", "16",
+                  "--max-len", "256", "--kv-compress", "--device", "cuda"]
+LLM_DECODE_TOL = 1e-4           # (b): the reference's bound at smoke size
+LLM_CMP_LAYERS = 2              # (c): the card against the CPU, full width
+LLM_F32_TOL = dict(rtol=1e-5, atol=2e-5)   # tests/test_torch_models.py's
+LLM_BF16_ULPS = 4               # ... and its bfloat16 bound
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -2586,47 +2615,37 @@ def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
 
 
 def phase_serve_cli(card) -> dict:
-    """Phase 16: the load CLI (``python -m repro_torch.launch.sweep_serve``)
-    in a subprocess at the main path's width: a finite report, ZFP
-    launched in its training and Gram in its serving.  Returns (report,
-    its training's and serving's launches by shape, as one path's)."""
-    build = ROOT / "build"
-    build.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="serve_cli_", dir=build)
-    try:
-        path = os.path.join(tmp, "serve.json")
-        cmd = [sys.executable, "-m", "repro_torch.launch.sweep_serve",
-               "--fields", FIELD, "--n", str(SERVE_CLI_N), "--train-slices",
-               "10", "--compressor", "zfp", "--clients", "8", "--requests",
-               "64", "--device", "cuda", "--out", path]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        t = time.perf_counter()
-        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                              timeout=SERVE_CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"sweep_serve exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        with open(path) as f:
-            report = json.load(f)
-        for line in proc.stdout.strip().splitlines():
-            log(f"sweep_serve | {line}")
-        nums = [report[k] for k in ("wall_s", "req_per_s", "p50_ms", "p95_ms",
-                                    "p99_ms", "max_ms", "train_s")]
-        if report["requests"] != 64 or not np.all(np.isfinite(nums)):
-            raise AssertionError(f"sweep_serve: bad report {nums}")
-        require_launches("sweep_serve's training", report["launches_train"],
-                         ("zfp_forward2d",))
-        require_launches("sweep_serve's serving", report["launches_serve"],
-                         ("gram_batched",))
-        log(f"sweep_serve: {wall:.2f} s wall; report finite; zfp launched "
-            f"{report['launches_train']['zfp_forward2d']} times in training",
-            card)
-        report.pop("stats")
-        return (dict(report, cli_wall_s=wall),
-                by_shape_counts(report["launches_by_shape"].values()))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    """Phase 16: the load CLI (``launch.sweep_serve.main``, as ``python -m
+    repro_torch.launch.sweep_serve`` runs it) in this process at the main
+    path's width: a finite report, ZFP launched in its training and Gram
+    in its serving.  Returns (report, its training's and serving's
+    launches by shape, as one path's; the CLI counts them around its own
+    work)."""
+    from repro_torch.launch import sweep_serve as SS
+    argv = ["--fields", FIELD, "--n", str(SERVE_CLI_N), "--train-slices",
+            "10", "--compressor", "zfp", "--clients", "8", "--requests",
+            "64", "--device", "cuda"]
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        report = SS.main(argv)
+    wall = time.perf_counter() - t
+    for line in buf.getvalue().strip().splitlines():
+        log(f"sweep_serve | {line}")
+    nums = [report[k] for k in ("wall_s", "req_per_s", "p50_ms", "p95_ms",
+                                "p99_ms", "max_ms", "train_s")]
+    if report["requests"] != 64 or not np.all(np.isfinite(nums)):
+        raise AssertionError(f"sweep_serve: bad report {nums}")
+    require_launches("sweep_serve's training", report["launches_train"],
+                     ("zfp_forward2d",))
+    require_launches("sweep_serve's serving", report["launches_serve"],
+                     ("gram_batched",))
+    log(f"sweep_serve: {wall:.2f} s wall; report finite; zfp launched "
+        f"{report['launches_train']['zfp_forward2d']} times in training",
+        card)
+    report.pop("stats")
+    return (dict(report, cli_wall_s=wall),
+            by_shape_counts(report["launches_by_shape"].values()))
 
 
 def dist_child(job_file: str) -> int:
@@ -3081,6 +3100,228 @@ def path_rows(torch, TS, counts, rows, ebs, vol_eps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the LLM serving path
+# ---------------------------------------------------------------------------
+
+def llm_close(got, want, dtype: str, what: str) -> float:
+    """The CPU tests' parity bound: float32 rtol 1e-5 / atol 2e-5, bfloat16
+    4 ulps of the largest |value| compared.  Returns the max abs error."""
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    err = float((got - want).abs().max())
+    if dtype == "float32":
+        ok = bool(((got - want).abs() <= LLM_F32_TOL["atol"]
+                   + LLM_F32_TOL["rtol"] * want.abs()).all())
+        tol = f"rtol {LLM_F32_TOL['rtol']} / atol {LLM_F32_TOL['atol']}"
+    else:
+        m = max(float(want.abs().max()), 2.0 ** -126)
+        bound = LLM_BF16_ULPS * 2.0 ** (math.floor(math.log2(m)) - 7)
+        ok, tol = err <= bound, f"{bound:g} ({LLM_BF16_ULPS} ulps of {m:g})"
+    if not ok:
+        raise AssertionError(f"llm (c) {dtype} {what}: max abs err {err:g} "
+                             f"outside {tol}")
+    return err
+
+
+def llm_card_vs_cpu(torch, card) -> dict:
+    """(c): granite-3-2b's width at 2 layers, parameters made once on the
+    CPU and copied to the card; prefill logits, K/V caches and 4
+    teacher-forced decode steps, card against CPU, in float32 and
+    bfloat16, at the CPU tests' bounds."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import causal_lm as CLM
+    from repro_torch.models import model as M
+    from repro_torch.models import params as PRM
+
+    cfg = dataclasses.replace(get_arch(LLM_ARCH), num_layers=LLM_CMP_LAYERS)
+    tree = PRM.init_params(M.param_table(cfg),
+                           torch.Generator().manual_seed(2))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    rec = {}
+    for dtype in ("float32", "bfloat16"):
+        cfgd = dataclasses.replace(cfg, dtype=dtype)
+        dt = getattr(torch, dtype)
+        cpu = CLM.CausalLM(cfgd, PRM.tree_unflatten(
+            tree, [x.to(dt) for x in PRM.tree_leaves(tree)]))
+        dev = CLM.CausalLM(cfgd, PRM.tree_unflatten(
+            tree, [x.to("cuda").to(dt) for x in PRM.tree_leaves(tree)]))
+        errs = {"logits": 0.0, "k": 0.0, "v": 0.0}
+        with torch.inference_mode():
+            lc, cc = M.prefill(cpu, {"tokens": toks[:, :12]}, cfgd, 24)
+            lg, cg = M.prefill(dev, {"tokens": toks[:, :12].to("cuda")},
+                               cfgd, 24)
+            for i in range(12, 17):
+                what = "prefill" if i == 12 else f"decode {i - 1}"
+                errs["logits"] = max(errs["logits"],
+                                     llm_close(lg, lc, dtype, what))
+                for name in ("k", "v"):
+                    errs[name] = max(errs[name], llm_close(
+                        getattr(cg["seg0"], name), getattr(cc["seg0"], name),
+                        dtype, f"{what} {name}"))
+                if not torch.equal(cg["seg0"].pos.cpu(), cc["seg0"].pos):
+                    raise AssertionError(f"llm (c) {dtype} {what}: pos")
+                if i < 16:
+                    lc, cc = M.decode_step(cpu, cc, toks[:, i:i + 1], i, cfgd)
+                    lg, cg = M.decode_step(dev, cg, toks[:, i:i + 1].to(
+                        "cuda"), i, cfgd)
+        rec[dtype] = dict(errs, max_logit=float(lc.float().abs().max()))
+        del cpu, dev
+    log(f"llm (c) card vs CPU at d_model {cfg.d_model}, {LLM_CMP_LAYERS} "
+        f"layers, prefill + 4 teacher-forced steps: max abs err "
+        + json.dumps(rec), card)
+    return rec
+
+
+def int_bits(torch, x):
+    """``x``'s bits as a same-size integer tensor (``torch.equal`` on
+    floats would take -0 for 0)."""
+    return x.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[x.element_size()])
+
+
+def llm_gate_bits(torch, gate) -> dict:
+    """(d): run (a)'s K and V leaves, CRs and quantize/dequantize on the
+    card bit-equal to the CPU's, and the metering equal."""
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.train import grad_compress as GC
+    ratio = ServeConfig().kv_gate_ratio          # the launcher's gate
+    before, after, saved, total = gate
+    want_saved = want_total = 0
+    crs = []
+    for i, x in enumerate(before):
+        if x.ndim < 4:
+            if not torch.equal(after[i], x):
+                raise AssertionError("llm (d): a non-candidate leaf changed")
+            continue
+        cr_card = GC.predicted_cr_int8(x.float()).cpu()
+        xc = x.cpu()
+        cr_cpu = GC.predicted_cr_int8(xc.float())
+        if not torch.equal(int_bits(torch, cr_card), int_bits(torch, cr_cpu)):
+            raise AssertionError(f"llm (d): leaf {i} CR card {cr_card} != "
+                                 f"CPU {cr_cpu}")
+        crs.append(float(cr_cpu))
+        want_total += x.numel() * x.element_size()
+        want = xc
+        if float(cr_cpu) >= ratio:
+            nb = -(-x.numel() // GC.BLOCK)
+            want_saved += x.numel() * x.element_size() - nb * (GC.BLOCK + 4)
+            want = GC.dequantize_int8(*GC.quantize_int8(xc.float()),
+                                      xc.shape, xc.dtype)
+        if not torch.equal(int_bits(torch, after[i].cpu()),
+                           int_bits(torch, want)):
+            raise AssertionError(f"llm (d): leaf {i} rewritten != CPU's")
+    if (saved, total) != (want_saved, want_total):
+        raise AssertionError(f"llm (d): metering {saved}/{total} != CPU's "
+                             f"{want_saved}/{want_total}")
+    return {"crs": crs, "saved": saved, "total": total}
+
+
+def phase_llm(torch, card) -> dict:
+    """Phase 22: the LLM serving path at granite-3-2b's full width and
+    depth, in this process.  (a) ``launch.serve.main`` with
+    ``--kv-compress`` and again with ``--kv-gate-service``: the same ids
+    and metering, one kv_gate request of 2 rows; (b) float32 parameters,
+    prefill 15 tokens and decode the 16th against the full forward's last
+    logits; (c) card against CPU at 2 layers (``llm_card_vs_cpu``); (d)
+    (a)'s gate on the card against the CPU (``llm_gate_bits``)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import causal_lm as CLM
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve import engine as E
+
+    rec, gates = {}, []
+    orig = E.Engine._maybe_compress_cache
+
+    def gate(self, cache):
+        before = [x.clone() for x in tree_leaves(cache)]
+        out = orig(self, cache)
+        gates.append((before, [x.clone() for x in tree_leaves(out)],
+                      self.kv_saved_bytes, self.kv_total_bytes))
+        return out
+
+    E.Engine._maybe_compress_cache = gate
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for name, extra in (("direct", []), ("service", ["--kv-gate-service"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                r = LS.main(["--arch", LLM_ARCH] + LLM_SERVE_ARGS + extra)
+            for line in buf.getvalue().splitlines():
+                log(f"serve {name} | {line}")
+            rec[name] = r
+    finally:
+        E.Engine._maybe_compress_cache = orig
+    a, b = rec["direct"], rec["service"]
+    nums = [r[k] for r in (a, b) for k in ("init_s", "prefill_s", "gate_s",
+                                           "decode_ms_per_step",
+                                           "tokens_per_s")]
+    if a["shape"] != [4, 16] or not np.all(np.isfinite(nums)):
+        raise AssertionError(f"llm (a): bad report {a['shape']} {nums}")
+    if a["ids"] != b["ids"]:
+        raise AssertionError("llm (a): the service run's ids differ")
+    if (a["kv_saved_bytes"], a["kv_total_bytes"]) != \
+            (b["kv_saved_bytes"], b["kv_total_bytes"]) or \
+            not 0 < a["kv_saved_bytes"] < a["kv_total_bytes"]:
+        raise AssertionError(f"llm (a): metering {a['kv_saved_bytes']}/"
+                             f"{a['kv_total_bytes']} vs {b['kv_saved_bytes']}"
+                             f"/{b['kv_total_bytes']}")
+    if (b["kv_gate"]["completed"], b["kv_gate"]["rows"]) != (1, 2):
+        raise AssertionError(f"llm (a): kv_gate stats {b['kv_gate']}")
+    if len(gates) != 2 or not all(
+            torch.equal(int_bits(torch, x), int_bits(torch, y))
+            for x, y in zip(gates[0][1], gates[1][1])):
+        raise AssertionError("llm (a): the two runs' gated caches differ")
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    vocab = get_arch(LLM_ARCH).vocab_size
+    rec["padded_vocab_ids"] = int(sum(i >= vocab for row in a["ids"]
+                                      for i in row))
+    for name in ("direct", "service"):
+        r = rec[name]
+        log(f"llm (a) {name}: {r['params']:,} parameters, "
+            f"{r['param_bytes'] / 1e9:.3f} GB, init {r['init_s']:.3f} s, "
+            f"prefill {r['prefill_s'] * 1e3:.2f} ms, gate "
+            f"{r['gate_s'] * 1e3:.2f} ms, decode "
+            f"{r['decode_ms_per_step']:.3f} ms/step, "
+            f"{r['tokens_per_s']:.1f} tokens/s, KV saved "
+            f"{r['kv_saved_bytes']:,}/{r['kv_total_bytes']:,} B", card)
+    log(f"llm (a): ids equal with and without the service; kv_gate "
+        f"{json.dumps(b['kv_gate'])}; {rec['padded_vocab_ids']} of 64 ids "
+        f">= vocab {vocab}; peak device memory {rec['peak_gib']:.2f} GiB")
+
+    rec["gate_bits"] = llm_gate_bits(torch, gates[0])
+    log(f"llm (d): CRs {rec['gate_bits']['crs']} card == CPU, rewritten "
+        "leaves and metering == CPU's")
+    del gates
+
+    cfg = dataclasses.replace(get_arch(LLM_ARCH), dtype="float32")
+    model = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    model = model.float()
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)).to("cuda")
+    with torch.inference_mode():
+        full = CLM.logits_fn(model, CLM.forward(model, toks, cfg))[:, 15]
+        _, cache = M.prefill(model, {"tokens": toks[:, :15]}, cfg, 20)
+        lg, _ = M.decode_step(model, cache, toks[:, 15:16], 15, cfg)
+    err = float((lg - full).abs().max())
+    rec["decode_vs_forward"] = {"max_abs_err": err,
+                                "max_logit": float(full.abs().max())}
+    log(f"llm (b) float32 decode vs forward at full width: max abs err "
+        f"{err:.3g} (|logit| <= {rec['decode_vs_forward']['max_logit']:.3g},"
+        f" bound {LLM_DECODE_TOL})")
+    if not err < LLM_DECODE_TOL:
+        raise AssertionError(f"llm (b): decode vs forward {err}")
+    del model, cache, full, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec["card_vs_cpu"] = llm_card_vs_cpu(torch, card)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -3115,6 +3356,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # products accumulate in float32, as XLA's do (phase 22)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -3395,7 +3638,7 @@ def main(argv=None) -> int:
         kernels += stream_kernels
         stages["stream_phase_s"] = time.perf_counter() - t
 
-        # ---- phase 16: the load CLI in a subprocess
+        # ---- phase 16: the load CLI, in this process
         t = time.perf_counter()
         served["sweep_serve"], counts["Serve CLI"] = phase_serve_cli(smi)
         stages["serve_cli_s"] = time.perf_counter() - t
@@ -3414,6 +3657,14 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     kernels += path_rows(torch, TS, counts, kernels, ebs, vol_eps)
     stages["path_rows_s"] = time.perf_counter() - t
+
+    # ---- phase 22: the LLM serving path at granite-3-2b's full width, in
+    # this process, on a card freed of the phases' tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    llm = phase_llm(torch, smi)
+    stages["llm_phase_s"] = time.perf_counter() - t
 
     # every row's launches in each path that launched its shape; its
     # `launches` is the count of the first of them (the main path where it
@@ -3451,7 +3702,7 @@ def main(argv=None) -> int:
             uc3_feasible=feasible, peak_gib=peak_gb, profile=profiled,
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
-            dist=dist, fabric=fabric, fault=fault, tune=tuned,
+            dist=dist, fabric=fabric, fault=fault, tune=tuned, llm=llm,
             sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],

@@ -1,8 +1,11 @@
-"""Carry a fitted model across from the reference package.
+"""Carry a fitted model, or a language model's weights, across from the
+reference package.
 
 A fitted reference model is exported as plain numpy arrays and Python
 values (this package never imports the reference, so the export is the
-caller's); these functions rebuild the port's objects from them.
+caller's); these functions rebuild the port's objects from them.  An LM's
+parameters and KV cache come as the reference's trees with numpy leaves
+(``jax.tree.map(np.asarray, params)``): ``lm_params`` and ``lm_cache``.
 
 The state of one CR model::
 
@@ -29,6 +32,8 @@ from repro_torch.core import pipeline as PL
 from repro_torch.core import predictors as P
 from repro_torch.core import regression as R
 from repro_torch.core import usecases as UC
+from repro_torch.models import causal_lm as CLM
+from repro_torch.models.params import tree_leaves, tree_unflatten
 
 
 def _t(a, device) -> torch.Tensor:
@@ -74,3 +79,28 @@ def eb_grid_model(state: Dict[str, Any], device="cuda") -> UC.EbGridModel:
         np.asarray(state["ebs"], np.float64),
         [cr_predictor(m, state.get("cfg"), device) for m in state["models"]],
         state.get("name", ""), predictor_config(state.get("cfg")), quality)
+
+
+def array(a, device="cuda") -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype and values; bfloat16
+    (``ml_dtypes``' numpy type, which torch cannot read) by its bits."""
+    a = np.array(a)                      # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params(tree, cfg, device="cuda") -> CLM.CausalLM:
+    """The port's model holding a reference parameter tree's values in
+    its dtypes; raises ``ValueError`` on a missing, extra or mis-shaped
+    leaf."""
+    return CLM.CausalLM(cfg, tree_unflatten(
+        tree, [array(a, device) for a in tree_leaves(tree)]))
+
+
+def lm_cache(tree, device="cuda") -> dict:
+    """The port's cache from a reference ``{"seg0": AttnCache(k, v, pos)}``
+    tree with numpy leaves."""
+    return {seg: CLM.AttnCache(*(array(a, device) for a in entry))
+            for seg, entry in tree.items()}

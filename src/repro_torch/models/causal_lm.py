@@ -1,0 +1,298 @@
+"""Decoder-only causal LM, dense family (``repro/models/causal_lm.py``).
+
+  dense -- stablelm-3b, codeqwen1.5-7b, granite-8b, granite-3-2b
+
+The parameter table is the reference's, stacked over layers
+(``seg0.attn.wq`` is (n, d, hq * hd)); ``CausalLM`` holds it as an
+``nn.Module`` with one module per layer, each parameter a view of its
+layer's slice, so ``layers.3.attn.wq`` is ``seg0.attn.wq[3]``.  Weights
+keep the reference's (d_in, d_out) layout: ``x @ W`` is its einsum.
+
+The KV cache is the reference's too: one stacked ``AttnCache`` per
+segment, k and v (n, B, T, Hkv, hd) and pos (n, B, T) int32 with
+unwritten slots at 10**9.  Layer i reads and writes slice i in place,
+so ``prefill`` and ``decode_step`` return the cache they were given,
+written.  The KV gate scores whole leaves, so per-layer caches would
+change its decisions and byte counts.
+
+The other families (moe, mla_moe, vlm, ssm, hybrid, encdec) are ROADMAP
+Queue 1 item 5; training (``xent_loss``, ``loss_fn``, remat) item 4.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDef, tree_flatten
+
+_FAMILIES = ("dense",)
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported: the port "
+            "builds the dense family; the others are ROADMAP Queue 1 "
+            "item 5")
+
+
+def act_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ===========================================================================
+# Parameter tables
+# ===========================================================================
+
+def _attn_table(n: int, cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    t = {
+        "wq": ParamDef((n, d, hq * hd), ("layers", "fsdp", "model")),
+        "wk": ParamDef((n, d, hkv * hd), ("layers", "fsdp", "model")),
+        "wv": ParamDef((n, d, hkv * hd), ("layers", "fsdp", "model")),
+        "wo": ParamDef((n, hq * hd, d), ("layers", "model", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = ParamDef((n, hq * hd), ("layers", "model"), init="zeros")
+        t["bk"] = ParamDef((n, hkv * hd), ("layers", "model"), init="zeros")
+        t["bv"] = ParamDef((n, hkv * hd), ("layers", "model"), init="zeros")
+    return t
+
+
+def _mlp_table(n: int, cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wg": ParamDef((n, d, f), ("layers", "fsdp", "model")),
+        "wu": ParamDef((n, d, f), ("layers", "fsdp", "model")),
+        "wd": ParamDef((n, f, d), ("layers", "model", "fsdp")),
+    }
+
+
+def _norms_table(n: int, cfg: ModelConfig, names) -> Dict[str, ParamDef]:
+    return {k: ParamDef((n, cfg.d_model), ("layers", None), init="ones")
+            for k in names}
+
+
+def _layer_table(n: int, cfg: ModelConfig) -> dict:
+    """Table for a stack of ``n`` homogeneous dense layers."""
+    t = {"attn": _attn_table(n, cfg), "mlp": _mlp_table(n, cfg)}
+    t.update(_norms_table(n, cfg, ["norm1", "norm2"]))
+    return t
+
+
+def segments(cfg: ModelConfig):
+    """Layer segmentation: one ("scan", num_layers) segment (dense)."""
+    check_family(cfg)
+    return [("scan", cfg.num_layers)]
+
+
+def param_table(cfg: ModelConfig) -> dict:
+    v = cfg.padded_vocab
+    t = {
+        "embed": ParamDef((v, cfg.d_model), (None, "model"), init="embed"),
+        "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
+        "lm_head": ParamDef((cfg.d_model, v), ("fsdp", "model")),
+    }
+    for i, (_, n) in enumerate(segments(cfg)):
+        t[f"seg{i}"] = _layer_table(n, cfg)
+    return t
+
+
+# ===========================================================================
+# The model: parameters as modules
+# ===========================================================================
+
+def _param(x: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(x, requires_grad=False)
+
+
+class _Params(nn.Module):
+    """A flat group of parameters (``attn``, ``mlp``) of one layer."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for k, x in tensors.items():
+            setattr(self, k, _param(x))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, seg: dict, i: int):
+        super().__init__()
+        self.attn = _Params({k: x[i] for k, x in seg["attn"].items()})
+        self.mlp = _Params({k: x[i] for k, x in seg["mlp"].items()})
+        self.norm1 = _param(seg["norm1"][i])
+        self.norm2 = _param(seg["norm2"][i])
+
+
+class CausalLM(nn.Module):
+    """The dense model from a parameter tree shaped as ``param_table(cfg)``
+    (stacked layers; any float dtype).  Raises ``ValueError`` on a
+    missing, extra or mis-shaped leaf."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__()
+        want = dict(tree_flatten(param_table(cfg),
+                                 lambda x: isinstance(x, ParamDef)))
+        got = dict(tree_flatten(tree))
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        if missing or extra:
+            raise ValueError(f"{cfg.name}: parameter tree misses {missing} "
+                             f"and has extra {extra}")
+        bad = [f"{k}: {tuple(got[k].shape)} != {want[k].shape}"
+               for k in want if tuple(got[k].shape) != want[k].shape]
+        if bad:
+            raise ValueError(f"{cfg.name}: mis-shaped parameters {bad}")
+        self.cfg = cfg
+        self.embed = _param(tree["embed"])
+        self.final_norm = _param(tree["final_norm"])
+        self.lm_head = _param(tree["lm_head"])
+        self.layers = nn.ModuleList(DecoderLayer(tree["seg0"], i)
+                                    for i in range(cfg.num_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens, caches=None, pos_offset: int = 0):
+        return forward(self, tokens, self.cfg, caches=caches,
+                       pos_offset=pos_offset)
+
+
+# ===========================================================================
+# KV caches
+# ===========================================================================
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor         # (n, B, T, Hkv, hd)   [stacked over layers]
+    v: torch.Tensor
+    pos: torch.Tensor       # (n, B, T) absolute positions of slots
+
+
+def _attn_cache(n: int, b: int, t: int, cfg: ModelConfig, dtype,
+                device) -> AttnCache:
+    shape = (n, b, t, cfg.num_kv_heads, cfg.hd)
+    return AttnCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((n, b, t), 10 ** 9, dtype=torch.int32, device=device),
+    )
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Dict[str, AttnCache]:
+    """Cache tree keyed by segment, in the activation dtype."""
+    dtype = act_dtype(cfg)
+    return {f"seg{i}": _attn_cache(n, batch, max_len, cfg, dtype, device)
+            for i, (_, n) in enumerate(segments(cfg))}
+
+
+# ===========================================================================
+# Blocks
+# ===========================================================================
+
+def _project_qkv(x, p, cfg: ModelConfig):
+    b, s, _ = x.shape
+    q, k, v = L.dot(x, p.wq), L.dot(x, p.wk), L.dot(x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, cfg.num_heads, cfg.hd)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.hd)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def _rope_qk(q, k, positions, cfg: ModelConfig):
+    return (L.apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary),
+            L.apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary))
+
+
+def attn_block(x, p, cfg: ModelConfig, *,
+               cache: Optional[AttnCache] = None, pos_offset: int = 0):
+    """Causal GQA attention; with a cache, the decode (S == 1) or prefill
+    write into this layer's (B, T, ...) slices, in place.  (Windowed
+    layers belong to the hybrid family.)"""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg)
+    positions = pos_offset + torch.arange(s, device=x.device)[None, :]
+    q, k = _rope_qk(q, k, positions, cfg)
+
+    if cache is None:
+        out = L.attention(q, k, v, causal=True, q_offset=0)
+    elif s == 1:  # decode: ring-buffer or linear cache write
+        ck, cv, cpos = cache
+        slot = pos_offset % ck.shape[1]
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        cpos[:, slot] = pos_offset
+        out = L.attention(q, ck, cv, causal=True, q_offset=pos_offset,
+                          kv_positions=cpos)
+    else:  # prefill: attend over the full local K/V, cache stores the tail
+        ck, cv, cpos = cache
+        t = ck.shape[1]
+        k_tail, v_tail = k[:, -t:], v[:, -t:]
+        pos_tail = positions[:, -t:].to(torch.int32).expand(b, min(s, t))
+        if t < s:  # ring buffer: place position p at slot p % t
+            shift = s % t
+            k_tail = torch.roll(k_tail, shift, dims=1)
+            v_tail = torch.roll(v_tail, shift, dims=1)
+            pos_tail = torch.roll(pos_tail, shift, dims=1)
+        n = min(s, t)
+        ck[:, :n] = k_tail
+        cv[:, :n] = v_tail
+        cpos[:, :n] = pos_tail
+        out = L.attention(q, k, v, causal=True, q_offset=0)
+    out = out.reshape(b, s, cfg.num_heads * cfg.hd)
+    return L.dot(out, p.wo)
+
+
+def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *,
+              cache: Optional[AttnCache] = None, pos_offset: int = 0):
+    """One dense transformer layer.  cache: this layer's entry."""
+    x = x + attn_block(L.rms_norm(x, lp.norm1), lp.attn, cfg, cache=cache,
+                       pos_offset=pos_offset)
+    m = lp.mlp
+    return x + L.swiglu(L.rms_norm(x, lp.norm2), m.wg, m.wu, m.wd)
+
+
+# ===========================================================================
+# Model forward: embed -> layers -> norm -> head
+# ===========================================================================
+
+def forward(model: CausalLM, tokens: torch.Tensor, cfg: ModelConfig, *,
+            caches=None, pos_offset: int = 0):
+    """tokens: (B, S) int -> final-normed hidden (B, S, D); with ``caches``
+    (dict per segment, written in place) also returns them."""
+    x = model.embed[tokens.long()].to(act_dtype(cfg))
+    seg = caches["seg0"] if caches is not None else None
+    for i, lp in enumerate(model.layers):
+        lc = (AttnCache(seg.k[i], seg.v[i], seg.pos[i])
+              if seg is not None else None)
+        x = layer_fwd(x, lp, cfg, cache=lc, pos_offset=pos_offset)
+    x = L.rms_norm(x, model.final_norm)
+    return (x, caches) if caches is not None else x
+
+
+def logits_fn(model: CausalLM, hidden: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(hidden, model.lm_head.to(hidden.dtype))
+
+
+def prefill(model: CausalLM, tokens: torch.Tensor, cfg: ModelConfig,
+            max_len: int):
+    """Returns (last-token logits (B, V), populated cache)."""
+    caches = init_cache(cfg, tokens.shape[0], max_len, model.device)
+    hidden, caches = forward(model, tokens, cfg, caches=caches)
+    return logits_fn(model, hidden[:, -1:])[:, 0], caches
+
+
+def decode_step(model: CausalLM, caches, token: torch.Tensor, pos,
+                cfg: ModelConfig):
+    """token: (B, 1) int; pos: the absolute position (an int).  Writes the
+    token's K/V into ``caches`` and returns (logits (B, V), caches)."""
+    hidden, caches = forward(model, token, cfg, caches=caches,
+                             pos_offset=int(pos))
+    return logits_fn(model, hidden)[:, 0], caches

@@ -1,0 +1,54 @@
+"""Model facade (``repro/models/model.py``) for the ported families.
+
+Builds the model of a config, sizes it without allocating, and gives
+the serving entry points (``prefill``, ``decode_step``, ``init_cache``).
+Here "params" is the ``causal_lm.CausalLM`` module.  Only the dense
+family is built; whisper (``encdec``) and the other families raise
+``NotImplementedError`` (ROADMAP Queue 1 item 5), as do the dry-run's
+``input_specs`` / ``abstract_*`` and the mesh's ``param_specs`` /
+``cache_logical_axes``, which are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import causal_lm as CLM
+from repro_torch.models import params as PRM
+
+
+def param_table(cfg: ModelConfig):
+    return CLM.param_table(cfg)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> CLM.CausalLM:
+    """A randomly initialized model on ``generator``'s device."""
+    return CLM.CausalLM(cfg, PRM.init_params(param_table(cfg), generator))
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return PRM.count(param_table(cfg))
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Per-token active parameters: every one in a dense model."""
+    return count_params(cfg)
+
+
+def prefill(params: CLM.CausalLM, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, max_len: int):
+    return CLM.prefill(params, batch["tokens"], cfg, max_len)
+
+
+def decode_step(params: CLM.CausalLM, cache, token: torch.Tensor, pos,
+                cfg: ModelConfig):
+    """token: (B, 1); pos: the current absolute position."""
+    return CLM.decode_step(params, cache, token, pos, cfg)
+
+
+def init_cache(cfg: ModelConfig, params: CLM.CausalLM, batch: int,
+               max_len: int):
+    """The cache tree on ``params``' device."""
+    return CLM.init_cache(cfg, batch, max_len, device=params.device)

@@ -86,8 +86,8 @@ def _f32(eps) -> float:
 
 def _host_f32(x) -> np.ndarray:
     """A tensor (any device) or array-like as a float32 numpy array."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
+    if isinstance(x, torch.Tensor):      # bfloat16 has no numpy dtype
+        x = x.detach().to(torch.float32).cpu().numpy()
     return np.asarray(x, np.float32)
 
 

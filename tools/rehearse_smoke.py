@@ -9,8 +9,10 @@ volumes of 16 x 24 x 32; a streamed dataset of 10 slices of 64 x 64 and
 7 volumes at a 64 KiB budget; the service's clients 16 requests each
 over 2 hot slices and kv leaves of 4096 values; the load CLI at 64 x
 64; phase 17's process groups all gloo, every shard on the CPU; phase
-20's q-ent shapes at 1/64 of their lengths, on the plain version), every
-tensor on the CPU, the kernel build,
+20's q-ent shapes at 1/64 of their lengths, on the plain version; phase
+22 on granite-3-2b's smoke config, 2 layers of d_model 64, for its
+launcher runs, its decode check, its CPU comparison and the gate's
+leaves), every tensor on the CPU, the kernel build,
 the quotient proof and the launch-count and built-library checks left
 out and the
 kernel-check phase cut to ZFP's, then runs it with ``torch.cuda``'s
@@ -44,6 +46,10 @@ CUTS = [
     ('DIST_DEVICE = "cuda:0"', 'DIST_DEVICE = "cpu"'),
     ('DIST_NCCL = "nccl"', 'DIST_NCCL = "gloo"'),
     ('            if not r["libraries_found"]:', '            if False:'),
+    ('"--kv-compress", "--device", "cuda"]',
+     '"--kv-compress", "--device", "cuda", "--smoke"]'),
+    ('from repro_torch.configs.base import get_arch',
+     'from repro_torch.configs.base import get_smoke as get_arch'),
     ('"cuda"', '"cpu"'),
     ('_build.build(variants=KT.qent_variants())', 'pass'),
     ('TUNE_SHAPE_DIV = 1', 'TUNE_SHAPE_DIV = 64'),
