@@ -78,7 +78,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               reported only, which library reductions the sweep used to
               run over the batch (std, mean, eigvalsh, cumsum, a float64
               sum, the entropy sum) give a row other bits in the batch.
-              Then the eb grid: each of 4 slices at 1800^2 and 2 volumes
+              Then the eb grid: each of 2 slices at 1800^2 and 1 volume
               at each eb of a 6-eb grid, features under both q-ent routes
               and quality, bit-equal swept at that eb alone, in the grid,
               in an 8-eb bucket padded with its last eb and in a 12-eb
@@ -94,7 +94,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               ``predict_psnr`` at 9 ebs and the UC1, UC2 and UC3 answers
               on the 8 held-out slices;
 15. serve    -- (run after 13, before 14 frees phase 5's models)
-              ``SweepService`` on the card: 8 client threads x 64
+              ``SweepService`` on the card: 8 client threads x 32
               requests of its seven methods (featurize on the 6-eb grid
               and on a 3-eb subgrid with one eb off it, find_eb with
               sz3-lorenzo at targets 4, 8, 16, best_compressor over the
@@ -129,11 +129,11 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               them with (a chunk of 41 slices, one of 3 volumes, read
               from the dataset), against their plain versions and timed,
               as in phase 12.  Then the advise CLI on the dataset
-              (trained on 4 rows of each variable) in a
-              subprocess (its ``main``, as ``python -m
-              repro_torch.launch.advise`` runs it, with the launches of
-              each variable's training and stream counted around the two
-              calls): a finite report, launches of Lorenzo and ZFP in its
+              (trained on 4 rows of each variable) in this process (its
+              ``main``, as ``python -m repro_torch.launch.advise`` runs
+              it, with the launches of each variable's training and
+              stream counted around the two calls; no process start-up
+              to pay for): a finite report, launches of Lorenzo and ZFP in its
               training and of Gram, q-ent and quality in its stream, and
               the 2-D variable's CRs equal to ``AdviseMethod.cr_table`` on
               the in-memory features.  The same CLI with ``--service``
@@ -160,7 +160,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               between the ranks, and phase 14's two streams under the
               group.  (b) and (c) run in fresh interpreters (``--dist-child``),
               each group under its own wall-clock limit.  Then the advise
-              CLI with ``--mesh cuda:0,cuda:0`` in one process and over a
+              CLI with ``--mesh cuda:0,cuda:0`` in this process and over a
               two-rank gloo group (``--coordinator``).  Every result is bit-equal
               to one device (the tables to the main path's, the streams
               to phase 14's in-memory sweeps, the reports byte for byte
@@ -224,13 +224,45 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               CPU tests' bounds (float32 rtol 1e-5 / atol 2e-5, bfloat16
               4 ulps of the largest |value|); (d) (a)'s K and V leaves:
               the gate's CRs, rewritten leaves and metering on the card
-              bit-equal to the CPU's.
-Phases 5, 8-11, 14, 15, 17 and 18 (their form (a)) each set the
+              bit-equal to the CPU's.  (Run right after 17, before 23.)
+23. train    -- LLM training (``repro_torch.train``, ``ckpt``,
+              ``launch.train``; the step's products are ``torch.matmul``)
+              in this process, its launches counted as the "Train" path
+              and held by phase 21, which runs after it: (a)
+              ``make_train_step`` at granite-3-2b's full width and depth
+              (2 635 237 376 bfloat16 parameters from seed 0, the state
+              donated), 4 steps of batch 4 x seq 512 in 2 microbatches
+              with ``CompressConfig()`` and ``AdamWConfig(lr=1e-3)``:
+              step ms (median of steps 2-4), tokens/s, model FLOP/s (6 N
+              tokens / step) and its share of the 989 TFLOP/s bfloat16
+              peak, peak device memory, each step's loss, grad_norm,
+              mean_pred_cr and gated leaves; finite losses, changed
+              parameters and zero residuals on ungated leaves asserted;
+              (b) at 2 layers of full width, parameters made on the CPU,
+              batch 2 x 64, float32 and bfloat16: loss and every gradient
+              leaf card against CPU (float32 rtol 1e-5 / atol 1e-5 of
+              the largest |value|, bfloat16 16 ulps of it),
+              ``compress_tree`` of the float32 gradients and one AdamW
+              step (clip inactive) of the bfloat16 parameters bit-equal,
+              on each leaf's first 2^22 values; (c) at 2
+              layers, ``loop.run`` for 4 steps with a checkpoint every
+              2, step 4 deleted and the loop restarted: the resumed
+              parameters within rtol 1e-5 / atol 1e-6 of the
+              uninterrupted run's (bit-equality reported); a UC2-driven
+              lossy checkpoint (sz3-lorenzo and zfp CR models trained
+              on 12 miranda-vx slices of 96^2): every tensor within
+              ``rel_eb`` x range + a bfloat16 ulp but a constant one (the
+              reference's eb floor of 1e-12), predicted and achieved CR,
+              time and bytes logged, loaded back for one finite step; a
+              codec UC2 picks for no tensor gets a checkpoint of its
+              own; (d) ``launch.train.main`` with ``--smoke --steps 8
+              --compress --lossy-ckpt`` on the card.
+Phases 5, 8-11, 14, 15, 17, 18 (their form (a)) and 23 each set the
 kernels' launch counters to 0 just before they run and read them just
-after, and the load CLI (in this process) and the subprocesses
-(advise, advise ``--service``, the process groups and advise runs of
-phase 17, phase 18's group and CLI, phase 19's groups) count theirs by
-shape around their work;
+after, and the load CLI and the advise runs (in this process) and the
+subprocesses (the process groups and 2-rank advise of phase 17, phase
+18's group and CLI, phase 19's groups) count theirs by shape around
+their work;
 phase 17's are summed into one path, "Dist", phase 18's into "Fabric"
 and phase 19's into "Fault".  A
 kernel a path needs that it did not launch fails the run.  A kernel
@@ -284,11 +316,11 @@ N_STREAM_VOL = 7                                # miranda-vx, float32 on disk
 STREAM_BUDGET_MB = 512
 ADVISE_TIMEOUT_S = 600
 ADVISE_TRAIN_ROWS = 4           # rows of each variable the advise runs train on
-# phase 15: the sweep service, 8 clients x 64 requests of the seven
+# phase 15: the sweep service, 8 clients x 32 requests of the seven
 # methods (featurize on the grid and on a 3-eb subgrid with one eb off
 # it), 4 hot held-out slices and the other 4 once each
 SEED = 0
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 64, 4
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 32, 4
 SERVE_KINDS = ("featurize", "featurize_sub", "find_eb", "best_compressor",
                "advise", "find_setting", "quality", "kv_gate")
 SERVE_COLD_KINDS = ("featurize", "find_eb", "best_compressor", "quality")
@@ -332,7 +364,21 @@ LLM_DECODE_TOL = 1e-4           # (b): the reference's bound at smoke size
 LLM_CMP_LAYERS = 2              # (c): the card against the CPU, full width
 LLM_F32_TOL = dict(rtol=1e-5, atol=2e-5)   # tests/test_torch_models.py's
 LLM_BF16_ULPS = 4               # ... and its bfloat16 bound
+# phase 23: LLM training at granite-3-2b's full width and depth
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 4, 512, 2, 4   # (a)
+TRAIN_LR = 1e-3
+TRAIN_CMP_LAYERS, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 2, 2, 64     # (b)
+TRAIN_BF16_ULPS = 16            # tests/test_torch_train.py's gradient bound
+TRAIN_HEAD_VALUES = 1 << 22     # (b): values of each leaf compress_tree
+                                # and AdamW are held on
+TRAIN_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+TRAIN_CKPT_STEPS, TRAIN_CKPT_EVERY = 4, 2                       # (c)
+TRAIN_RESTART_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_train.py:105
+TRAIN_CLI_ARGS = ["--smoke", "--steps", "8", "--compress", "--lossy-ckpt",
+                  "--device", "cuda"]                            # (d)
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 SPIN_CYCLES = 10_000_000    # ~5 ms at the H100's 1.98 GHz boost clock
@@ -2418,6 +2464,51 @@ def advise_counts(what: str, launches: dict) -> dict:
                            for phase in var["by_shape"].values())
 
 
+def advise_run(torch, argv) -> tuple[list, dict]:
+    """The advise CLI's ``main`` in this process, as ``python -m
+    repro_torch.launch.advise`` runs it (no process start-up for phase
+    14's two runs and phase 17's mesh run), each variable's training and
+    sweep launches counted as ``ADVISE_CHILD`` counts them.
+    Returns (its printed lines, the launches in ``ADVISE_CHILD``'s JSON
+    form)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import advise as ADV
+    trained, out = {}, {}
+    orig_train, orig_variable = ADV.train_models, ADV.advise_variable
+
+    def train(source, name, *args, **kwargs):
+        res = orig_train(source, name, *args, **kwargs)
+        trained[name] = K.launch_counts()
+        return res
+
+    def variable(source, name, *args, **kwargs):
+        before = K.launch_counts()
+        res = orig_variable(source, name, *args, **kwargs)
+        (t, ts), (s, ss) = (K.launches_since(before, trained[name]),
+                            K.launches_since(trained[name]))
+        out[name] = {"train": t, "sweep": s,
+                     "by_shape": {"train": ts, "sweep": ss}}
+        return res
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ADV.train_models, ADV.advise_variable = train, variable
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ADV.main(argv)
+    finally:
+        ADV.train_models, ADV.advise_variable = orig_train, orig_variable
+        # hand the card back as the run's exit did: the process groups
+        # that follow need tens of GiB of it
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"advise run done: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved "
+        "by this process")
+    return buf.getvalue().strip().splitlines(), json.loads(json.dumps(out))
+
+
 def advise_args(dataset) -> list:
     """The advise CLI's arguments on phase 14's dataset (phase 17 adds
     its mesh and process-group options to them)."""
@@ -2530,32 +2621,20 @@ def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
     del want_k, want_v
     rows = stream_rows(torch, src, STREAM_FIELD, vol_name, ebs)
 
-    # the advise CLI as a user runs it, launches counted around it
+    # the advise CLI as a user runs it, in this process, launches
+    # counted around it
     report_path = os.path.join(tmp, "report.json")
-    launches_path = os.path.join(tmp, "launches.json")
-    cmd = [sys.executable, "-c", ADVISE_CHILD, launches_path,
-           *advise_args(path), "--out", report_path]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    # the subprocess's compressor runs need tens of GiB of the card:
-    # hand back what this process's allocator holds cached
-    gc.collect()
-    torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     log(f"advise starts with {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
         f"GiB of the card free ({torch.cuda.memory_allocated() / 2 ** 30:.2f}"
         " GiB allocated by this process)")
     t = time.perf_counter()
-    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                          timeout=ADVISE_TIMEOUT_S)
+    lines, launches = advise_run(torch, [*advise_args(path), "--out",
+                                         report_path])
     out["advise_s"] = time.perf_counter() - t
-    if proc.returncode != 0:
-        raise AssertionError(f"advise exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     with open(report_path) as f:
         report = json.load(f)
-    with open(launches_path) as f:
-        launches = json.load(f)
-    for line in proc.stdout.strip().splitlines():
+    for line in lines:
         log(f"advise | {line}")
     for name, var in report["variables"].items():
         nums = [c for cs in var["cr_by_compressor"].values() for c in cs]
@@ -2584,21 +2663,12 @@ def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
     # the same CLI with each chunk served by an in-process
     # SweepService, its launches counted the same way
     svc_path = os.path.join(tmp, "report_service.json")
-    svc_launches_path = os.path.join(tmp, "launches_service.json")
     t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", ADVISE_CHILD, svc_launches_path,
-         *advise_args(path), "--service", "--out", svc_path], env=env,
-        capture_output=True, text=True, timeout=ADVISE_TIMEOUT_S)
+    _, svc_launches = advise_run(torch, [*advise_args(path), "--service",
+                                         "--out", svc_path])
     out["advise_service_s"] = time.perf_counter() - t
-    if proc.returncode != 0:
-        raise AssertionError(f"advise --service exited {proc.returncode}:"
-                             f"\n{proc.stdout[-3000:]}\n"
-                             f"{proc.stderr[-3000:]}")
     with open(svc_path) as f:
         served = json.load(f)
-    with open(svc_launches_path) as f:
-        svc_launches = json.load(f)
     paths["Advise --service"] = advise_counts("advise --service",
                                               svc_launches)
     if served != report:
@@ -2921,7 +2991,13 @@ def phase_dist(torch, ebs, vol_eps, tmp, crs_tables, card):
             cmds.append([sys.executable, "-c", ADVISE_CHILD,
                          str(launch_files[-1]), *advise_args(tmp / "ds"),
                          *extra, "--out", str(tmp / f"report_{tag}.json")])
-        out[f"{what} s"] = run_group(what, cmds, tmp, ADVISE_TIMEOUT_S)
+        if tag == "mesh":       # one process: this one
+            t = time.perf_counter()
+            _, launches = advise_run(torch, cmds[0][4:])
+            out[f"{what} s"] = time.perf_counter() - t
+            launch_files[0].write_text(json.dumps(launches))
+        else:
+            out[f"{what} s"] = run_group(what, cmds, tmp, ADVISE_TIMEOUT_S)
         if (tmp / f"report_{tag}.json").read_bytes() != report:
             raise AssertionError(f"{what}: report differs from the direct "
                                  "advise report")
@@ -3015,11 +3091,13 @@ def path_rows(torch, TS, counts, rows, ebs, vol_eps):
     """Every kernel at every shape a path launched it with that no row
     above holds -- Serve's own batches and its warmup's, the advise
     CLI's training and its ``--service`` chunks padded to their row
-    buckets, the load CLI's training and serving -- against its plain
-    version at the tolerance of its kind and timed as in phase 12, on
-    fresh cesm-cloud slices of 1800^2 (cut to a smaller shape; a batch
-    larger than the pool repeats it, as a padded launch repeats its
-    last row) and miranda-vx volumes."""
+    buckets, the load CLI's training and serving, the Train path's
+    lossy checkpoint -- against its plain version at the tolerance of
+    its kind and timed as in phase 12, on fresh cesm-cloud slices of
+    1800^2 (cut to a smaller shape; a batch larger than the pool repeats
+    it, as a padded launch repeats its last row), miranda-vx volumes, and
+    parameter-like normals where a shape exceeds a slice (the packed
+    weights, up to (24704, 4096))."""
     have = {(r["name"].split(" ")[0], tuple(r["shape"])) for r in rows}
     todo = sorted({(kernel, shape) for c in counts.values()
                    for kernel, kc in c.items() for shape in kc["by_shape"]
@@ -3059,24 +3137,32 @@ def path_rows(torch, TS, counts, rows, ebs, vol_eps):
     def f32(vals):
         return torch.tensor(vals, dtype=torch.float32, device="cuda")
 
+    def fits(m, n):
+        return m <= pool.shape[1] and n <= pool.shape[2]
+
+    def param_like(*shape):
+        """Weights as the Train path's lossy checkpoint packs them (its
+        ``_pack2d`` slices of 4096 columns): normal, std 0.02."""
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        return 0.02 * torch.randn(shape, generator=g, device="cuda")
+
+    d0, d1, d2 = VOL_SHAPE
     out = []
     for kernel, shape in todo:
         if kernel == "gram_batched":
             k, m, n, tr = shape
-            if tr:
+            if tr and fits(m, n):
                 x = slices_k(k, m, n)
                 x = x - x.mean(dim=1, keepdim=True)
-            else:
+            elif not tr and (m, n) in ((d0, d1 * d2), (d1, d0 * d2)):
                 v = vols_k(k)
                 v = v - v.mean(dim=(1, 2, 3), keepdim=True)
-                d0, d1, d2 = VOL_SHAPE
-                if (m, n) == (d0, d1 * d2):
-                    x = v.reshape(k, m, n)
-                elif (m, n) == (d1, d0 * d2):
-                    x = torch.movedim(v, 2, 1).reshape(k, m, n)
-                else:
-                    raise AssertionError(f"no input for gram at {shape}")
+                x = (v.reshape(k, m, n) if (m, n) == (d0, d1 * d2)
+                     else torch.movedim(v, 2, 1).reshape(k, m, n))
                 del v
+            else:
+                x = param_like(k, m, n)
+                x = x - x.mean(dim=1 if tr else 2, keepdim=True)
             out.append(gram_row(torch, x, 5, cold=k == 1, transpose=tr,
                                 scaled=not tr))
         elif kernel == "qent_histogram_sweep":
@@ -3089,10 +3175,16 @@ def path_rows(torch, TS, counts, rows, ebs, vol_eps):
             flat, grid = flat_k(k, nel)
             out.append(quality_row(torch, flat, f32(eps_for(grid, e)), 10))
         elif kernel == "lorenzo2d":
-            out.append(lorenzo_row(torch, slices_k(1, *shape)[0],
-                                   float(ebs[1])))
+            if fits(*shape):
+                out.append(lorenzo_row(torch, slices_k(1, *shape)[0],
+                                       float(ebs[1])))
+            else:       # the lossy policy's eb: 1e-4 of the range
+                x = param_like(*shape)
+                out.append(lorenzo_row(torch, x, 1e-4 * float(
+                    x.max() - x.min())))
         elif kernel == "zfp_forward2d":
-            out.append(zfp_row(torch, slices_k(1, *shape)[0]))
+            out.append(zfp_row(torch, slices_k(1, *shape)[0] if fits(*shape)
+                               else param_like(*shape)))
         else:
             raise AssertionError(f"no row for kernel {kernel}")
         x = flat = None
@@ -3320,6 +3412,440 @@ def phase_llm(torch, card) -> dict:
 
     rec["card_vs_cpu"] = llm_card_vs_cpu(torch, card)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 23: LLM training
+# ---------------------------------------------------------------------------
+
+def train_close(torch, got, want, dtype: str, what: str) -> float:
+    """The training tests' bounds: float32 rtol 1e-5 / atol 1e-5 of the
+    largest |value|, bfloat16 16 ulps of the largest |value|.  Returns
+    the max abs error."""
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    err = float((got - want).abs().max())
+    m = float(want.abs().max())
+    if dtype == "float32":
+        ok = bool(((got - want).abs() <= 1e-5 * m + 1e-5 * want.abs()).all())
+        tol = "rtol 1e-5 / atol 1e-5 x max"
+    else:
+        ulp = 2.0 ** (math.floor(math.log2(max(m, 2.0 ** -126))) - 7)
+        ok, tol = err <= TRAIN_BF16_ULPS * ulp, f"{TRAIN_BF16_ULPS} ulps of {m:g}"
+    if not ok:
+        raise AssertionError(f"train (b) {dtype} {what}: max abs err {err:g} "
+                             f"outside {tol}")
+    return err
+
+
+def same_tree_bits(torch, what: str, got, want) -> None:
+    from repro_torch.models.params import tree_flatten
+    want = dict(tree_flatten(want))
+    for k, x in tree_flatten(got):
+        if not torch.equal(int_bits(torch, x.cpu()), int_bits(torch, want[k])):
+            raise AssertionError(f"train (b) {what} {k}: card != CPU on "
+                                 f"{int((x.cpu() != want[k]).sum())} values")
+
+
+def train_full_width(torch, card) -> dict:
+    """(a): ``make_train_step`` at granite-3-2b's full width and depth,
+    random parameters from seed 0, donated state, 4 steps of batch 4 x
+    seq 512 in 2 microbatches with ``CompressConfig()`` and
+    ``AdamWConfig(lr=1e-3)``."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import make_data_iter
+    from repro_torch.models.params import tree_flatten, tree_leaves
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+    cfg = get_arch(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = TS.init_state(cfg, torch.Generator("cuda").manual_seed(0),
+                          compress=True)
+    torch.cuda.synchronize()
+    rec = {"init_s": time.perf_counter() - t}
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"train (a): {n_params} parameters")
+    before = {k: x.reshape(-1)[:1 << 20].clone()
+              for k, x in tree_flatten(state.params)}
+    ccfg = GC.CompressConfig()
+    crs_seen, orig = [], GC.compress_tree
+
+    def spy(grads, ef, c, inplace=False):
+        out = orig(grads, ef, c, inplace)
+        crs_seen.append({k: float(v) for k, v in tree_flatten(out[2])})
+        return out
+
+    step = TS.make_train_step(cfg, OPT.AdamWConfig(lr=TRAIN_LR),
+                              microbatches=TRAIN_MB, compress=ccfg,
+                              donate=True)
+    data = make_data_iter(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
+    steps = []
+    GC.compress_tree = spy
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = data(i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            m = {k: float(v) for k, v in m.items()}
+            crs = crs_seen[-1]
+            gated = sorted(k for k, c in crs.items() if c >= ccfg.gate_ratio)
+            for k, r in tree_flatten(state.ef.residuals):
+                if k not in gated and bool(r.any()):
+                    raise AssertionError(f"train (a) step {i}: {k} was not "
+                                         "gated but its residual is not 0")
+            steps.append(dict(ms=ms, gated=gated, crs=crs, **m))
+            log(f"train (a) step {i}: {ms:.1f} ms, loss {m['loss']:.5f}, "
+                f"grad_norm {m['grad_norm']:.5f}, mean_pred_cr "
+                f"{m['mean_pred_cr']:.4f}, {len(gated)}/{len(crs)} leaves "
+                f"gated (CRs {min(crs.values()):.3f}-"
+                f"{max(crs.values()):.3f})", card)
+    finally:
+        GC.compress_tree = orig
+    if not all(np.isfinite([s["loss"], s["grad_norm"], s["mean_pred_cr"]]).all()
+               for s in steps):
+        raise AssertionError(f"train (a): non-finite metrics {steps}")
+    changed = {k: int((x.reshape(-1)[:1 << 20] != before[k]).sum())
+               for k, x in tree_flatten(state.params)}
+    if not changed["embed"]:
+        raise AssertionError("train (a): the parameters did not change")
+    step_s = float(np.median([s["ms"] for s in steps[1:]])) / 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec.update(
+        params=n_params, steps=steps, step_ms=step_s * 1e3,
+        tokens_per_s=tokens / step_s, model_flops_per_s=6.0 * n_params
+        * tokens / step_s, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        changed_of_first_2_20=changed)
+    rec["bf16_peak_share"] = rec["model_flops_per_s"] / PEAK_BF16_FLOPS
+    log(f"train (a) {cfg.name}: {n_params:,} parameters, init "
+        f"{rec['init_s']:.3f} s; step {rec['step_ms']:.1f} ms (median of "
+        f"steps 2-{TRAIN_STEPS}), {rec['tokens_per_s']:.1f} tokens/s, model "
+        f"{rec['model_flops_per_s'] / 1e12:.2f} TFLOP/s (6 N tokens / step, "
+        f"{100 * rec['bf16_peak_share']:.2f} % of the 989 TFLOP/s bfloat16 "
+        f"peak), peak device memory {rec['peak_gib']:.2f} GiB; first 2^20 "
+        f"values changed by leaf " + json.dumps(changed), card)
+    del state, before, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_card_vs_cpu(torch, card) -> dict:
+    """(b): granite-3-2b's width at 2 layers, parameters made on the CPU
+    and copied to the card, batch 2 x seq 64, float32 and bfloat16: the
+    loss and every gradient leaf card against CPU at the training tests'
+    bounds; then each piece bit for bit in the dtype (a) runs it in, on
+    a tree of each leaf's first 2^22 values (its CPU side over the whole
+    tree would take ~10-20 s each): ``compress_tree`` of the CPU's
+    float32 gradients and random residuals, and one AdamW step (clip
+    inactive) of the bfloat16 parameters on those sent gradients with
+    random moments.  The CPU tests hold both pieces in both dtypes
+    against the reference."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import make_data_iter
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_flatten, tree_leaves, tree_unflatten
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    def dev(tree):
+        return tree_unflatten(tree, [x.to("cuda") for x in tree_leaves(tree)])
+
+    def draws(tree, scale, uniform=False):
+        """Random float32 leaves like ``tree``'s, drawn on the card (the
+        host's generator would take seconds) and copied to the CPU."""
+        draw = torch.rand if uniform else torch.randn
+        return tree_unflatten(tree, [
+            (draw(x.shape, generator=gen, device="cuda") * scale).cpu()
+            for x in tree_leaves(tree)])
+
+    def head(tree):
+        """The first ``TRAIN_HEAD_VALUES`` values of every leaf."""
+        return tree_unflatten(tree, [x.reshape(-1)[:TRAIN_HEAD_VALUES]
+                                     for x in tree_leaves(tree)])
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_CMP_LAYERS)
+    tree = M.init_tree(cfg, torch.Generator().manual_seed(5))
+    batch = make_data_iter(cfg, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ, seed=6,
+                           device="cpu")(0)
+    gen = torch.Generator("cuda").manual_seed(7)
+    # the clip inactive (its norm's summation order is the library's):
+    # the update is then the same bits on every device
+    ocfg = OPT.AdamWConfig(lr=TRAIN_LR, grad_clip=1e9)
+    rec = {}
+    for dtype in ("float32", "bfloat16"):
+        t = time.perf_counter()
+        cfgd = dataclasses.replace(cfg, dtype=dtype)
+        dt = getattr(torch, dtype)
+        cpu = tree_unflatten(tree, [x.to(dt) for x in tree_leaves(tree)])
+        r = {}
+        t1 = time.perf_counter()
+        lc, gc_ = TS._grads(cfgd, cpu, batch, 1, remat=False)
+        r["cpu_grads_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        lg, gg = TS._grads(cfgd, dev(cpu), {k: v.to("cuda") for k, v
+                                           in batch.items()}, 1)
+        torch.cuda.synchronize()
+        r["card_grads_s"] = time.perf_counter() - t1
+        r["loss"] = (float(lg), float(lc))
+        if abs(float(lg) - float(lc)) > TRAIN_LOSS_RTOL[dtype] * abs(float(lc)):
+            raise AssertionError(f"train (b) {dtype}: loss {float(lg)} != "
+                                 f"{float(lc)}")
+        want = dict(tree_flatten(gc_))
+        r["grad_err"] = {k: train_close(torch, x, want[k], dtype, k)
+                         for k, x in tree_flatten(gg)}
+        del gg
+        if dtype == "float32":      # (a) gates float32 microbatch sums
+            gh = head(gc_)
+            res = draws(gh, 1e-4)
+            t1 = time.perf_counter()
+            sc, ec, cc = GC.compress_tree(gh, GC.EFState(res),
+                                          GC.CompressConfig())
+            r["cpu_compress_s"] = time.perf_counter() - t1
+            sg, eg, cg = GC.compress_tree(dev(gh), GC.EFState(dev(res)),
+                                          GC.CompressConfig())
+            same_tree_bits(torch, f"{dtype} sent", sg, sc)
+            same_tree_bits(torch, f"{dtype} residuals", eg.residuals,
+                           ec.residuals)
+            same_tree_bits(torch, f"{dtype} CRs", cg, cc)
+            r["crs"] = {k: float(v) for k, v in tree_flatten(cc)}
+            sent = sc
+            del sg, eg, cg, ec, cc, res, gh
+        else:                       # ... and updates bfloat16 parameters
+            cpu = head(cpu)
+            mu, nu = draws(cpu, 1e-3), draws(cpu, 1e-6, uniform=True)
+            st = OPT.OptState(torch.tensor(3, dtype=torch.int32), mu, nu)
+            t1 = time.perf_counter()
+            pc, oc, nc = OPT.apply(ocfg, cpu, sent, st)
+            r["cpu_adamw_s"] = time.perf_counter() - t1
+            pg, og, ng = OPT.apply(ocfg, dev(cpu), dev(sent), OPT.OptState(
+                st.step, dev(mu), dev(nu)))
+            r["grad_norm"] = (float(ng), float(nc))
+            same_tree_bits(torch, f"{dtype} AdamW params", pg, pc)
+            same_tree_bits(torch, f"{dtype} AdamW mu", og.mu, oc.mu)
+            same_tree_bits(torch, f"{dtype} AdamW nu", og.nu, oc.nu)
+            del mu, nu, pc, oc, pg, og, sent
+        del gc_
+        r["s"] = time.perf_counter() - t
+        rec[dtype] = r
+        log(f"train (b) {dtype} card vs CPU at d_model {cfg.d_model}, "
+            f"{TRAIN_CMP_LAYERS} layers, batch {TRAIN_CMP_BATCH} x "
+            f"{TRAIN_CMP_SEQ}: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f}, "
+            f"max gradient err {max(r['grad_err'].values()):.3g}; "
+            + (f"compress_tree of the float32 gradients bit-equal (CRs "
+               f"{min(r['crs'].values()):.4f}-{max(r['crs'].values()):.4f}; "
+               f"each leaf's first {TRAIN_HEAD_VALUES:,} values)"
+               if "crs" in r else
+               f"one AdamW step of the bfloat16 parameters on those sent "
+               f"gradients bit-equal (clip inactive; norms "
+               f"{r['grad_norm'][0]:.5f} / {r['grad_norm'][1]:.5f})")
+            + f"; {r['s']:.2f} s (" + ", ".join(
+                f"{k} {v:.2f}" for k, v in r.items() if k.endswith("_s")
+                and k != "s") + ")", card)
+        del cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def train_predictors(torch):
+    """UC2's recipe (``tests/test_system.py``): sz3-lorenzo and zfp CR
+    models trained on 12 miranda-vx slices of 96^2 at eps = 1e-4 of their
+    range, on the card."""
+    from repro_torch import compressors as C
+    from repro_torch.core import pipeline as PL
+    from repro_torch.data import scientific as TSC
+    slices = TSC.field_slices("miranda-vx", count=12, n=96, device="cuda")
+    eps = 1e-4 * float(slices.max() - slices.min())
+    out = {}
+    for name in ("sz3-lorenzo", "zfp"):
+        crs = torch.tensor([C.get(name).cr(x, eps) for x in slices],
+                           dtype=torch.float32, device="cuda")
+        out[name] = PL.CRPredictor.train(slices, crs, eps)
+    return out
+
+
+def train_checkpoints(torch, card, tmp) -> dict:
+    """(c): at full width and 2 layers, ``loop.run`` for 4 steps with a
+    checkpoint every 2, then step 4's deleted and the loop restarted: the
+    resumed parameters == the uninterrupted run's within rtol 1e-5 / atol
+    1e-6 (bit-equality reported); then one UC2-driven lossy checkpoint of
+    the parameters (each tensor's error bound asserted, but on a
+    constant tensor, whose zero range the reference floors to an eb of
+    1e-12: its error is logged; predicted and achieved CR, time and
+    bytes logged), loaded back for one finite step.  A codec UC2 picks for no tensor gets a checkpoint of its own
+    (the policy's fallback compressor), so that both encodes' kernels run."""
+    from repro_torch.ckpt import checkpoint as CKPT
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import make_data_iter
+    from repro_torch.models.params import tree_flatten, tree_leaves
+    from repro_torch.train import loop as LOOP
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_CMP_LAYERS)
+    step = TS.make_train_step(cfg, OPT.AdamWConfig(lr=TRAIN_LR),
+                              microbatches=TRAIN_MB, donate=True)
+    data = make_data_iter(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=8, device="cuda")
+
+    def fresh():
+        return TS.init_state(cfg, torch.Generator("cuda").manual_seed(9))
+
+    d = os.path.join(tmp, "ckpt")
+    lc = LOOP.LoopConfig(total_steps=TRAIN_CKPT_STEPS,
+                         ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=d)
+    rec = {}
+    t = time.perf_counter()
+    sa, ra = LOOP.run(cfg, fresh(), step, data, lc)
+    torch.cuda.synchronize()
+    rec["run_s"] = time.perf_counter() - t
+    shutil.rmtree(os.path.join(d, f"step_{TRAIN_CKPT_STEPS:08d}"))
+    t = time.perf_counter()
+    sb, rb = LOOP.run(cfg, fresh(), step, data, lc)
+    torch.cuda.synchronize()
+    rec["restart_s"] = time.perf_counter() - t
+    if rb.restarts != 1 or sorted(rb.losses) != list(
+            range(TRAIN_CKPT_EVERY, TRAIN_CKPT_STEPS)):
+        raise AssertionError(f"train (c): restart ran {sorted(rb.losses)}")
+    diff = {}
+    for (k, a), b in zip(tree_flatten(sa.params), tree_leaves(sb.params)):
+        af, bf = a.float(), b.float()
+        if not bool(((af - bf).abs() <= TRAIN_RESTART_TOL["atol"]
+                     + TRAIN_RESTART_TOL["rtol"] * af.abs()).all()):
+            raise AssertionError(f"train (c): resumed {k} differs beyond "
+                                 f"{TRAIN_RESTART_TOL}")
+        diff[k] = int((a != b).sum())
+    rec.update(bit_equal=not any(diff.values()), differing_values=diff,
+               losses={"run": ra.losses, "restart": rb.losses})
+    log(f"train (c) loop: {TRAIN_CKPT_STEPS} steps with a checkpoint every "
+        f"{TRAIN_CKPT_EVERY} in {rec['run_s']:.2f} s; restart from step "
+        f"{TRAIN_CKPT_EVERY} in {rec['restart_s']:.2f} s; resumed parameters "
+        f"within rtol 1e-5 / atol 1e-6, bit-equal: {rec['bit_equal']} "
+        f"(differing values by leaf {json.dumps(diff)}); losses "
+        f"{json.dumps({str(k): v for k, v in ra.losses.items()})} vs "
+        f"{json.dumps({str(k): v for k, v in rb.losses.items()})}", card)
+    del sa
+    shutil.rmtree(d, ignore_errors=True)
+
+    t = time.perf_counter()
+    preds = train_predictors(torch)
+    rec["predictors_s"] = time.perf_counter() - t
+    params = sb.params
+    flat = CKPT._leaf_paths(params)
+    policies = [("uc2", CKPT.LossyPolicy(enabled=True, rel_eb=1e-4,
+                                         min_size=4096, predictors=preds,
+                                         device="cuda"))]
+    rec["lossy"] = {}
+    i = 0
+    while i < len(policies):
+        tag, pol = policies[i]
+        i += 1
+        d2 = os.path.join(tmp, f"lossy_{tag}")
+        t = time.perf_counter()
+        man = CKPT.save(d2, 0, params, pol)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t
+        disk = sum(os.path.getsize(os.path.join(d2, "step_00000000", f))
+                   for f in os.listdir(os.path.join(d2, "step_00000000")))
+        restored = CKPT.load(d2, 0, params)
+        lossy = {k: e for k, e in man["tensors"].items() if e["codec"] != "raw"}
+        back = CKPT._leaf_paths(restored)
+        constant = []
+        for k in lossy:
+            o, r_ = flat[k].float(), back[k].float()
+            rng = float(o.max() - o.min())
+            slack = 1.1e-4 * rng + float(o.abs().max()) * 2.0 ** -8
+            err = float((o - r_).abs().max())
+            if rng == 0.0:
+                # the reference's eb floor, 1e-12, puts a constant's
+                # codes past int32 (ROADMAP Queue 3, reference notes)
+                constant.append(k)
+            elif not err <= slack:
+                raise AssertionError(f"train (c) {tag} {k}: error {err} > "
+                                     f"{slack}")
+            lossy[k] = dict(lossy[k], max_err=err, bound=slack)
+        metered = sum(e["metered_bytes"] for e in lossy.values())
+        raw = sum(e["raw_bytes"] for e in lossy.values())
+        rec["lossy"][tag] = dict(save_s=save_s, disk_bytes=disk,
+                                 metered_bytes=metered, raw_bytes=raw,
+                                 tensors=lossy, constant=constant)
+        log(f"train (c) {tag} lossy checkpoint: {len(lossy)} of "
+            f"{len(man['tensors'])} tensors lossy, {save_s:.2f} s, "
+            f"{raw:,} raw -> {metered:,} metered bytes (CR "
+            f"{raw / max(metered, 1):.3f}), {disk:,} bytes on disk "
+            "(decompressed form); every error within its bound but on the "
+            f"constant tensors {constant} (the reference's eb floor)", card)
+        for k, e in lossy.items():
+            log(f"train (c) {tag} {k} {tuple(flat[k].shape)}: {e['codec']} "
+                f"eps {e['eps']:.4g}, predicted CR "
+                + ("n/a" if e["predicted_cr"] is None
+                   else f"{e['predicted_cr']:.4f}")
+                + f", achieved {e['achieved_cr']:.4f}, max err "
+                f"{e['max_err']:.4g}, bound {e['bound']:.4g}")
+        if tag == "uc2":
+            used = {e["codec"] for e in lossy.values()}
+            for name in sorted(set(preds) - used):
+                policies.append((name, CKPT.LossyPolicy(
+                    enabled=True, rel_eb=1e-4, min_size=4096,
+                    compressor=name, device="cuda")))
+            state = TS.TrainState(restored, sb.opt, None)
+            state, m = step(state, data(TRAIN_CKPT_STEPS))
+            rec["restored_loss"] = float(m["loss"])
+            if not np.isfinite(rec["restored_loss"]):
+                raise AssertionError("train (c): the restored state's step "
+                                     "is not finite")
+            log(f"train (c): the restored parameters train: loss "
+                f"{rec['restored_loss']:.5f}")
+            del state
+        del restored, back
+        shutil.rmtree(d2, ignore_errors=True)
+    del sb, params, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train(torch, card, tmp) -> tuple[dict, dict]:
+    """Phase 23: LLM training (``repro_torch.train``, ``ckpt``,
+    ``launch.train``) in this process, its kernel launches counted as
+    the "Train" path: (a) ``train_full_width``, (b) ``train_card_vs_cpu``,
+    (c) ``train_checkpoints`` (the lossy checkpoint runs Gram, Lorenzo and
+    ZFP), (d) ``launch.train.main`` with ``--smoke --steps 8 --compress
+    --lossy-ckpt`` on the card."""
+    from repro_torch.launch import train as LT
+    rec = {}
+    zero_counts(torch)
+    for key, fn in (("a", lambda: train_full_width(torch, card)),
+                    ("b", lambda: train_card_vs_cpu(torch, card)),
+                    ("c", lambda: train_checkpoints(torch, card, tmp))):
+        t = time.perf_counter()
+        rec[key] = fn()
+        rec[f"{key}_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = LT.main(["--arch", TRAIN_ARCH, *TRAIN_CLI_ARGS, "--ckpt-dir",
+                     os.path.join(tmp, "cli")])
+    rec["d_s"] = time.perf_counter() - t
+    for line in buf.getvalue().splitlines():
+        log(f"train (d) | {line}")
+    if sorted(r["losses"]) != list(range(8)) or not np.all(
+            np.isfinite(list(r["losses"].values()))):
+        raise AssertionError(f"train (d): losses {r['losses']}")
+    rec["d"] = {"losses": r["losses"], "step_s": r["step_s"]}
+    log(f"train (d) launch.train {' '.join(TRAIN_CLI_ARGS)}: 8 finite "
+        f"losses, {rec['d_s']:.2f} s", card)
+    counts = read_counts(torch, "Train", ("gram_batched", "lorenzo2d",
+                                          "zfp_forward2d"))
+    log("train: stages s " + json.dumps({k: round(v, 2) for k, v in
+                                         rec.items() if k.endswith("_s")}),
+        card)
+    return rec, counts
 
 
 def main(argv=None) -> int:
@@ -3583,8 +4109,8 @@ def main(argv=None) -> int:
         (f"{VOL_FIELD} volumes", vols, [vol_eps], picks(vols, 2))], smi)
     # ... nor on the eb grid it is launched with
     stages["eb_independence_s"], eb_probes = check_eb_independence(torch, [
-        (f"{FIELD} slices", data[picks(data, 4)], ebs),
-        (f"{VOL_FIELD} volumes", vols[picks(vols, 2)],
+        (f"{FIELD} slices", data[picks(data, 2)], ebs),
+        (f"{VOL_FIELD} volumes", vols[picks(vols, 1)],
          vol_eps * 10.0 ** np.linspace(-1.0, 0.25, 6))], smi)
     # ... and a prediction is the same bits on the card as on the CPU
     stages["prediction_bits_s"] = check_prediction_bits(
@@ -3652,12 +4178,6 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- phase 21: every shape a path launched that no row above holds:
-    # its kernel against the plain version there, timed
-    t = time.perf_counter()
-    kernels += path_rows(torch, TS, counts, kernels, ebs, vol_eps)
-    stages["path_rows_s"] = time.perf_counter() - t
-
     # ---- phase 22: the LLM serving path at granite-3-2b's full width, in
     # this process, on a card freed of the phases' tensors
     gc.collect()
@@ -3665,6 +4185,24 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     llm = phase_llm(torch, smi)
     stages["llm_phase_s"] = time.perf_counter() - t
+
+    # ---- phase 23: LLM training at granite-3-2b's full width, in this
+    # process; its kernels' shapes are held by phase 21 below
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="train_", dir=ROOT / "build")
+    try:
+        t = time.perf_counter()
+        trained, counts["Train"] = phase_train(torch, smi, tmp)
+        stages["train_phase_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- phase 21: every shape a path launched that no row above holds:
+    # its kernel against the plain version there, timed
+    t = time.perf_counter()
+    kernels += path_rows(torch, TS, counts, kernels, ebs, vol_eps)
+    stages["path_rows_s"] = time.perf_counter() - t
 
     # every row's launches in each path that launched its shape; its
     # `launches` is the count of the first of them (the main path where it
@@ -3703,6 +4241,7 @@ def main(argv=None) -> int:
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
             dist=dist, fabric=fabric, fault=fault, tune=tuned, llm=llm,
+            train=trained,
             sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],

@@ -11,9 +11,11 @@ hand-written kernel (or the call raises), a CPU tensor takes the plain
 PyTorch version of the same function.  Entry points that create data
 default to ``device="cuda"``; pass ``device="cpu"`` to run on the host.
 
-The LLM serving path (``configs``, ``models``, ``serve.engine``,
-``launch.serve``) has no kernel of its own: its products are
-``torch.matmul`` and its attention the reference's plain form.
+The LLM serving and training paths (``configs``, ``models``,
+``serve.engine``, ``train``, ``ckpt``, ``launch.serve``,
+``launch.train``) have no kernel of their own: their products are
+``torch.matmul`` and their attention the reference's plain form; a
+lossy checkpoint runs the compressors' kernels.
 
 This package imports neither ``jax`` nor anything of ``repro``.
 """

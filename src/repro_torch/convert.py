@@ -4,8 +4,10 @@ reference package.
 A fitted reference model is exported as plain numpy arrays and Python
 values (this package never imports the reference, so the export is the
 caller's); these functions rebuild the port's objects from them.  An LM's
-parameters and KV cache come as the reference's trees with numpy leaves
-(``jax.tree.map(np.asarray, params)``): ``lm_params`` and ``lm_cache``.
+parameters, KV cache and training state come as the reference's trees
+with numpy leaves (``jax.tree.map(np.asarray, params)``): ``lm_params``
+(a serving model), ``lm_tree`` (the stacked tree training
+differentiates), ``lm_cache`` and ``train_state``.
 
 The state of one CR model::
 
@@ -34,6 +36,9 @@ from repro_torch.core import regression as R
 from repro_torch.core import usecases as UC
 from repro_torch.models import causal_lm as CLM
 from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.train import grad_compress as GC
+from repro_torch.train import optimizer as OPT
+from repro_torch.train import train_step as TS
 
 
 def _t(a, device) -> torch.Tensor:
@@ -104,3 +109,25 @@ def lm_cache(tree, device="cuda") -> dict:
     tree with numpy leaves."""
     return {seg: CLM.AttnCache(*(array(a, device) for a in entry))
             for seg, entry in tree.items()}
+
+
+def lm_tree(tree, device="cuda"):
+    """A reference tree (parameters, moments, gradients) with numpy
+    leaves as the same tree of tensors, dtypes kept."""
+    return tree_unflatten(tree, [array(a, device) for a in tree_leaves(tree)])
+
+
+def train_state(state, device="cuda") -> TS.TrainState:
+    """The port's ``TrainState`` from the reference's with numpy leaves
+    (``jax.tree.map(np.asarray, state)``): its ``params``, ``opt.step`` /
+    ``opt.mu`` / ``opt.nu`` and ``ef.residuals`` (or ``ef`` None).  The
+    step stays on the host, as the port's optimizer keeps it."""
+    ef = None if state.ef is None else GC.EFState(
+        lm_tree(state.ef.residuals, device))
+    return TS.TrainState(
+        lm_tree(state.params, device),
+        OPT.OptState(torch.tensor(int(np.asarray(state.opt.step)),
+                                  dtype=torch.int32),
+                     lm_tree(state.opt.mu, device),
+                     lm_tree(state.opt.nu, device)),
+        ef)

@@ -55,13 +55,24 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     c64 = torch.as_tensor(c, dtype=torch.float32, device=a.device).to(torch.float64)
     p = a64 * b64
     r = p + c64
-    bv = r - p
-    err = (p - (r - bv)) + (c64 - bv)
     tie = (r.view(torch.int64) & _LOW29) == _HALF29
+    if r.device.type == "cpu":
+        # ties are rare: on the host, nudge only them
+        if bool(tie.any()):
+            p, c64 = p.expand_as(r), c64.expand_as(r)
+            r[tie] = _nudge(p[tie], c64[tie], r[tie])
+        return r.to(torch.float32)
+    return torch.where(tie, _nudge(p, c64, r), r).to(torch.float32)
+
+
+def _nudge(p: torch.Tensor, c: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``r = p + c`` (float64) moved one ulp toward the exact sum where
+    the TwoSum error is not zero."""
+    bv = r - p
+    err = (p - (r - bv)) + (c - bv)
     toward = torch.where(err > 0, torch.full_like(r, float("inf")),
                          torch.full_like(r, float("-inf")))
-    r = torch.where(tie & (err != 0), torch.nextafter(r, toward), r)
-    return r.to(torch.float32)
+    return torch.where(err != 0, torch.nextafter(r, toward), r)
 
 
 def qdq_err(x: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:

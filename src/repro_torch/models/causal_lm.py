@@ -15,15 +15,30 @@ so ``prefill`` and ``decode_step`` return the cache they were given,
 written.  The KV gate scores whole leaves, so per-layer caches would
 change its decisions and byte counts.
 
+Training reads the same table as a tree of tensors (``{"embed": ...,
+"seg0": {"attn": {"wq": (n, d, hq * hd), ...}}}``, the reference's
+stacked leaves): ``forward`` and ``loss_fn`` take either a ``CausalLM``
+or such a tree, and on a tree layer i reads slice i of each leaf
+through one ``unbind`` per leaf, so a gradient comes back stacked, one
+leaf per reference leaf.  With ``remat`` each layer runs under
+``torch.utils.checkpoint`` (the reference's default ``full`` policy:
+only layer boundaries are kept).  ``xent_loss`` chunks the sequence by
+512 as the reference's scan does.
+
 The other families (moe, mla_moe, vlm, ssm, hybrid, encdec) are ROADMAP
-Queue 1 item 5; training (``xent_loss``, ``loss_fn``, remat) item 4.
+Queue 1 item 5; the ``REPRO_REMAT=dots|tp_outs`` policies come with
+training across cards (item 6).
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -263,22 +278,88 @@ def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *,
 # Model forward: embed -> layers -> norm -> head
 # ===========================================================================
 
-def forward(model: CausalLM, tokens: torch.Tensor, cfg: ModelConfig, *,
-            caches=None, pos_offset: int = 0):
+def _stacked_layers(seg: dict):
+    """Per-layer views of a stacked segment tree: layer i reads slice i
+    of every leaf.  One ``unbind`` per leaf, so autograd stacks the
+    layers' gradients once per leaf."""
+    attn = {k: x.unbind(0) for k, x in seg["attn"].items()}
+    mlp = {k: x.unbind(0) for k, x in seg["mlp"].items()}
+    n1, n2 = seg["norm1"].unbind(0), seg["norm2"].unbind(0)
+    return [SimpleNamespace(
+        attn=SimpleNamespace(**{k: v[i] for k, v in attn.items()}),
+        mlp=SimpleNamespace(**{k: v[i] for k, v in mlp.items()}),
+        norm1=n1[i], norm2=n2[i]) for i in range(len(n1))]
+
+
+def _parts(params):
+    """(embed, final_norm, layers) of a ``CausalLM`` or a tree."""
+    if isinstance(params, CausalLM):
+        return params.embed, params.final_norm, params.layers
+    return (params["embed"], params["final_norm"],
+            _stacked_layers(params["seg0"]))
+
+
+def _head(params) -> torch.Tensor:
+    return params.lm_head if isinstance(params, CausalLM) else params["lm_head"]
+
+
+def forward(model, tokens: torch.Tensor, cfg: ModelConfig, *,
+            caches=None, pos_offset: int = 0, remat: bool = False):
     """tokens: (B, S) int -> final-normed hidden (B, S, D); with ``caches``
-    (dict per segment, written in place) also returns them."""
-    x = model.embed[tokens.long()].to(act_dtype(cfg))
+    (dict per segment, written in place) also returns them.  ``model``
+    is a ``CausalLM`` or a parameter tree; ``remat`` checkpoints each
+    layer when autograd records (no cache)."""
+    embed, final_norm, layers = _parts(model)
+    x = embed[tokens.long()].to(act_dtype(cfg))
     seg = caches["seg0"] if caches is not None else None
-    for i, lp in enumerate(model.layers):
+    remat = remat and seg is None and torch.is_grad_enabled()
+    for i, lp in enumerate(layers):
+        if remat:
+            x = checkpoint(functools.partial(layer_fwd, lp=lp, cfg=cfg), x,
+                           use_reentrant=False)
+            continue
         lc = (AttnCache(seg.k[i], seg.v[i], seg.pos[i])
               if seg is not None else None)
         x = layer_fwd(x, lp, cfg, cache=lc, pos_offset=pos_offset)
-    x = L.rms_norm(x, model.final_norm)
+    x = L.rms_norm(x, final_norm)
     return (x, caches) if caches is not None else x
 
 
-def logits_fn(model: CausalLM, hidden: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(hidden, model.lm_head.to(hidden.dtype))
+def logits_fn(model, hidden: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(hidden, _head(model).to(hidden.dtype))
+
+
+def xent_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
+              vocab: int, chunk: int = 512) -> torch.Tensor:
+    """Chunked softmax cross-entropy over the (padded) vocab, as the
+    reference's scan computes it: chunks of ``chunk`` positions, each
+    chunk's logits the activation-dtype product cast to float32, then
+    ``logsumexp - gold`` summed chunk after chunk from 0.0, and the total
+    times ``f32(1 / (b s))`` (XLA's form of the division by a constant).
+    The (B, S, V) logits are never materialized."""
+    b, s, d = hidden.shape
+    if s % chunk and s > chunk:
+        raise ValueError(f"sequence {s} is no multiple of the chunk {chunk}")
+    chunk = min(chunk, s)
+    nc = s // chunk
+    h = hidden.reshape(b, nc, chunk, d)
+    y = labels.reshape(b, nc, chunk).long()
+    w = _head(params).to(hidden.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        logit = torch.matmul(h[:, i], w).to(torch.float32)
+        lse = torch.logsumexp(logit, dim=-1)
+        gold = torch.gather(logit, -1, y[:, i][..., None])[..., 0]
+        total = total + torch.sum(lse - gold)
+    inv = torch.tensor(float(np.float32(1.0) / np.float32(b * s)),
+                       dtype=torch.float32)
+    return total * inv
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    hidden = forward(params, batch["tokens"], cfg, remat=remat)
+    return xent_loss(params, hidden, batch["labels"], cfg.padded_vocab)
 
 
 def prefill(model: CausalLM, tokens: torch.Tensor, cfg: ModelConfig,

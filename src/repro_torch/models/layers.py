@@ -14,13 +14,14 @@ numbers, so they are avoided here:
 Attention is the reference's form (float32 scores, ``-1e30`` masking,
 softmax, weights cast to the activation dtype, then V), not
 ``scaled_dot_product_attention``, which normalizes in another order.
-The RMSNorm backward, ``layer_norm``, M-RoPE and the GELU MLP come with
-training and the other families.
+``rms_norm`` carries the reference's custom backward for training;
+``layer_norm``, M-RoPE and the GELU MLP come with the other families.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,12 +33,45 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(dt), b.to(dt))
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with float32 internals, returned in ``x``'s dtype."""
+def _rms_norm_fwd(x, gamma, eps):
     xf = x.to(torch.float32)
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (xf * r * gamma.to(torch.float32)).to(x.dtype)
+    return (xf * r * gamma.to(torch.float32)).to(x.dtype), r
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom VJP (``_rms_norm_bwd``): the backward in
+    float32, ``dx`` in ``x``'s dtype and ``dgamma`` in ``gamma``'s.
+    ``r ** 3`` is ``r * (r * r)`` (JAX's ``integer_pow``) and ``s / d``
+    a product by ``f32(1 / d)`` (XLA's division by a constant)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        y, r = _rms_norm_fwd(x, gamma, eps)
+        ctx.save_for_backward(x, gamma, r)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, r = ctx.saved_tensors
+        inv_d = torch.tensor(float(np.float32(1.0) / np.float32(x.shape[-1])),
+                             dtype=torch.float32)
+        xf = x.to(torch.float32)
+        gf = g.to(torch.float32) * gamma.to(torch.float32)
+        s = torch.sum(gf * xf, dim=-1, keepdim=True)
+        dx = r * gf - xf * (r * (r * r)) * (s * inv_d)
+        dgamma = torch.sum(g.to(torch.float32) * xf * r,
+                           dim=tuple(range(x.ndim - 1)))
+        return dx.to(x.dtype), dgamma.to(gamma.dtype), None
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with float32 internals, returned in ``x``'s dtype; under
+    autograd, with the reference's backward (``_RMSNorm``)."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
+        return _RMSNorm.apply(x, gamma, eps)
+    return _rms_norm_fwd(x, gamma, eps)[0]
 
 
 # ---------------------------------------------------------------------------

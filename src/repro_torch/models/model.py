@@ -1,8 +1,10 @@
 """Model facade (``repro/models/model.py``) for the ported families.
 
 Builds the model of a config, sizes it without allocating, and gives
-the serving entry points (``prefill``, ``decode_step``, ``init_cache``).
-Here "params" is the ``causal_lm.CausalLM`` module.  Only the dense
+the serving entry points (``prefill``, ``decode_step``, ``init_cache``)
+and training's ``loss_fn``.  For serving "params" is the
+``causal_lm.CausalLM`` module; ``init_tree`` gives the same tensors as
+the reference's stacked tree, which training differentiates.  Only the dense
 family is built; whisper (``encdec``) and the other families raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 5), as do the dry-run's
 ``input_specs`` / ``abstract_*`` and the mesh's ``param_specs`` /
@@ -28,6 +30,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> CLM.CausalLM:
     return CLM.CausalLM(cfg, PRM.init_params(param_table(cfg), generator))
 
 
+def init_tree(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Random parameters as the reference's stacked tree, on
+    ``generator``'s device (``CLM.CausalLM(cfg, tree)`` serves them)."""
+    return PRM.init_params(param_table(cfg), generator)
+
+
 def count_params(cfg: ModelConfig) -> int:
     return PRM.count(param_table(cfg))
 
@@ -35,6 +43,14 @@ def count_params(cfg: ModelConfig) -> int:
 def active_params(cfg: ModelConfig) -> int:
     """Per-token active parameters: every one in a dense model."""
     return count_params(cfg)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy of a batch; ``params`` a tree or a
+    ``CausalLM`` (raises for the families not ported)."""
+    CLM.check_family(cfg)
+    return CLM.loss_fn(params, batch, cfg, remat=remat)
 
 
 def prefill(params: CLM.CausalLM, batch: Dict[str, torch.Tensor],

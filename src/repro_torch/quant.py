@@ -101,3 +101,8 @@ def pad_to_multiple(data: torch.Tensor, b: int
             idx = torch.clamp(torch.arange(s + r, device=data.device), max=s - 1)
             out = out.index_select(axis, idx)
     return out, tuple(data.shape)
+
+
+def spans(n: int, chunk: int):
+    """[lo, hi) ranges covering ``n`` elements ``chunk`` at a time."""
+    return [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]

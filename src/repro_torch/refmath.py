@@ -25,8 +25,16 @@ slice reaches 4.5e7 bits): :func:`sum_f32` adds in XLA's CPU order, as
 entropy sums, the int8 gate's).
 TTHRESH's energy threshold runs a float32 ``jnp.cumsum`` over every core
 coefficient: :func:`cumsum_f32` adds in XLA's CPU order too.
+
+AdamW's bias corrections raise a float32 constant to the step: XLA on
+the CPU calls the C library's ``powf`` for a scalar ``pow`` and flushes
+a subnormal result; :func:`powf` does the same on the host.
 """
 from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
 
 import numpy as np
 import torch
@@ -220,3 +228,19 @@ def cumsum_f32(v: torch.Tensor) -> torch.Tensor:
         carry = cumsum_f32(acc)[:-1]
         out[1:] = out[1:] + carry[:, None]
     return out.reshape(-1)[:n]
+
+
+@functools.cache
+def _libm_powf():
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    fn.restype = ctypes.c_float
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    return fn
+
+
+def powf(x: float, y: float) -> np.float32:
+    """``jnp.power`` of two float32 scalars as a jitted reference computes
+    it on the CPU: the C library's ``powf`` (glibc's, held to
+    ``jax.jit`` at steps 1-3000), a subnormal result flushed to zero."""
+    r = np.float32(_libm_powf()(float(np.float32(x)), float(np.float32(y))))
+    return np.float32(0.0) if abs(r) < MIN_NORMAL else r

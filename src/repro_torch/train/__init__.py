@@ -1,3 +1,5 @@
-"""Training-side pieces of the port.  So far only the int8 block
-quantizer and its predicted-CR size model (``grad_compress``), which the
-serving engine's KV gate and the service's ``kv_gate`` method run."""
+"""Training of the port: the AdamW optimizer (``optimizer``), the
+error-feedback gradient compression gated by the int8 q-ent size model
+(``grad_compress``, whose quantizer the serving engine's KV gate shares),
+the train step (``train_step``) and the loop with checkpoint/restart
+(``loop``)."""

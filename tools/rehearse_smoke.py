@@ -12,7 +12,9 @@ over 2 hot slices and kv leaves of 4096 values; the load CLI at 64 x
 20's q-ent shapes at 1/64 of their lengths, on the plain version; phase
 22 on granite-3-2b's smoke config, 2 layers of d_model 64, for its
 launcher runs, its decode check, its CPU comparison and the gate's
-leaves), every tensor on the CPU, the kernel build,
+leaves; phase 23 on the same config for its full-width steps, its CPU
+comparison, checkpoints and launcher), every tensor on the CPU, the
+kernel build,
 the quotient proof and the launch-count and built-library checks left
 out and the
 kernel-check phase cut to ZFP's, then runs it with ``torch.cuda``'s
@@ -38,7 +40,7 @@ CUTS = [
     ('N_STREAM, STREAM_N = "cesm-cloud", 96, 1800',
      'N_STREAM, STREAM_N = "cesm-cloud", 10, 64'),
     ('STREAM_BUDGET_MB = 512', 'STREAM_BUDGET_MB = 0.0625'),
-    ('SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 64, 4',
+    ('SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 32, 4',
      'SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 16, 2'),
     ('KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 4 << 20',
      'KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 1 << 12'),
@@ -93,6 +95,7 @@ def main(argv=None) -> int:
     cuda._sleep = lambda cycles: None
     cuda.max_memory_allocated = lambda *a, **k: 0
     cuda.memory_allocated = lambda *a, **k: 0
+    cuda.memory_reserved = lambda *a, **k: 0
     cuda.reset_peak_memory_stats = lambda *a, **k: None
     cuda.mem_get_info = lambda *a, **k: (0, 0)
     cuda.get_device_name = lambda *a: "cpu rehearsal"
