@@ -36,7 +36,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               entropy; then (4c) the training
               sweep on the sort route, its time and peak device memory
               with the reference's float32 q-ent and with the float64
-              form it replaced, in turns;
+              form it replaced;
 5. main    -- the paper's path on ``cesm-cloud`` at its Table-1 edge
               (40 slices of 1800 x 1800 float32 made on the card): one
               ``EbGridModel.train`` (``use_kernels=True``) for each of the
@@ -71,14 +71,14 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 13. batch independence -- ``features_sweep`` (features and quality,
               both q-ent routes) of a few slices alone, bit-equal to the
               same slices inside their batch and inside a
-              ``sweep_padded`` bucket, at 1800^2 (4 of the 40), 1200^2 (3
+              ``sweep_padded`` bucket, at 1800^2 (2 of the 40), 1200^2 (3
               of the 24), 1028^2 (3 of a Gaussian 20) and 256 x 384 x
               384 (2 of the 12 volumes); the Gram alone equal to the Gram
               in its batch at each shape (volumes: both unfoldings); and,
               reported only, which library reductions the sweep used to
               run over the batch (std, mean, eigvalsh, cumsum, a float64
               sum, the entropy sum) give a row other bits in the batch.
-              Then the eb grid: each of 2 slices at 1800^2 and 1 volume
+              Then the eb grid: 1 slice at 1800^2 and 1 volume
               at each eb of a 6-eb grid, features under both q-ent routes
               and quality, bit-equal swept at that eb alone, in the grid,
               in an 8-eb bucket padded with its last eb and in a 12-eb
@@ -94,7 +94,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               ``predict_psnr`` at 9 ebs and the UC1, UC2 and UC3 answers
               on the 8 held-out slices;
 15. serve    -- (run after 13, before 14 frees phase 5's models)
-              ``SweepService`` on the card: 8 client threads x 32
+              ``SweepService`` on the card: 8 client threads x 16
               requests of its seven methods (featurize on the 6-eb grid
               and on a 3-eb subgrid with one eb off it, find_eb with
               sz3-lorenzo at targets 4, 8, 16, best_compressor over the
@@ -119,7 +119,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               volumes of 256 x 384 x 384 as float32.  ``stream_features``
               at a 512 MiB budget (chunks 41 + 41 + 14 and 3 + 3 + 1):
               the slices with quality under the default config at
-              prefetch 2, 0, 0 and 2 (timed in turns) and under
+              prefetch 2 and 0 and under
               ``use_kernels=True``, the volumes under the default config,
               each bit-equal to one in-memory sweep of the variable on
               the card, the streaming digest (the last two streams hash
@@ -129,7 +129,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               them with (a chunk of 41 slices, one of 3 volumes, read
               from the dataset), against their plain versions and timed,
               as in phase 12.  Then the advise CLI on the dataset
-              (trained on 4 rows of each variable) in this process (its
+              (trained on 2 rows of each variable) in this process (its
               ``main``, as ``python -m repro_torch.launch.advise`` runs
               it, with the launches of each variable's training and
               stream counted around the two calls; no process start-up
@@ -143,14 +143,14 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 16. serve CLI -- ``launch.sweep_serve.main`` (the CLI's code, in this
               process: a subprocess's start-up and library load cost
               the script time it lacks) at cesm-cloud 1800^2, zfp
-              trained on 10 slices, 8 clients x 8 UC1/UC2 requests: a
+              trained on 6 slices, 8 clients x 8 UC1/UC2 requests: a
               finite report, ZFP launched in its training and Gram in
               its serving, its launches by shape read from its report;
 17. dist     -- the sharded sweep layer (``repro_torch.dist``) on the
               card, on the training sweep (32 cesm-cloud slices of
               1800^2, the 6-eb grid, ``use_kernels=True``, features and
               quality) in three forms: (a) this process, a mesh of two
-              shards on the card, timed beside one device in turns; (b)
+              shards on the card, timed beside one device; (b)
               a one-rank NCCL group whose mesh has two shards on the
               card (NCCL refuses two ranks on one GPU); (c) a two-rank
               gloo group, one shard each on the card, SPMD and
@@ -216,9 +216,9 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               --steps 16 --max-len 256 --kv-compress``, then again with
               ``--kv-gate-service``: the same ids and metering, one
               kv_gate request of 2 rows, times and peak memory logged;
-              (b) float32, prefill 15 tokens and decode the 16th against
-              the full forward's last logits (bound 1e-4, the
-              reference's); (c) at 2 layers, parameters made on the CPU
+              (b) float32 at 2 layers, prefill 15 tokens and decode the
+              16th against the full forward's last logits (bound 1e-4,
+              the reference's); (c) at 2 layers, parameters made on the CPU
               and copied to the card, prefill logits, K/V caches and 4
               teacher-forced decode steps card against CPU within the
               CPU tests' bounds (float32 rtol 1e-5 / atol 2e-5, bfloat16
@@ -229,8 +229,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               ``launch.train``; the step's products are ``torch.matmul``)
               in this process, its launches counted as the "Train" path
               and held by phase 21, which runs after it: (a)
-              ``make_train_step`` at granite-3-2b's full width and depth
-              (2 635 237 376 bfloat16 parameters from seed 0, the state
+              ``make_train_step`` at granite-3-2b's full width and 8 of
+              its 40 layers (bfloat16 parameters from seed 0, the state
               donated), 4 steps of batch 4 x seq 512 in 2 microbatches
               with ``CompressConfig()`` and ``AdamWConfig(lr=1e-3)``:
               step ms (median of steps 2-4), tokens/s, model FLOP/s (6 N
@@ -243,8 +243,12 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               leaf card against CPU (float32 rtol 1e-5 / atol 1e-5 of
               the largest |value|, bfloat16 16 ulps of it),
               ``compress_tree`` of the float32 gradients and one AdamW
-              step (clip inactive) of the bfloat16 parameters bit-equal,
-              on each leaf's first 2^22 values; (c) at 2
+              step (clip inactive) of the bfloat16 parameters, run over
+              whole leaves on the card, bit-equal to the CPU's run over
+              spans of each leaf: its first 2^22 values and, on a longer
+              leaf, 2^20 values each side of the first chunk boundary
+              (2^24 values for both) and its last 2^20 values (the
+              padded last block); the whole leaves' CRs card == CPU; (c) at 2
               layers, ``loop.run`` for 4 steps with a checkpoint every
               2, step 4 deleted and the loop restarted: the resumed
               parameters within rtol 1e-5 / atol 1e-6 of the
@@ -257,7 +261,29 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               codec UC2 picks for no tensor gets a checkpoint of its
               own; (d) ``launch.train.main`` with ``--smoke --steps 8
               --compress --lossy-ckpt`` on the card.
-Phases 5, 8-11, 14, 15, 17, 18 (their form (a)) and 23 each set the
+24. families -- the moe and vlm families (``models.moe``, M-RoPE; no
+              kernel of their own) at full width, depth cut to fit 80 GB,
+              in this process after 23, each model freed before the next:
+              (a) ``serve.engine.Engine`` for phi3.5-moe at 16 of 32
+              layers and qwen2-vl-72b at 24 of 80, random parameters,
+              batch 4, prompt 32, 16 decode steps, ``max_len`` 256 and the
+              KV gate, then the gate through a ``SweepService``: the same
+              ids and metering, one kv_gate request of 2 rows; init s,
+              prefill ms, decode ms a step, tokens/s, gate ms, bytes
+              saved, peak memory logged; (b) float32 at 2 layers,
+              capacity factor 64: decode of the 16th token against the
+              full forward (bound 1e-4), and for vlm a loss with three
+              different position streams, finite and not the broadcast
+              one; (c) at 1 layer, card against CPU in float32 and
+              bfloat16 (phase 22's bounds): prefill logits and K/V; MoE
+              routing recomputed on the CPU from the card's router
+              logits bit-equal, the share of pairs routed apart when
+              each side makes its own logits, the MoE output on the
+              tokens routed alike; vlm logits under three streams; (d)
+              ``make_train_step`` of phi3.5-moe at 2 layers, 4 steps as
+              23 (a), model FLOP/s from its active parameters, the
+              float32 router gated at every step.
+Phases 5, 8-11, 14, 15, 17, 18 (their form (a)), 23 and 24 each set the
 kernels' launch counters to 0 just before they run and read them just
 after, and the load CLI and the advise runs (in this process) and the
 subprocesses (the process groups and 2-rank advise of phase 17, phase
@@ -315,12 +341,13 @@ STREAM_FIELD, N_STREAM, STREAM_N = "cesm-cloud", 96, 1800   # float64 on disk
 N_STREAM_VOL = 7                                # miranda-vx, float32 on disk
 STREAM_BUDGET_MB = 512
 ADVISE_TIMEOUT_S = 600
-ADVISE_TRAIN_ROWS = 4           # rows of each variable the advise runs train on
-# phase 15: the sweep service, 8 clients x 32 requests of the seven
+ADVISE_TRAIN_ROWS = 2           # rows of each variable the advise runs train on
+                                # (2, the fewest a fit takes, for the time limit)
+# phase 15: the sweep service, 8 clients x 16 requests of the seven
 # methods (featurize on the grid and on a 3-eb subgrid with one eb off
 # it), 4 hot held-out slices and the other 4 once each
 SEED = 0
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 32, 4
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 16, 4
 SERVE_KINDS = ("featurize", "featurize_sub", "find_eb", "best_compressor",
                "advise", "find_setting", "quality", "kv_gate")
 SERVE_COLD_KINDS = ("featurize", "find_eb", "best_compressor", "quality")
@@ -370,13 +397,27 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 4, 512, 2, 4   # (a)
 TRAIN_LR = 1e-3
 TRAIN_CMP_LAYERS, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 2, 2, 64     # (b)
 TRAIN_BF16_ULPS = 16            # tests/test_torch_train.py's gradient bound
-TRAIN_HEAD_VALUES = 1 << 22     # (b): values of each leaf compress_tree
-                                # and AdamW are held on
+TRAIN_LAYERS = 8                # (a): depth cut from 40 to pay for phase 24
+TRAIN_HEAD_VALUES = 1 << 22     # (b): each leaf's first values, held by
+                                # compress_tree and AdamW card vs CPU, and
+TRAIN_SPAN_VALUES = 1 << 20     # half a span across a chunk boundary, and
+                                # a larger leaf's last values
 TRAIN_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
 TRAIN_CKPT_STEPS, TRAIN_CKPT_EVERY = 4, 2                       # (c)
 TRAIN_RESTART_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_train.py:105
 TRAIN_CLI_ARGS = ["--smoke", "--steps", "8", "--compress", "--lossy-ckpt",
                   "--device", "cuda"]                            # (d)
+# phase 24: the moe and vlm families at full width; only depth is cut, to
+# fit the card's 80 GB in bfloat16 (all 32 / 80 layers take 84 / 145 GB)
+FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 16), ("qwen2-vl-72b", 24))   # (a)
+FAM_BATCH, FAM_PROMPT, FAM_STEPS, FAM_MAX_LEN = 4, 32, 16, 256
+FAM_DECODE_LAYERS = 2           # (b): float32 decode vs forward, no drops
+FAM_CMP_LAYERS = 1              # (c): the card against the CPU
+# (c): the share of the 64 (token, choice) pairs that may route apart when
+# the card and the CPU each compute their router logits; 0 of 64 measured
+# in both dtypes on the H100, a bfloat16 near-tie allowed 4 of 64
+FAM_ROUTING_DIFFERS_MAX = {"float32": 0.0, "bfloat16": 1 / 16}
+FAM_TRAIN_ARCH, FAM_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 2       # (d)
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -955,14 +996,14 @@ def float64_sort_route(torch, P):
 def sort_route_cost(torch, P, train, ebs_t, card) -> dict:
     """Phase 4c: the training sweep (features and quality) on the sort
     q-ent route (``use_kernels=False``) with the reference's float32 q-ent
-    against the float64 form it replaced, in turns (new, old, new, old;
-    the first new call also builds the rank-term table), each with its
+    against the float64 form it replaced (the new call also builds the
+    rank-term table), each with its
     wall time to a synchronize and its peak device memory above what was
     allocated before it; and how far the two forms' features differ."""
     engine = P.get_engine(P.PredictorConfig())
     out = {"new_s": [], "old_s": [], "new_peak_gib": [], "old_peak_gib": []}
     feats = {}
-    for form in ("new", "old", "new", "old"):
+    for form in ("new", "old"):
         with (float64_sort_route(torch, P) if form == "old"
               else contextlib.nullcontext()):
             torch.cuda.synchronize()
@@ -979,7 +1020,9 @@ def sort_route_cost(torch, P, train, ebs_t, card) -> dict:
         f"{ebs_t.shape[0]} ebs with quality: float32 (the reference's bits) "
         f"{out['new_s']} s, peak +{out['new_peak_gib']} GiB; float64 (before) "
         f"{out['old_s']} s, peak +{out['old_peak_gib']} GiB; features differ "
-        f"by {out['max_abs_diff']:.3g} at most", card)
+        f"by {out['max_abs_diff']:.3g} at most (one run each in this order, "
+        "the first building the rank-term table: not comparable with "
+        "timings made in turns)", card)
     return out
 
 
@@ -2558,10 +2601,9 @@ def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
     # the streams, counters read around them
     zero_counts(torch)
     runs = {}
-    # prefetch 2 and 0 in turns (2, 0, 0, 2), none hashing its chunks
-    for key, depth in (("2d_prefetch2", 2), ("2d_prefetch0", 0),
-                       ("2d_prefetch0_again", 0),
-                       ("2d_prefetch2_again", 2)):
+    # prefetch 2 and 0, none hashing its chunks (their repeats in turns
+    # went to pay for phase 24)
+    for key, depth in (("2d_prefetch2", 2), ("2d_prefetch0", 0)):
         runs[key] = stream_run(torch, ST, src, STREAM_FIELD, ebs,
                                P.PredictorConfig(), depth, True)
     digest = SRC.StreamingDigest()
@@ -2583,8 +2625,7 @@ def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
     # the in-memory sweeps they must equal, bit for bit
     want2d, mem_s, mem_peak = in_memory_run(torch, P, src, STREAM_FIELD,
                                             ebs, P.PredictorConfig(), True)
-    for key in ("2d_prefetch2", "2d_prefetch0", "2d_prefetch0_again",
-                "2d_prefetch2_again"):
+    for key in ("2d_prefetch2", "2d_prefetch0"):
         same_bits(f"2-D, {key}", runs[key][0], want2d)
     want_k, mem_k_s, _ = in_memory_run(torch, P, src, STREAM_FIELD, ebs,
                                        kernel_cfg, True)
@@ -2602,6 +2643,8 @@ def phase_stream(torch, ebs, vol_eps, card, profile, tmp):
         "(2-D with quality at prefetch 2 and 0 and under use_kernels; "
         "volumes); streaming digests == slice_digest (hashed in the "
         "use_kernels and volume streams)")
+    log("stream: one run each, prefetch 2 first (a colder page cache): "
+        "not comparable with timings made in turns")
     for key, (_, wall, peak) in runs.items():
         name = vol_name if key == "vol" else STREAM_FIELD
         meta = src.meta(name)
@@ -2693,7 +2736,7 @@ def phase_serve_cli(card) -> dict:
     work)."""
     from repro_torch.launch import sweep_serve as SS
     argv = ["--fields", FIELD, "--n", str(SERVE_CLI_N), "--train-slices",
-            "10", "--compressor", "zfp", "--clients", "8", "--requests",
+            "6", "--compressor", "zfp", "--clients", "8", "--requests",
             "64", "--device", "cuda"]
     buf = io.StringIO()
     t = time.perf_counter()
@@ -2796,8 +2839,17 @@ def dist_child(job_file: str) -> int:
         for name in DIST_CRS:
             table = timed(f"crs_{name}_s", lambda: DS.training_crs(
                 C.get(name), train, ebs, mesh=mesh))
-            same_bits(f"training_crs {name}", table,
-                         np.load(d / f"crs_{name}.npy"))
+            want = np.load(d / f"crs_{name}.npy")
+            cells = np.argwhere(table.view(np.int64) != want.view(np.int64))
+            if len(cells):
+                # which side is off: each differing cell again, serially
+                again = {(int(i), int(j)): (float(table[i, j]), float(
+                    want[i, j]), C.get(name).cr(train[i], float(ebs[j])))
+                    for i, j in cells[:8]}
+                raise AssertionError(
+                    f"training_crs {name}: {len(cells)} cells differ from the "
+                    "main path's table; (row, eb): (here, main path, "
+                    f"serially here) {again}")
         src = SRC.open_dataset(job["dataset"])
         budget = ST.StreamConfig(budget_bytes=int(STREAM_BUDGET_MB * 2 ** 20))
         feats, qual = timed("stream_2d_s", lambda: ST.stream_features(
@@ -2921,12 +2973,12 @@ def phase_dist(torch, ebs, vol_eps, tmp, crs_tables, card):
     for name in DIST_CRS:
         np.save(tmp / f"crs_{name}.npy", crs_tables[name][0])
 
-    # (a) one process, two shards on the card; timed beside one device in
-    # turns (one, two shards, two shards, one), then its blocks and their
-    # gather alone, counters read around those two only
+    # (a) one process, two shards on the card; timed beside one device,
+    # then its blocks and their gather alone, counters read around those
+    # two only
     mesh = M.make_sweep_mesh(devices=[DIST_DEVICE] * 2)
     runs = {"one device": [], "two shards": []}
-    for key in ("one device", "two shards", "two shards", "one device"):
+    for key in ("one device", "two shards"):
         got, s = wall(lambda: (both(train, ebs, sharded=False)
                                if key == "one device" else
                                both(train, ebs, mesh=mesh)).cpu().numpy())
@@ -3013,7 +3065,9 @@ def phase_dist(torch, ebs, vol_eps, tmp, crs_tables, card):
                      ("gram_batched", "qent_histogram_sweep", "qdq_sse_sweep",
                       "lorenzo2d", "zfp_forward2d"))
     log("dist: (a), (b) and (c) bit-equal to one device (sweeps, volumes, "
-        "the pair, training tables, streams); " + json.dumps(
+        "the pair, training tables, streams; (a)'s one device and two "
+        "shards one run each in this order, not timings made in turns); "
+        + json.dumps(
             {k: v for k, v in out.items() if k not in ("b", "c")}), card)
     for role in ("b", "c"):
         for r, res in enumerate(out[role]):
@@ -3389,7 +3443,8 @@ def phase_llm(torch, card) -> dict:
         "leaves and metering == CPU's")
     del gates
 
-    cfg = dataclasses.replace(get_arch(LLM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_arch(LLM_ARCH), dtype="float32",
+                              num_layers=LLM_CMP_LAYERS)
     model = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     model = model.float()
     toks = torch.from_numpy(np.random.default_rng(4).integers(
@@ -3401,7 +3456,8 @@ def phase_llm(torch, card) -> dict:
     err = float((lg - full).abs().max())
     rec["decode_vs_forward"] = {"max_abs_err": err,
                                 "max_logit": float(full.abs().max())}
-    log(f"llm (b) float32 decode vs forward at full width: max abs err "
+    log(f"llm (b) float32 decode vs forward at full width, "
+        f"{LLM_CMP_LAYERS} layers: max abs err "
         f"{err:.3g} (|logit| <= {rec['decode_vs_forward']['max_logit']:.3g},"
         f" bound {LLM_DECODE_TOL})")
     if not err < LLM_DECODE_TOL:
@@ -3438,27 +3494,20 @@ def train_close(torch, got, want, dtype: str, what: str) -> float:
     return err
 
 
-def same_tree_bits(torch, what: str, got, want) -> None:
-    from repro_torch.models.params import tree_flatten
-    want = dict(tree_flatten(want))
-    for k, x in tree_flatten(got):
-        if not torch.equal(int_bits(torch, x.cpu()), int_bits(torch, want[k])):
-            raise AssertionError(f"train (b) {what} {k}: card != CPU on "
-                                 f"{int((x.cpu() != want[k]).sum())} values")
-
-
-def train_full_width(torch, card) -> dict:
-    """(a): ``make_train_step`` at granite-3-2b's full width and depth,
-    random parameters from seed 0, donated state, 4 steps of batch 4 x
-    seq 512 in 2 microbatches with ``CompressConfig()`` and
-    ``AdamWConfig(lr=1e-3)``."""
-    from repro_torch.configs.base import get_arch
+def train_steps(torch, card, cfg, tag: str) -> dict:
+    """``make_train_step`` of ``cfg`` (random parameters from seed 0,
+    donated state), 4 steps of batch 4 x seq 512 in 2 microbatches with
+    ``CompressConfig()`` and ``AdamWConfig(lr=1e-3)``: each step's ms,
+    loss, grad_norm, mean_pred_cr and gated leaves; step ms (median of
+    steps 2-4), tokens/s, model FLOP/s (6 x active parameters x tokens
+    / step) and peak memory.  Finite metrics, changed parameters and
+    zero residuals on ungated leaves are asserted."""
     from repro_torch.data.tokens import make_data_iter
+    from repro_torch.models import model as M
     from repro_torch.models.params import tree_flatten, tree_leaves
     from repro_torch.train import grad_compress as GC
     from repro_torch.train import optimizer as OPT
     from repro_torch.train import train_step as TS
-    cfg = get_arch(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     state = TS.init_state(cfg, torch.Generator("cuda").manual_seed(0),
@@ -3467,7 +3516,8 @@ def train_full_width(torch, card) -> dict:
     rec = {"init_s": time.perf_counter() - t}
     n_params = sum(x.numel() for x in tree_leaves(state.params))
     if n_params != cfg.param_count():
-        raise AssertionError(f"train (a): {n_params} parameters")
+        raise AssertionError(f"{tag}: {n_params} parameters")
+    active = M.active_params(cfg)
     before = {k: x.reshape(-1)[:1 << 20].clone()
               for k, x in tree_flatten(state.params)}
     ccfg = GC.CompressConfig()
@@ -3497,10 +3547,10 @@ def train_full_width(torch, card) -> dict:
             gated = sorted(k for k, c in crs.items() if c >= ccfg.gate_ratio)
             for k, r in tree_flatten(state.ef.residuals):
                 if k not in gated and bool(r.any()):
-                    raise AssertionError(f"train (a) step {i}: {k} was not "
+                    raise AssertionError(f"{tag} step {i}: {k} was not "
                                          "gated but its residual is not 0")
             steps.append(dict(ms=ms, gated=gated, crs=crs, **m))
-            log(f"train (a) step {i}: {ms:.1f} ms, loss {m['loss']:.5f}, "
+            log(f"{tag} step {i}: {ms:.1f} ms, loss {m['loss']:.5f}, "
                 f"grad_norm {m['grad_norm']:.5f}, mean_pred_cr "
                 f"{m['mean_pred_cr']:.4f}, {len(gated)}/{len(crs)} leaves "
                 f"gated (CRs {min(crs.values()):.3f}-"
@@ -3509,43 +3559,85 @@ def train_full_width(torch, card) -> dict:
         GC.compress_tree = orig
     if not all(np.isfinite([s["loss"], s["grad_norm"], s["mean_pred_cr"]]).all()
                for s in steps):
-        raise AssertionError(f"train (a): non-finite metrics {steps}")
+        raise AssertionError(f"{tag}: non-finite metrics {steps}")
     changed = {k: int((x.reshape(-1)[:1 << 20] != before[k]).sum())
                for k, x in tree_flatten(state.params)}
     if not changed["embed"]:
-        raise AssertionError("train (a): the parameters did not change")
+        raise AssertionError(f"{tag}: the parameters did not change")
     step_s = float(np.median([s["ms"] for s in steps[1:]])) / 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     rec.update(
-        params=n_params, steps=steps, step_ms=step_s * 1e3,
-        tokens_per_s=tokens / step_s, model_flops_per_s=6.0 * n_params
-        * tokens / step_s, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        params=n_params, active_params=active, steps=steps,
+        step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+        model_flops_per_s=6.0 * active * tokens / step_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         changed_of_first_2_20=changed)
     rec["bf16_peak_share"] = rec["model_flops_per_s"] / PEAK_BF16_FLOPS
-    log(f"train (a) {cfg.name}: {n_params:,} parameters, init "
-        f"{rec['init_s']:.3f} s; step {rec['step_ms']:.1f} ms (median of "
-        f"steps 2-{TRAIN_STEPS}), {rec['tokens_per_s']:.1f} tokens/s, model "
-        f"{rec['model_flops_per_s'] / 1e12:.2f} TFLOP/s (6 N tokens / step, "
-        f"{100 * rec['bf16_peak_share']:.2f} % of the 989 TFLOP/s bfloat16 "
-        f"peak), peak device memory {rec['peak_gib']:.2f} GiB; first 2^20 "
-        f"values changed by leaf " + json.dumps(changed), card)
+    log(f"{tag} {cfg.name} at {cfg.num_layers} layers: {n_params:,} "
+        f"parameters ({active:,} active), init {rec['init_s']:.3f} s; step "
+        f"{rec['step_ms']:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{rec['tokens_per_s']:.1f} tokens/s, model "
+        f"{rec['model_flops_per_s'] / 1e12:.2f} TFLOP/s (6 N_active tokens "
+        f"/ step, {100 * rec['bf16_peak_share']:.2f} % of the 989 TFLOP/s "
+        f"bfloat16 peak), peak device memory {rec['peak_gib']:.2f} GiB; "
+        f"first 2^20 values changed by leaf " + json.dumps(changed), card)
     del state, before, batch
     gc.collect()
     torch.cuda.empty_cache()
     return rec
 
 
+def train_full_width(torch, card) -> dict:
+    """(a): ``train_steps`` at granite-3-2b's full width and
+    ``TRAIN_LAYERS`` of its 40 layers."""
+    from repro_torch.configs.base import get_arch
+    return train_steps(torch, card, dataclasses.replace(
+        get_arch(TRAIN_ARCH), num_layers=TRAIN_LAYERS), "train (a)")
+
+
+def leaf_spans(n: int) -> list:
+    """(b)'s spans of an ``n``-value leaf, merged where they overlap: its
+    first ``TRAIN_HEAD_VALUES`` values and, where the leaf is longer,
+    ``TRAIN_SPAN_VALUES`` on each side of AdamW's and ``compress_tree``'s
+    first chunk boundary (``optimizer.CHUNK``, ``CHUNK_BLOCKS`` blocks)
+    and its last ``TRAIN_SPAN_VALUES`` values from a block boundary on
+    (the padded last block among them).  Every span starts on a block
+    boundary, so its int8 blocks are the leaf's."""
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import optimizer as OPT
+    out = [(0, min(n, TRAIN_HEAD_VALUES))]
+    if n > TRAIN_HEAD_VALUES:
+        w = TRAIN_SPAN_VALUES
+        for b in sorted({OPT.CHUNK, GC.CHUNK_BLOCKS * GC.BLOCK}):
+            if b < n:
+                out.append((b - w, min(n, b + w)))
+        out.append((max(0, (n - w) // GC.BLOCK * GC.BLOCK), n))
+    merged = []
+    for lo, hi in sorted(out):
+        if lo % GC.BLOCK:
+            raise AssertionError(f"train (b): span {lo} off a block boundary")
+        if merged and lo <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(hi, merged[-1][1]))
+        else:
+            merged.append((lo, hi))
+    return merged
+
+
 def train_card_vs_cpu(torch, card) -> dict:
     """(b): granite-3-2b's width at 2 layers, parameters made on the CPU
     and copied to the card, batch 2 x seq 64, float32 and bfloat16: the
     loss and every gradient leaf card against CPU at the training tests'
-    bounds; then each piece bit for bit in the dtype (a) runs it in, on
-    a tree of each leaf's first 2^22 values (its CPU side over the whole
-    tree would take ~10-20 s each): ``compress_tree`` of the CPU's
-    float32 gradients and random residuals, and one AdamW step (clip
-    inactive) of the bfloat16 parameters on those sent gradients with
-    random moments.  The CPU tests hold both pieces in both dtypes
-    against the reference."""
+    bounds; then each piece bit for bit in the dtype (a) runs it in:
+    ``compress_tree`` of the CPU's float32 gradients and random
+    residuals, and one AdamW step (clip inactive) of the bfloat16
+    parameters on those sent gradients with random moments.  The card
+    runs both over whole leaves, so its chunk loops cross their
+    boundaries; the CPU (whose run over the whole tree took 45-50 s a
+    dtype) runs them on each leaf's ``leaf_spans`` only, and each span's
+    output is held to the card's at those values.  A span goes through
+    the gate its leaf took on the card, whose predicted CR is held
+    against ``predicted_cr_int8`` of the whole leaf on the CPU.  The CPU
+    tests hold both pieces in both dtypes against the reference."""
     from repro_torch.configs.base import get_arch
     from repro_torch.data.tokens import make_data_iter
     from repro_torch.models import model as M
@@ -3559,16 +3651,19 @@ def train_card_vs_cpu(torch, card) -> dict:
 
     def draws(tree, scale, uniform=False):
         """Random float32 leaves like ``tree``'s, drawn on the card (the
-        host's generator would take seconds) and copied to the CPU."""
+        host's generator would take seconds)."""
         draw = torch.rand if uniform else torch.randn
         return tree_unflatten(tree, [
-            (draw(x.shape, generator=gen, device="cuda") * scale).cpu()
+            draw(x.shape, generator=gen, device="cuda") * scale
             for x in tree_leaves(tree)])
 
-    def head(tree):
-        """The first ``TRAIN_HEAD_VALUES`` values of every leaf."""
-        return tree_unflatten(tree, [x.reshape(-1)[:TRAIN_HEAD_VALUES]
-                                     for x in tree_leaves(tree)])
+    def span(x, lo, hi):
+        return x.reshape(-1)[lo:hi]
+
+    def same_span_bits(what, got, want):
+        if not torch.equal(int_bits(torch, got.cpu()), int_bits(torch, want)):
+            raise AssertionError(f"train (b) {what}: card != CPU on "
+                                 f"{int((got.cpu() != want).sum())} values")
 
     cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_CMP_LAYERS)
     tree = M.init_tree(cfg, torch.Generator().manual_seed(5))
@@ -3578,7 +3673,9 @@ def train_card_vs_cpu(torch, card) -> dict:
     # the clip inactive (its norm's summation order is the library's):
     # the update is then the same bits on every device
     ocfg = OPT.AdamWConfig(lr=TRAIN_LR, grad_clip=1e9)
-    rec = {}
+    spans = {k: leaf_spans(x.numel()) for k, x in tree_flatten(tree)}
+    rec = {"spans": {k: [list(s) for s in v] for k, v in spans.items()}}
+    sent_card = sent_cpu = None
     for dtype in ("float32", "bfloat16"):
         t = time.perf_counter()
         cfgd = dataclasses.replace(cfg, dtype=dtype)
@@ -3602,55 +3699,86 @@ def train_card_vs_cpu(torch, card) -> dict:
                          for k, x in tree_flatten(gg)}
         del gg
         if dtype == "float32":      # (a) gates float32 microbatch sums
-            gh = head(gc_)
-            res = draws(gh, 1e-4)
+            res = draws(gc_, 1e-4)
+            sg, eg, cg = GC.compress_tree(dev(gc_), GC.EFState(res),
+                                          GC.CompressConfig())
+            torch.cuda.synchronize()
+            gate = GC.CompressConfig().gate_ratio
+            res_by = dict(tree_flatten(res))
+            sent_by, resid_by = dict(tree_flatten(sg)), dict(
+                tree_flatten(eg.residuals))
+            r["crs"], sent_cpu = {}, {}
             t1 = time.perf_counter()
-            sc, ec, cc = GC.compress_tree(gh, GC.EFState(res),
-                                          GC.CompressConfig())
+            for k, cr in tree_flatten(cg):
+                g, rs = want[k].reshape(-1), res_by[k].reshape(-1)
+                cr_cpu = GC.predicted_cr_int8(g + rs.cpu())
+                same_span_bits(f"{dtype} CR {k}", cr, cr_cpu)
+                r["crs"][k] = float(cr_cpu)
+                # the span through the gate its leaf took
+                ccfg = GC.CompressConfig(
+                    gate_ratio=0.0 if float(cr_cpu) >= gate else math.inf)
+                for lo, hi in spans[k]:
+                    sc, ec, _ = GC.compress_tree(
+                        {"x": g[lo:hi]}, GC.EFState({"x": span(
+                            rs, lo, hi).cpu()}), ccfg)
+                    same_span_bits(f"{dtype} sent {k}[{lo}:{hi}]",
+                                   span(sent_by[k], lo, hi), sc["x"])
+                    same_span_bits(f"{dtype} residuals {k}[{lo}:{hi}]",
+                                   span(resid_by[k], lo, hi),
+                                   ec.residuals["x"])
+                    sent_cpu[(k, lo)] = sc["x"]
             r["cpu_compress_s"] = time.perf_counter() - t1
-            sg, eg, cg = GC.compress_tree(dev(gh), GC.EFState(dev(res)),
-                                          GC.CompressConfig())
-            same_tree_bits(torch, f"{dtype} sent", sg, sc)
-            same_tree_bits(torch, f"{dtype} residuals", eg.residuals,
-                           ec.residuals)
-            same_tree_bits(torch, f"{dtype} CRs", cg, cc)
-            r["crs"] = {k: float(v) for k, v in tree_flatten(cc)}
-            sent = sc
-            del sg, eg, cg, ec, cc, res, gh
+            sent_card = sg
+            del eg, cg, res, res_by, resid_by
         else:                       # ... and updates bfloat16 parameters
-            cpu = head(cpu)
             mu, nu = draws(cpu, 1e-3), draws(cpu, 1e-6, uniform=True)
             st = OPT.OptState(torch.tensor(3, dtype=torch.int32), mu, nu)
+            pg, og, ng = OPT.apply(ocfg, dev(cpu), sent_card, st)
+            torch.cuda.synchronize()
+            r["grad_norm"] = float(ng)
+            mu_by, nu_by = dict(tree_flatten(mu)), dict(tree_flatten(nu))
+            out = [dict(tree_flatten(x)) for x in (pg, og.mu, og.nu)]
             t1 = time.perf_counter()
-            pc, oc, nc = OPT.apply(ocfg, cpu, sent, st)
+            for k, p in tree_flatten(cpu):
+                for lo, hi in spans[k]:
+                    pc, oc, _ = OPT.apply(ocfg, {"x": span(p, lo, hi)},
+                                          {"x": sent_cpu[(k, lo)]},
+                                          OPT.OptState(st.step, {"x": span(
+                                              mu_by[k], lo, hi).cpu()}, {
+                                              "x": span(nu_by[k], lo,
+                                                        hi).cpu()}))
+                    for name, got, w in (("params", out[0][k], pc["x"]),
+                                         ("mu", out[1][k], oc.mu["x"]),
+                                         ("nu", out[2][k], oc.nu["x"])):
+                        same_span_bits(f"{dtype} AdamW {name} {k}[{lo}:{hi}]",
+                                       span(got, lo, hi), w)
             r["cpu_adamw_s"] = time.perf_counter() - t1
-            pg, og, ng = OPT.apply(ocfg, dev(cpu), dev(sent), OPT.OptState(
-                st.step, dev(mu), dev(nu)))
-            r["grad_norm"] = (float(ng), float(nc))
-            same_tree_bits(torch, f"{dtype} AdamW params", pg, pc)
-            same_tree_bits(torch, f"{dtype} AdamW mu", og.mu, oc.mu)
-            same_tree_bits(torch, f"{dtype} AdamW nu", og.nu, oc.nu)
-            del mu, nu, pc, oc, pg, og, sent
-        del gc_
+            del mu, nu, pg, og, out, mu_by, nu_by, sent_card, sent_cpu
+        del gc_, want
         r["s"] = time.perf_counter() - t
         rec[dtype] = r
+        n_spans = sum(len(v) for v in spans.values())
         log(f"train (b) {dtype} card vs CPU at d_model {cfg.d_model}, "
             f"{TRAIN_CMP_LAYERS} layers, batch {TRAIN_CMP_BATCH} x "
             f"{TRAIN_CMP_SEQ}: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f}, "
             f"max gradient err {max(r['grad_err'].values()):.3g}; "
-            + (f"compress_tree of the float32 gradients bit-equal (CRs "
-               f"{min(r['crs'].values()):.4f}-{max(r['crs'].values()):.4f}; "
-               f"each leaf's first {TRAIN_HEAD_VALUES:,} values)"
+            + (f"compress_tree of the float32 gradients (whole leaves on "
+               f"the card) bit-equal to the CPU's on {n_spans} spans "
+               f"(heads, chunk boundaries, last blocks), CRs of the whole "
+               f"leaves bit-equal ({min(r['crs'].values()):.4f}-"
+               f"{max(r['crs'].values()):.4f})"
                if "crs" in r else
                f"one AdamW step of the bfloat16 parameters on those sent "
-               f"gradients bit-equal (clip inactive; norms "
-               f"{r['grad_norm'][0]:.5f} / {r['grad_norm'][1]:.5f})")
+               f"gradients (whole leaves on the card) bit-equal to the "
+               f"CPU's on the same {n_spans} spans (clip inactive; card "
+               f"norm {r['grad_norm']:.5f})")
             + f"; {r['s']:.2f} s (" + ", ".join(
                 f"{k} {v:.2f}" for k, v in r.items() if k.endswith("_s")
                 and k != "s") + ")", card)
         del cpu
         gc.collect()
         torch.cuda.empty_cache()
+    log("train (b) spans by leaf " + json.dumps(rec["spans"]), card)
     return rec
 
 
@@ -3846,6 +3974,327 @@ def phase_train(torch, card, tmp) -> tuple[dict, dict]:
                                          rec.items() if k.endswith("_s")}),
         card)
     return rec, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the moe and vlm families
+# ---------------------------------------------------------------------------
+
+def mrope_streams(torch, b: int, s: int, grid=(2, 4)):
+    """Qwen2-VL's (t, h, w) position streams of an image of ``grid``
+    patches followed by text: (3, b, s) int32, three different streams
+    (broadcast positions make M-RoPE plain RoPE)."""
+    gh, gw = grid
+    img = torch.stack([torch.zeros(gh * gw, dtype=torch.int64),
+                       torch.arange(gh).repeat_interleave(gw),
+                       torch.arange(gw).repeat(gh)])
+    start = int(img.max()) + 1
+    text = torch.arange(start, start + s - gh * gw).expand(3, -1)
+    pos = torch.cat([img, text], dim=1)[:, :s]
+    return pos[:, None, :].expand(3, b, s).to(torch.int32).contiguous()
+
+
+def family_serve(torch, arch: str, layers: int, card) -> dict:
+    """(a): ``serve.engine.Engine`` at full width and ``layers`` layers,
+    random parameters from seed 0, ``FAM_BATCH`` prompts of
+    ``FAM_PROMPT`` ids, ``FAM_STEPS`` greedy steps, a ``FAM_MAX_LEN``
+    cache and the KV gate; then the gate through a ``SweepService``: the
+    same ids and metering, one kv_gate request of 2 rows."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.sweep_service import ServiceConfig, SweepService
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in params.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"families (a) {arch}: {n_params} parameters")
+    param_bytes = sum(x.numel() * x.element_size() for x in params.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (FAM_BATCH, FAM_PROMPT),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to("cuda")
+    runs = {}
+    for name in ("direct", "service"):
+        svc = (SweepService(ServiceConfig(max_wait_ms=1.0),
+                            device=torch.device("cuda"))
+               if name == "service" else None)
+        try:
+            eng = Engine(cfg, params, ServeConfig(
+                max_len=FAM_MAX_LEN, kv_compress=True), sweep_service=svc)
+            t = time.perf_counter()
+            ids = eng.generate({"tokens": tokens}, steps=FAM_STEPS)
+            wall = time.perf_counter() - t
+            gate = svc.stats()["methods"].get("kv_gate") if svc else None
+        finally:
+            if svc is not None:
+                svc.close()
+        tm = eng.timings
+        runs[name] = dict(
+            shape=list(ids.shape), ids=ids.cpu().tolist(),
+            prefill_ms=tm["prefill_s"] * 1e3, gate_ms=tm["gate_s"] * 1e3,
+            decode_ms_per_step=float(np.median(tm["decode_s"])) * 1e3,
+            generate_s=wall, tokens_per_s=FAM_BATCH * FAM_STEPS / wall,
+            kv_saved_bytes=eng.kv_saved_bytes,
+            kv_total_bytes=eng.kv_total_bytes, kv_gate=gate)
+    a, b = runs["direct"], runs["service"]
+    nums = [r[k] for r in (a, b) for k in ("prefill_ms", "gate_ms",
+                                           "decode_ms_per_step",
+                                           "tokens_per_s")]
+    if a["shape"] != [FAM_BATCH, FAM_STEPS] or not np.all(np.isfinite(nums)):
+        raise AssertionError(f"families (a) {arch}: bad run {a['shape']} "
+                             f"{nums}")
+    if a["ids"] != b["ids"]:
+        raise AssertionError(f"families (a) {arch}: the service run's ids "
+                             "differ")
+    if (a["kv_saved_bytes"], a["kv_total_bytes"]) != \
+            (b["kv_saved_bytes"], b["kv_total_bytes"]) or \
+            not 0 < a["kv_saved_bytes"] < a["kv_total_bytes"]:
+        raise AssertionError(f"families (a) {arch}: metering "
+                             f"{a['kv_saved_bytes']}/{a['kv_total_bytes']} vs "
+                             f"{b['kv_saved_bytes']}/{b['kv_total_bytes']}")
+    if (b["kv_gate"]["completed"], b["kv_gate"]["rows"]) != (1, 2):
+        raise AssertionError(f"families (a) {arch}: kv_gate {b['kv_gate']}")
+    rec = dict(layers=layers, params=n_params, param_bytes=param_bytes,
+               init_s=init_s, runs=runs,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for name, r in runs.items():
+        log(f"families (a) {arch} at {layers} of {get_arch(arch).num_layers} "
+            f"layers, {name}: {n_params:,} parameters, "
+            f"{param_bytes / 1e9:.3f} GB, init {init_s:.3f} s, prefill "
+            f"{r['prefill_ms']:.2f} ms, gate {r['gate_ms']:.2f} ms, decode "
+            f"{r['decode_ms_per_step']:.3f} ms/step, "
+            f"{r['tokens_per_s']:.1f} tokens/s, KV saved "
+            f"{r['kv_saved_bytes']:,}/{r['kv_total_bytes']:,} B", card)
+    log(f"families (a) {arch}: ids equal with and without the service; "
+        f"kv_gate {json.dumps(b['kv_gate'])}; peak device memory "
+        f"{rec['peak_gib']:.2f} GiB", card)
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_decode(torch, arch: str, card) -> dict:
+    """(b): float32 parameters at full width and ``FAM_DECODE_LAYERS``
+    layers, capacity factor 64 (no token dropped), as the reference's
+    test: prefill 15 tokens and decode the 16th against the full
+    forward's last logits (bound 1e-4).  For vlm also the loss with three
+    different position streams: finite, and not the broadcast one."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import causal_lm as CLM
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_arch(arch), num_layers=FAM_DECODE_LAYERS,
+                              dtype="float32", capacity_factor=64.0)
+    model = M.init_params(cfg, torch.Generator("cuda").manual_seed(0)).float()
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 17)).astype(np.int32)).to("cuda")
+    vlm = cfg.family == "vlm"
+    flat = (torch.arange(16, dtype=torch.int32, device="cuda").expand(3, 2, 16)
+            if vlm else None)
+    with torch.inference_mode():
+        full = CLM.logits_fn(model, CLM.forward(
+            model, toks[:, :16], cfg, mrope_positions=flat))[:, 15]
+        _, cache = M.prefill(model, {"tokens": toks[:, :15]}, cfg, 20)
+        lg, _ = M.decode_step(model, cache, toks[:, 15:16], 15, cfg,
+                              mrope_positions=None if flat is None
+                              else flat[:, :, 15:16])
+        err = float((lg - full).abs().max())
+        rec = {"max_abs_err": err, "max_logit": float(full.abs().max())}
+        log(f"families (b) {arch} float32 decode vs forward at full width, "
+            f"{FAM_DECODE_LAYERS} layers: max abs err {err:.3g} (|logit| <= "
+            f"{rec['max_logit']:.3g}, bound {LLM_DECODE_TOL})", card)
+        if not err < LLM_DECODE_TOL:
+            raise AssertionError(f"families (b) {arch}: decode vs forward "
+                                 f"{err}")
+        if vlm:
+            batch = {"tokens": toks[:, :16], "labels": toks[:, 1:]}
+            streams = mrope_streams(torch, 2, 16).to("cuda")
+            rec["loss_broadcast"] = float(M.loss_fn(model, dict(
+                batch, mrope_positions=flat), cfg, remat=False))
+            rec["loss_streams"] = float(M.loss_fn(model, dict(
+                batch, mrope_positions=streams), cfg, remat=False))
+            log(f"families (b) {arch}: loss with broadcast positions "
+                f"{rec['loss_broadcast']:.6f}, with an image's three "
+                f"streams {rec['loss_streams']:.6f}", card)
+            if not (np.isfinite(rec["loss_streams"])
+                    and rec["loss_streams"] != rec["loss_broadcast"]):
+                raise AssertionError(f"families (b) {arch}: losses {rec}")
+    del model, cache, full, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_card_vs_cpu(torch, arch: str, card) -> dict:
+    """(c): full width at ``FAM_CMP_LAYERS`` layer, parameters drawn on the
+    card (the host's generator takes ~7 ns a value: 24 s for qwen2-vl's
+    embedding, head and layer) and copied to the CPU, so both sides
+    hold the same values; float32 and bfloat16 (the router float32 in
+    both; each side casts its own copy).  Prefill logits and K/V caches card against CPU at phase 22's
+    bounds.  MoE: the routing of the card's router logits recomputed on
+    the CPU from the same logits, bit-equal (top-k indices, dispatch
+    positions, keep, within_cap); the share of (token, choice) pairs
+    whose routing differs when each side computes its own logits, held
+    to ``FAM_ROUTING_DIFFERS_MAX``, and the MoE output held on the
+    tokens whose routing agrees (the last token's logits on the rows
+    whose last token agrees, of which there must be one: one layer).  vlm: also
+    the final hidden states of a float32 forward with three different
+    position streams (M-RoPE's angles are float32 in both dtypes)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import causal_lm as CLM
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import params as PRM
+    cfg = dataclasses.replace(get_arch(arch), num_layers=FAM_CMP_LAYERS)
+    made = PRM.init_params(M.param_table(cfg),
+                           torch.Generator("cuda").manual_seed(2))
+    tree = PRM.tree_unflatten(made, [x.cpu() for x in PRM.tree_leaves(made)])
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    moe = CLM.is_moe(cfg)
+    seen = []
+    orig_route, orig_ffn = MOE.route, MOE.moe_ffn
+
+    def route_spy(logits, top_k, capacity):
+        out = orig_route(logits, top_k, capacity)
+        seen.append(("route", logits, top_k, capacity, out))
+        return out
+
+    def ffn_spy(x, p, **kw):
+        y = orig_ffn(x, p, **kw)
+        seen.append(("ffn", y))
+        return y
+
+    rec = {}
+    for dtype in ("float32", "bfloat16"):
+        cfgd = dataclasses.replace(cfg, dtype=dtype)
+        dt = getattr(torch, dtype)
+
+        def cast(x):
+            return x.to(dt) if x.dtype == torch.bfloat16 else x
+
+        cpu = CLM.CausalLM(cfgd, PRM.tree_unflatten(
+            tree, [cast(x) for x in PRM.tree_leaves(tree)]))
+        dev = CLM.CausalLM(cfgd, PRM.tree_unflatten(
+            made, [cast(x) for x in PRM.tree_leaves(made)]))
+        r = {}
+        seen.clear()
+        MOE.route, MOE.moe_ffn = route_spy, ffn_spy
+        try:
+            with torch.inference_mode():
+                lc, cc = M.prefill(cpu, {"tokens": toks}, cfgd, 24)
+                lg, cg = M.prefill(dev, {"tokens": toks.to("cuda")}, cfgd, 24)
+        finally:
+            MOE.route, MOE.moe_ffn = orig_route, orig_ffn
+        for name in ("k", "v"):
+            r[name] = llm_close(getattr(cg["seg0"], name),
+                                getattr(cc["seg0"], name), dtype,
+                                f"{arch} prefill {name}")
+        if not torch.equal(cg["seg0"].pos.cpu(), cc["seg0"].pos):
+            raise AssertionError(f"families (c) {arch} {dtype}: pos")
+        if moe:
+            (_, l_cpu, k, cap, out_cpu), (_, y_cpu) = seen[0], seen[1]
+            (_, l_dev, _, _, out_dev), (_, y_dev) = seen[2], seen[3]
+            e = cfg.num_experts
+            again = orig_route(l_dev.cpu(), k, cap)
+            got = (*out_dev, MOE.queue_positions(out_dev[1], e) < cap)
+            want = (*again, MOE.queue_positions(again[1], e) < cap)
+            names = ("weights", "idx", "pos", "keep", "within_cap")
+            for name, a, b in list(zip(names, want, got))[1:]:
+                if not torch.equal(a, b.cpu()):
+                    raise AssertionError(f"families (c) {arch} {dtype}: "
+                                         f"{name} from the same logits differ")
+            agree = ((out_cpu[1] == out_dev[1].cpu())
+                     & (out_cpu[3] == out_dev[3].cpu()))      # (G, T, k)
+            r["routing_differs_share"] = float(1.0 - agree.float().mean())
+            if r["routing_differs_share"] > FAM_ROUTING_DIFFERS_MAX[dtype]:
+                raise AssertionError(
+                    f"families (c) {arch} {dtype}: "
+                    f"{r['routing_differs_share']:.4f} of the (token, "
+                    "choice) pairs route apart on the card and the CPU "
+                    f"(at most {FAM_ROUTING_DIFFERS_MAX[dtype]})")
+            tok_ok = agree.all(dim=-1).reshape(toks.shape)    # (B, S)
+            r["tokens_agreeing"] = int(tok_ok.sum())
+            r["moe_out"] = llm_close(y_dev.cpu()[tok_ok], y_cpu[tok_ok], dtype,
+                                     f"{arch} MoE output, agreeing tokens")
+            rows = tok_ok[:, -1]
+            if not bool(rows.any()):
+                raise AssertionError(f"families (c) {arch} {dtype}: no row's "
+                                     "last token routes alike, no logits "
+                                     "to compare")
+            r["logits"] = llm_close(lg.cpu()[rows], lc[rows], dtype,
+                                    f"{arch} prefill logits")
+            r["capacity"] = cap
+        else:
+            r["logits"] = llm_close(lg, lc, dtype, f"{arch} prefill logits")
+        if cfg.family == "vlm" and dtype == "float32":
+            streams = mrope_streams(torch, 2, 16)
+            with torch.inference_mode():
+                hc = CLM.forward(cpu, toks, cfgd, mrope_positions=streams)
+                hg = CLM.forward(dev, toks.to("cuda"), cfgd,
+                                 mrope_positions=streams.to("cuda"))
+            r["streams_hidden"] = llm_close(hg, hc, dtype,
+                                            f"{arch} hidden, three streams")
+        r["max_logit"] = float(lc.float().abs().max())
+        rec[dtype] = r
+        del cpu, dev, lc, cc, lg, cg
+        seen.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    del made, tree
+    log(f"families (c) {arch} card vs CPU at full width, {FAM_CMP_LAYERS} "
+        f"layer, prefill of 2 x 16: " + json.dumps(rec)
+        + (" (routing from the card's logits bit-equal on the CPU)"
+           if moe else ""), card)
+    return rec
+
+
+def phase_families(torch, card) -> dict:
+    """Phase 24: the moe and vlm families (``models.moe``, M-RoPE) in
+    this process, each family's model freed before the next: for each of
+    ``FAM_SERVE``, (a) ``family_serve``, (b) ``family_decode``, (c)
+    ``family_card_vs_cpu``; then (d) ``train_steps`` of phi3.5-moe at
+    full width and ``FAM_TRAIN_LAYERS`` layers, its float32 router among
+    the gated leaves.  It launches no kernel of its own (products are
+    ``torch.matmul``); its launches are read and logged."""
+    from repro_torch.configs.base import get_arch
+    rec = {}
+    zero_counts(torch)
+    for arch, layers in FAM_SERVE:
+        r = {}
+        for key, fn in (("serve", lambda: family_serve(torch, arch, layers,
+                                                       card)),
+                        ("decode_vs_forward", lambda: family_decode(
+                            torch, arch, card)),
+                        ("card_vs_cpu", lambda: family_card_vs_cpu(
+                            torch, arch, card))):
+            t = time.perf_counter()
+            r[key] = fn()
+            r[f"{key}_s"] = time.perf_counter() - t
+        rec[arch] = r
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(FAM_TRAIN_ARCH),
+                              num_layers=FAM_TRAIN_LAYERS)
+    rec["train"] = train_steps(torch, card, cfg, "families (d)")
+    rec["train_s"] = time.perf_counter() - t
+    router = [k for k in rec["train"]["steps"][0]["crs"] if k.endswith(
+        "moe.router")]
+    if not router or any(k not in s["gated"] for s in rec["train"]["steps"]
+                         for k in router):
+        raise AssertionError(f"families (d): the router leaves {router} "
+                             "were not gated at every step")
+    launches = read_counts(torch, "Families", ())
+    rec["launches"] = {n: c["launches"] for n, c in launches.items()}
+    log("families: stages s " + json.dumps(
+        {a: {k: round(v, 2) for k, v in r.items() if k.endswith("_s")}
+         for a, r in rec.items() if isinstance(r, dict) and a != "train"
+         and a != "launches"} | {"train_s": round(rec["train_s"], 2)})
+        + "; kernel launches " + json.dumps(rec["launches"]), card)
+    return rec
 
 
 def main(argv=None) -> int:
@@ -4103,13 +4552,13 @@ def main(argv=None) -> int:
 
     stages["batch_independence_s"], batch_probes = check_batch_independence(
         torch, [
-        (f"{FIELD} slices", data, ebs, picks(data, 4)),
+        (f"{FIELD} slices", data, ebs, picks(data, 2)),
         (f"{SCALE_FIELD} slices", scale, [scale_eps], picks(scale, 3)),
         ("Gaussian type-4 samples", gauss, [GAUSS_EPS], picks(gauss, 3)),
         (f"{VOL_FIELD} volumes", vols, [vol_eps], picks(vols, 2))], smi)
     # ... nor on the eb grid it is launched with
     stages["eb_independence_s"], eb_probes = check_eb_independence(torch, [
-        (f"{FIELD} slices", data[picks(data, 2)], ebs),
+        (f"{FIELD} slices", data[picks(data, 1)], ebs),
         (f"{VOL_FIELD} volumes", vols[picks(vols, 1)],
          vol_eps * 10.0 ** np.linspace(-1.0, 0.25, 6))], smi)
     # ... and a prediction is the same bits on the card as on the CPU
@@ -4198,6 +4647,14 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- phase 24: the moe and vlm families at full width, in this
+    # process, after phase 23 has freed the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    families = phase_families(torch, smi)
+    stages["families_phase_s"] = time.perf_counter() - t
+
     # ---- phase 21: every shape a path launched that no row above holds:
     # its kernel against the plain version there, timed
     t = time.perf_counter()
@@ -4241,7 +4698,7 @@ def main(argv=None) -> int:
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
             dist=dist, fabric=fabric, fault=fault, tune=tuned, llm=llm,
-            train=trained,
+            train=trained, families=families,
             sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],

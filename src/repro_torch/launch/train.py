@@ -13,7 +13,7 @@ line.  The run is on the card unless ``--device cpu`` asks for the
 host; on the card cuBLAS's reduced-precision bfloat16 reductions and
 TF32 are turned off, so that products accumulate in float32 as the
 reference's do.  ``--mesh`` (training across cards) is not ported:
-ROADMAP Queue 1 item 6.
+ROADMAP Queue 1 item 7.
 
 ``main(argv)`` returns a report: the losses by step, the step times,
 the parameter count and the last checkpoint's manifest.

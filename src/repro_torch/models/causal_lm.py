@@ -1,6 +1,9 @@
-"""Decoder-only causal LM, dense family (``repro/models/causal_lm.py``).
+"""Decoder-only causal LM (``repro/models/causal_lm.py``), three families:
 
   dense -- stablelm-3b, codeqwen1.5-7b, granite-8b, granite-3-2b
+  moe   -- phi3.5-moe (16 experts, top-2; ``models/moe``)
+  vlm   -- qwen2-vl's backbone (the dense layers with QKV biases and
+           M-RoPE; the patch frontend is stubbed, as in the reference)
 
 The parameter table is the reference's, stacked over layers
 (``seg0.attn.wq`` is (n, d, hq * hd)); ``CausalLM`` holds it as an
@@ -25,9 +28,18 @@ leaf per reference leaf.  With ``remat`` each layer runs under
 only layer boundaries are kept).  ``xent_loss`` chunks the sequence by
 512 as the reference's scan does.
 
-The other families (moe, mla_moe, vlm, ssm, hybrid, encdec) are ROADMAP
-Queue 1 item 5; the ``REPRO_REMAT=dots|tp_outs`` policies come with
-training across cards (item 6).
+A moe layer carries a ``moe`` group (a float32 router and the
+experts' stacks) where a dense one carries ``mlp``.  A vlm model's
+attention rotates by M-RoPE over three position streams
+(``mrope_positions``, (3, B, S): t, h, w), which ``forward``,
+``loss_fn`` (the batch's ``mrope_positions``) and ``decode_step``
+take; without them each stream is the token's position, and M-RoPE is
+plain RoPE.  ``prefill`` takes none, as the reference's does, so a
+served prompt rotates by its broadcast positions.
+
+The other families (mla_moe, ssm, hybrid, encdec) are ROADMAP Queue 1
+items 2-5; the ``REPRO_REMAT=dots|tp_outs`` policies come with training
+across cards (item 7).
 """
 from __future__ import annotations
 
@@ -42,17 +54,23 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.params import ParamDef, tree_flatten
 
-_FAMILIES = ("dense",)
+_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported: the port "
-            "builds the dense family; the others are ROADMAP Queue 1 "
-            "item 5")
+            "builds the dense, moe and vlm families; mla_moe, ssm, hybrid "
+            "and encdec are ROADMAP Queue 1 items 2-5")
+
+
+def is_moe(cfg: ModelConfig) -> bool:
+    """Every layer of the family routes through experts."""
+    return cfg.family in ("moe", "mla_moe")
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -92,15 +110,25 @@ def _norms_table(n: int, cfg: ModelConfig, names) -> Dict[str, ParamDef]:
             for k in names}
 
 
-def _layer_table(n: int, cfg: ModelConfig) -> dict:
-    """Table for a stack of ``n`` homogeneous dense layers."""
-    t = {"attn": _attn_table(n, cfg), "mlp": _mlp_table(n, cfg)}
+def _layer_table(n: int, cfg: ModelConfig, moe_layer: bool) -> dict:
+    """Table for a stack of ``n`` homogeneous layers: attention, then a
+    ``moe`` group (the reference keeps shared experts in it, sized
+    ``moe_d_ff * max(num_shared, 1)``) or an ``mlp`` one."""
+    t = {"attn": _attn_table(n, cfg)}
+    if moe_layer:
+        ff = cfg.moe_d_ff or cfg.d_ff
+        t["moe"] = MOE.moe_param_table(
+            n, cfg.d_model, ff, cfg.num_experts, cfg.num_shared_experts,
+            shared_d_ff=ff * max(cfg.num_shared_experts, 1))
+    else:
+        t["mlp"] = _mlp_table(n, cfg)
     t.update(_norms_table(n, cfg, ["norm1", "norm2"]))
     return t
 
 
 def segments(cfg: ModelConfig):
-    """Layer segmentation: one ("scan", num_layers) segment (dense)."""
+    """Layer segmentation: one ("scan", num_layers) segment (the ported
+    families have no unrolled layers)."""
     check_family(cfg)
     return [("scan", cfg.num_layers)]
 
@@ -113,7 +141,7 @@ def param_table(cfg: ModelConfig) -> dict:
         "lm_head": ParamDef((cfg.d_model, v), ("fsdp", "model")),
     }
     for i, (_, n) in enumerate(segments(cfg)):
-        t[f"seg{i}"] = _layer_table(n, cfg)
+        t[f"seg{i}"] = _layer_table(n, cfg, moe_layer=is_moe(cfg))
     return t
 
 
@@ -126,7 +154,8 @@ def _param(x: torch.Tensor) -> nn.Parameter:
 
 
 class _Params(nn.Module):
-    """A flat group of parameters (``attn``, ``mlp``) of one layer."""
+    """A flat group of parameters (``attn``, ``mlp``, ``moe``) of one
+    layer."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         super().__init__()
@@ -134,17 +163,23 @@ class _Params(nn.Module):
             setattr(self, k, _param(x))
 
 
+def _ffn_group(seg: dict) -> str:
+    """A segment's feed-forward group, as ``param_table`` chose it."""
+    return "moe" if "moe" in seg else "mlp"
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, seg: dict, i: int):
         super().__init__()
         self.attn = _Params({k: x[i] for k, x in seg["attn"].items()})
-        self.mlp = _Params({k: x[i] for k, x in seg["mlp"].items()})
+        ffn = _ffn_group(seg)
+        setattr(self, ffn, _Params({k: x[i] for k, x in seg[ffn].items()}))
         self.norm1 = _param(seg["norm1"][i])
         self.norm2 = _param(seg["norm2"][i])
 
 
 class CausalLM(nn.Module):
-    """The dense model from a parameter tree shaped as ``param_table(cfg)``
+    """The model from a parameter tree shaped as ``param_table(cfg)``
     (stacked layers; any float dtype).  Raises ``ValueError`` on a
     missing, extra or mis-shaped leaf."""
 
@@ -173,9 +208,10 @@ class CausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens, caches=None, pos_offset: int = 0):
+    def forward(self, tokens, caches=None, pos_offset: int = 0,
+                mrope_positions=None):
         return forward(self, tokens, self.cfg, caches=caches,
-                       pos_offset=pos_offset)
+                       pos_offset=pos_offset, mrope_positions=mrope_positions)
 
 
 # ===========================================================================
@@ -221,20 +257,28 @@ def _project_qkv(x, p, cfg: ModelConfig):
     return q, k, v
 
 
-def _rope_qk(q, k, positions, cfg: ModelConfig):
+def _rope_qk(q, k, positions, cfg: ModelConfig, mrope_positions=None):
+    """RoPE, or M-RoPE for the vlm family: ``mrope_positions`` (3, B, S),
+    else ``positions`` broadcast to the three streams."""
+    if cfg.family == "vlm" and cfg.mrope_sections:
+        pos3 = (mrope_positions if mrope_positions is not None
+                else positions.expand((3,) + tuple(positions.shape)))
+        return (L.apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections),
+                L.apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections))
     return (L.apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary),
             L.apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary))
 
 
 def attn_block(x, p, cfg: ModelConfig, *,
-               cache: Optional[AttnCache] = None, pos_offset: int = 0):
+               cache: Optional[AttnCache] = None, pos_offset: int = 0,
+               mrope_positions=None):
     """Causal GQA attention; with a cache, the decode (S == 1) or prefill
     write into this layer's (B, T, ...) slices, in place.  (Windowed
     layers belong to the hybrid family.)"""
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     positions = pos_offset + torch.arange(s, device=x.device)[None, :]
-    q, k = _rope_qk(q, k, positions, cfg)
+    q, k = _rope_qk(q, k, positions, cfg, mrope_positions)
 
     if cache is None:
         out = L.attention(q, k, v, causal=True, q_offset=0)
@@ -265,13 +309,25 @@ def attn_block(x, p, cfg: ModelConfig, *,
     return L.dot(out, p.wo)
 
 
-def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *,
-              cache: Optional[AttnCache] = None, pos_offset: int = 0):
-    """One dense transformer layer.  cache: this layer's entry."""
-    x = x + attn_block(L.rms_norm(x, lp.norm1), lp.attn, cfg, cache=cache,
-                       pos_offset=pos_offset)
+def mlp_or_moe(x, lp, cfg: ModelConfig):
+    """The layer's feed-forward: its experts, where its table gave it a
+    ``moe`` group, else its SwiGLU."""
+    if hasattr(lp, "moe"):
+        return MOE.moe_ffn(x, lp.moe, num_experts=cfg.num_experts,
+                           top_k=cfg.experts_per_token,
+                           capacity_factor=cfg.capacity_factor)
     m = lp.mlp
-    return x + L.swiglu(L.rms_norm(x, lp.norm2), m.wg, m.wu, m.wd)
+    return L.swiglu(x, m.wg, m.wu, m.wd)
+
+
+def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *,
+              cache: Optional[AttnCache] = None, pos_offset: int = 0,
+              mrope_positions=None):
+    """One transformer layer.  cache: this layer's entry."""
+    x = x + attn_block(L.rms_norm(x, lp.norm1), lp.attn, cfg, cache=cache,
+                       pos_offset=pos_offset,
+                       mrope_positions=mrope_positions)
+    return x + mlp_or_moe(L.rms_norm(x, lp.norm2), lp, cfg)
 
 
 # ===========================================================================
@@ -282,12 +338,12 @@ def _stacked_layers(seg: dict):
     """Per-layer views of a stacked segment tree: layer i reads slice i
     of every leaf.  One ``unbind`` per leaf, so autograd stacks the
     layers' gradients once per leaf."""
-    attn = {k: x.unbind(0) for k, x in seg["attn"].items()}
-    mlp = {k: x.unbind(0) for k, x in seg["mlp"].items()}
+    groups = {g: {k: x.unbind(0) for k, x in seg[g].items()}
+              for g in ("attn", _ffn_group(seg))}
     n1, n2 = seg["norm1"].unbind(0), seg["norm2"].unbind(0)
     return [SimpleNamespace(
-        attn=SimpleNamespace(**{k: v[i] for k, v in attn.items()}),
-        mlp=SimpleNamespace(**{k: v[i] for k, v in mlp.items()}),
+        **{g: SimpleNamespace(**{k: v[i] for k, v in grp.items()})
+           for g, grp in groups.items()},
         norm1=n1[i], norm2=n2[i]) for i in range(len(n1))]
 
 
@@ -304,23 +360,27 @@ def _head(params) -> torch.Tensor:
 
 
 def forward(model, tokens: torch.Tensor, cfg: ModelConfig, *,
-            caches=None, pos_offset: int = 0, remat: bool = False):
+            caches=None, pos_offset: int = 0, mrope_positions=None,
+            remat: bool = False):
     """tokens: (B, S) int -> final-normed hidden (B, S, D); with ``caches``
     (dict per segment, written in place) also returns them.  ``model``
-    is a ``CausalLM`` or a parameter tree; ``remat`` checkpoints each
-    layer when autograd records (no cache)."""
+    is a ``CausalLM`` or a parameter tree; ``mrope_positions`` (3, B, S)
+    the vlm family's position streams; ``remat`` checkpoints each layer
+    when autograd records (no cache)."""
     embed, final_norm, layers = _parts(model)
     x = embed[tokens.long()].to(act_dtype(cfg))
     seg = caches["seg0"] if caches is not None else None
     remat = remat and seg is None and torch.is_grad_enabled()
     for i, lp in enumerate(layers):
         if remat:
-            x = checkpoint(functools.partial(layer_fwd, lp=lp, cfg=cfg), x,
-                           use_reentrant=False)
+            x = checkpoint(functools.partial(
+                layer_fwd, lp=lp, cfg=cfg, pos_offset=pos_offset,
+                mrope_positions=mrope_positions), x, use_reentrant=False)
             continue
         lc = (AttnCache(seg.k[i], seg.v[i], seg.pos[i])
               if seg is not None else None)
-        x = layer_fwd(x, lp, cfg, cache=lc, pos_offset=pos_offset)
+        x = layer_fwd(x, lp, cfg, cache=lc, pos_offset=pos_offset,
+                      mrope_positions=mrope_positions)
     x = L.rms_norm(x, final_norm)
     return (x, caches) if caches is not None else x
 
@@ -358,22 +418,27 @@ def xent_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: bool = True) -> torch.Tensor:
-    hidden = forward(params, batch["tokens"], cfg, remat=remat)
+    hidden = forward(params, batch["tokens"], cfg, remat=remat,
+                     mrope_positions=batch.get("mrope_positions"))
     return xent_loss(params, hidden, batch["labels"], cfg.padded_vocab)
 
 
 def prefill(model: CausalLM, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int):
-    """Returns (last-token logits (B, V), populated cache)."""
+    """Returns (last-token logits (B, V), populated cache).  Takes no
+    ``mrope_positions``, as the reference's prefill takes none: a vlm
+    prompt rotates by its broadcast positions."""
     caches = init_cache(cfg, tokens.shape[0], max_len, model.device)
     hidden, caches = forward(model, tokens, cfg, caches=caches)
     return logits_fn(model, hidden[:, -1:])[:, 0], caches
 
 
 def decode_step(model: CausalLM, caches, token: torch.Tensor, pos,
-                cfg: ModelConfig):
-    """token: (B, 1) int; pos: the absolute position (an int).  Writes the
+                cfg: ModelConfig, mrope_positions=None):
+    """token: (B, 1) int; pos: the absolute position (an int);
+    ``mrope_positions`` (3, B, 1) the vlm family's streams.  Writes the
     token's K/V into ``caches`` and returns (logits (B, V), caches)."""
     hidden, caches = forward(model, token, cfg, caches=caches,
-                             pos_offset=int(pos))
+                             pos_offset=int(pos),
+                             mrope_positions=mrope_positions)
     return logits_fn(model, hidden)[:, 0], caches

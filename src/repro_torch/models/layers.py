@@ -15,7 +15,8 @@ Attention is the reference's form (float32 scores, ``-1e30`` masking,
 softmax, weights cast to the activation dtype, then V), not
 ``scaled_dot_product_attention``, which normalizes in another order.
 ``rms_norm`` carries the reference's custom backward for training;
-``layer_norm``, M-RoPE and the GELU MLP come with the other families.
+``apply_mrope`` is Qwen2-VL's multimodal RoPE (the vlm family);
+``layer_norm`` and the GELU MLP come with the other families.
 """
 from __future__ import annotations
 
@@ -105,6 +106,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
+
+
+def mrope_section_ids(sections, half: int) -> list:
+    """The position stream (0: t, 1: h, 2: w) of each of ``half``
+    frequency pairs: stream i repeated ``sections[i]`` times, cut or
+    padded with the last stream to ``half`` (``jnp.repeat`` with
+    ``total_repeat_length``)."""
+    ids = [i for i, n in enumerate(sections) for _ in range(int(n))]
+    ids = ids[:half]
+    return ids + [len(sections) - 1] * (half - len(ids))
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL M-RoPE.  x: (..., S, H, hd); positions3: (3, ..., S), the
+    (t, h, w) position streams.  Frequency pair j rotates by stream
+    ``mrope_section_ids(sections, hd / 2)[j]``; every dim rotates.  The
+    frequencies are ``rope_freqs`` (XLA's float64 fold)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    sec = torch.tensor(mrope_section_ids(sections, hd // 2),
+                       device=positions3.device)
+    pos = torch.movedim(positions3.index_select(0, sec), 0, -1)  # (..., S, hd/2)
+    ang = pos.to(torch.float32) * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

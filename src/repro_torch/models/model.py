@@ -4,11 +4,12 @@ Builds the model of a config, sizes it without allocating, and gives
 the serving entry points (``prefill``, ``decode_step``, ``init_cache``)
 and training's ``loss_fn``.  For serving "params" is the
 ``causal_lm.CausalLM`` module; ``init_tree`` gives the same tensors as
-the reference's stacked tree, which training differentiates.  Only the dense
-family is built; whisper (``encdec``) and the other families raise
-``NotImplementedError`` (ROADMAP Queue 1 item 5), as do the dry-run's
-``input_specs`` / ``abstract_*`` and the mesh's ``param_specs`` /
-``cache_logical_axes``, which are not ported yet.
+the reference's stacked tree, which training differentiates.  The
+dense, moe and vlm families are built; whisper (``encdec``) and the
+other families raise ``NotImplementedError`` (ROADMAP Queue 1 items
+2-5); the dry-run's ``input_specs`` / ``abstract_*`` and the mesh's
+``param_specs`` / ``cache_logical_axes`` are not ported yet (items 6
+and 7).
 """
 from __future__ import annotations
 
@@ -41,8 +42,17 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def active_params(cfg: ModelConfig) -> int:
-    """Per-token active parameters: every one in a dense model."""
-    return count_params(cfg)
+    """Per-token active parameters (MoE: only the routed-in experts
+    count), as the reference counts them."""
+    total = count_params(cfg)
+    if cfg.num_experts:
+        ff = cfg.moe_d_ff or cfg.d_ff
+        per_expert = 3 * cfg.d_model * ff
+        moe_layers = cfg.num_layers - (1 if cfg.dense_first_layer else 0)
+        inactive = ((cfg.num_experts - cfg.experts_per_token) * per_expert
+                    * moe_layers)
+        return total - inactive
+    return total
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -55,13 +65,18 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def prefill(params: CLM.CausalLM, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, max_len: int):
+    """(last-token logits, cache) of ``batch["tokens"]``; a batch's
+    ``mrope_positions`` are not read (the reference's prefill reads
+    none)."""
     return CLM.prefill(params, batch["tokens"], cfg, max_len)
 
 
 def decode_step(params: CLM.CausalLM, cache, token: torch.Tensor, pos,
-                cfg: ModelConfig):
-    """token: (B, 1); pos: the current absolute position."""
-    return CLM.decode_step(params, cache, token, pos, cfg)
+                cfg: ModelConfig, mrope_positions=None):
+    """token: (B, 1); pos: the current absolute position;
+    ``mrope_positions`` (3, B, 1) for the vlm family."""
+    return CLM.decode_step(params, cache, token, pos, cfg,
+                           mrope_positions=mrope_positions)
 
 
 def init_cache(cfg: ModelConfig, params: CLM.CausalLM, batch: int,

@@ -81,12 +81,18 @@ def _is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
 
+SLICED_DRAW_VALUES = 1 << 30    # a larger leaf draws a slice at a time
+
+
 def init_params(table, generator: torch.Generator) -> dict:
     """The table's tensors on ``generator``'s device: ``zeros``, ``ones``,
     else a float32 normal draw times ``scale / sqrt(fan_in)`` with
     ``fan_in = shape[-2]`` (``shape[-1]`` for a vector), cast to the
     def's dtype -- the reference's rules, not its PRNG's bits.  Leaves
-    draw in flatten order from the one generator."""
+    draw in flatten order from the one generator, each in slices of its
+    first axis of at most ``SLICED_DRAW_VALUES`` values (one slice but
+    for stacked experts or MLPs, or a large vocabulary's embedding at
+    full width), so the float32 draw never holds a whole large leaf."""
     device = generator.device
 
     def make(d: ParamDef) -> torch.Tensor:
@@ -96,9 +102,13 @@ def init_params(table, generator: torch.Generator) -> dict:
             return torch.ones(d.shape, dtype=d.dtype, device=device)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = d.scale / float(np.sqrt(max(fan_in, 1)))
-        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x.mul_(std)).to(d.dtype)
+        out = torch.empty(d.shape, dtype=d.dtype, device=device)
+        rows = max(1, SLICED_DRAW_VALUES // max(1, int(np.prod(d.shape[1:]))))
+        for part in out.split(rows):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32,
+                                   device=device).mul_(std))
+        return out
 
     return tree_unflatten(table, [make(d) for d in tree_leaves(table, _is_def)])
 

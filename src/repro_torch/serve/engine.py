@@ -7,8 +7,8 @@ model of their int8 codes; a leaf whose predicted CR clears
 the cache), and the bytes it saves are metered.  This is the runtime
 analogue of UC2: decide whether to compress without trial-compressing.
 
-The gate's CRs come from ``train.grad_compress.predicted_cr_int8`` per
-leaf, synced once, or -- with ``sweep_service=`` -- from the shared
+The gate's CRs are the reference's jitted ``predicted_cr_int8``
+(``train.grad_compress.predicted_cr_int8``) per leaf, synced once, or -- with ``sweep_service=`` -- from the shared
 ``serve.sweep_service.SweepService``'s ``kv_gate`` method, so concurrent
 engines' scoring coalesces into its batched launches and repeats ride its
 cache.  Either way the gated leaves are rewritten by one quantize and

@@ -200,7 +200,8 @@ class QualityLauncher(Launcher):
 
 
 class Int8CRLauncher(Launcher):
-    """Predicted int8+entropy compression ratio per row
+    """Predicted int8+entropy compression ratio per row, the
+    reference's jitted ``predicted_cr_int8``
     (``train.grad_compress.predicted_cr_rows``): rows are FLATTENED
     leaves (the CR does not depend on the leaf's shape).  Every step is
     elementwise, a max, an integer count or a fixed-order row sum, so a
@@ -445,10 +446,11 @@ class AdviseMethod(ServableMethod):
 
 class KVGateMethod(ServableMethod):
     """KV-cache compression gate: a list of array leaves -> (k,) float32
-    predicted int8 CRs, one per leaf, equal to ``predicted_cr_int8`` of
-    each leaf.  Leaves are flattened and digested like any other row, so
-    identical blocks dedup within a batch and repeats ride the cache.
-    There is no error bound: rows key on the sentinel eb 0.0."""
+    predicted int8 CRs, one per leaf, equal to the reference's jitted
+    ``predicted_cr_int8`` of each leaf.  Leaves are flattened and
+    digested like any other row, so identical blocks dedup within a
+    batch and repeats ride the cache.  There is no error bound: rows key
+    on the sentinel eb 0.0."""
 
     name = "kv_gate"
     batch_buckets = (1, 2, 4, 8, 16, 32, 64, 128, 256)

@@ -562,7 +562,7 @@ class SweepService:
 
     def submit_kv_gate(self, leaves) -> Future:
         """Array leaves -> Future[(k,) float32 predicted int8 CRs], equal
-        to ``predicted_cr_int8`` of each leaf."""
+        to the reference's jitted ``predicted_cr_int8`` of each leaf."""
         return self.submit("kv_gate", leaves)
 
     def submit_advise(self, models: Dict[str, object], stack) -> Future:

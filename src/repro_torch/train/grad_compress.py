@@ -18,14 +18,17 @@ reciprocal explicitly), ``round`` is half to even in both packages,
 entropy sum adds in XLA's order (``refmath.sum_rows_f32``).  Every step
 is elementwise, a max or an integer count, and that sum runs row by
 row in a fixed order, so a row's CR is the same bits alone and in any
-batch.  Two forms of the size model exist in the reference, and they
-differ where ``n`` is not a power of two: the eager one (the service's
-``kv_gate``, :func:`predicted_cr_rows`) divides ``counts / n`` and adds
-``n h / 8 + 4 n_blocks`` in two roundings; inside ``compress_tree``'s
-jit XLA multiplies the counts by ``f32(1 / n)`` and contracts the size
-into ``fma(h, n / 8, 4 n_blocks)`` (its optimized IR and object code),
-which :func:`predicted_cr_jit` follows.  The residual is
-``fma(-code, scale, g)``, also contracted there.
+batch.  The size model is the reference's jitted
+``predicted_cr_int8``, which is the form every caller in its program
+runs (the engine's gate, the service's ``kv_gate`` launcher and
+``compress_tree`` are all jitted): XLA multiplies the counts by
+``f32(1 / n)`` and contracts the size into ``fma(h, n / 8, 4
+n_blocks)`` (its optimized IR and object code), which
+:func:`predicted_cr_jit` follows.  The reference's eager call divides
+``counts / n`` and rounds the size twice, so it differs where ``n`` is
+not a power of two; nothing in its program runs it, and the port has
+no such form.  The residual is ``fma(-code, scale, g)``, also
+contracted there.
 """
 from __future__ import annotations
 
@@ -77,7 +80,8 @@ def dequantize_int8(codes: torch.Tensor, scales: torch.Tensor, shape,
 def predicted_cr_rows(rows: torch.Tensor,
                       bins: int = DEFAULT_BINS) -> torch.Tensor:
     """(k, n) float32 rows -> (k,) predicted int8+entropy CRs against raw
-    float32, each row :func:`predicted_cr_int8` of that row alone."""
+    float32, each row the reference's jitted ``predicted_cr_int8`` of
+    that row alone (:func:`predicted_cr_jit` of its code counts)."""
     blocks = _blockify(rows.to(torch.float32))
     k, nb, _ = blocks.shape
     codes, _ = _quantize_blocks(blocks)
@@ -86,13 +90,7 @@ def predicted_cr_rows(rows: torch.Tensor,
     idx = idx + (torch.arange(k, device=rows.device) * bins)[:, None]
     counts = torch.bincount(idx.reshape(-1), minlength=k * bins
                             ).reshape(k, bins)
-    p = counts.to(torch.float32) / scalar(float(n), rows)
-    terms = torch.where(p > 0, p * refmath.log2_f32(torch.clamp(p, min=1e-30)),
-                        torch.zeros_like(p))
-    h = -refmath.sum_rows_f32(terms)
-    size = (scalar(float(n), rows) * h / scalar(8.0, rows)
-            + scalar(nb * 4.0, rows))
-    return scalar(4.0 * n, rows) / torch.clamp(size, min=1.0)
+    return predicted_cr_jit(counts, n, nb)
 
 
 def predicted_cr_int8(g: torch.Tensor, bins: int = DEFAULT_BINS
@@ -150,16 +148,17 @@ def _code_counts(codes: torch.Tensor, bins: int) -> torch.Tensor:
 def predicted_cr_jit(counts: torch.Tensor, n: int, n_blocks: int
                      ) -> torch.Tensor:
     """The predicted CR of ``n`` codes (padding included) in ``n_blocks``
-    blocks from their ``counts`` histogram, as the reference's jitted
-    ``predicted_cr_int8`` computes it: ``p = counts * f32(1/n)``, the
-    entropy sum in XLA's order, ``size = fma(h, n/8, 4 n_blocks)`` and
-    ``4 n / max(size, 1)`` (a 0-dim float32 tensor)."""
+    blocks from their ``counts`` histogram (..., bins), as the
+    reference's jitted ``predicted_cr_int8`` computes it: ``p = counts *
+    f32(1/n)``, the entropy sum in XLA's order, ``size = fma(h, n/8, 4
+    n_blocks)`` and ``4 n / max(size, 1)`` (float32, one per histogram;
+    each row's bits its own)."""
     like = counts
     inv_n = float(np.float32(1.0) / np.float32(n))
     p = counts.to(torch.float32) * scalar(inv_n, like)
     terms = torch.where(p > 0, p * refmath.log2_f32(torch.clamp(p, min=1e-30)),
                         torch.zeros_like(p))
-    h = -refmath.sum_rows_f32(terms[None])[0]
+    h = -refmath.sum_rows_f32(terms)
     size = fma32(h, float(np.float32(n) * np.float32(0.125)),
                  float(np.float32(n_blocks * 4.0)))
     return scalar(float(np.float32(4.0 * n)), like) / torch.clamp(size, min=1.0)

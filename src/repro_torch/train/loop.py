@@ -15,7 +15,7 @@ On restart the parameters and moments come from the checkpoint, the
 optimizer's step is the checkpoint's, and the error-feedback residuals
 are the fresh state's (they are not checkpointed), as in the reference.
 Re-meshing a state onto other cards (``dist.fault.remesh_state``) is
-training across cards: ROADMAP Queue 1 item 6.
+training across cards: ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 

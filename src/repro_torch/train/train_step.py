@@ -17,7 +17,7 @@ would not fit the card); by default the step returns new tensors and
 leaves its input state as it was.
 
 Training across cards (the ``podsync`` mode with ``stack_for_podsync``,
-a ``mesh``) is not ported: ROADMAP Queue 1 item 6.
+a ``mesh``) is not ported: ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from repro_torch.train import grad_compress as GC
 from repro_torch.train import optimizer as OPT
 
 ACROSS_CARDS = ("training across cards (podsync mode, stack_for_podsync, "
-                "a mesh) is not ported: ROADMAP Queue 1 item 6")
+                "a mesh) is not ported: ROADMAP Queue 1 item 7")
 
 
 class TrainState(NamedTuple):

@@ -202,6 +202,45 @@ def test_engine_gate_through_sweep_service():
     assert st["methods"]["kv_gate"]["rows"] == 2     # the two candidates
 
 
+def _odd_gate_leaves():
+    """Eight rank-5 float32 leaves of 7680 values (30 blocks: no power of
+    two of codes), magnitudes 1e-4-1; the reference's eager size model
+    and its jitted one differ on some of them."""
+    rng = np.random.default_rng(26)
+    return [(rng.standard_normal((2, 3, 40, 2, 16))
+             * 10.0 ** rng.uniform(-4, 0)).astype(np.float32)
+            for _ in range(8)]
+
+
+@pytest.mark.parametrize("path", ["engine", "service"])
+def test_gate_crs_are_the_reference_jitted_forms(path):
+    """The gate's CRs on leaves whose code counts are no power of two:
+    the port's ``Engine._predict_crs`` == the reference ``Engine``'s
+    ``_gate_crs`` (one ``jax.jit``), and the port's service ``kv_gate``
+    == the reference's ``Int8CRLauncher`` (``jit(vmap)``), bit for bit;
+    the reference's eager call differs from both on at least one
+    leaf."""
+    from repro.serve.method import Int8CRLauncher
+    from repro.train.grad_compress import predicted_cr_int8
+    leaves = _odd_gate_leaves()
+    eager = np.asarray([np.float32(predicted_cr_int8(jnp.asarray(x)))
+                        for x in leaves])
+    if path == "engine":
+        ref = RE.Engine(None, None, RE.ServeConfig(kv_compress=True))
+        want = np.asarray(ref._gate_crs(tuple(jnp.asarray(x)
+                                              for x in leaves)))
+        got = TE.Engine(None, None, TE.ServeConfig(kv_compress=True)
+                        )._predict_crs([torch.from_numpy(x) for x in leaves])
+    else:
+        stack = np.stack([x.reshape(-1) for x in leaves])
+        want = Int8CRLauncher().launch(stack, [0.0], None, 8, None)[:, 0, 0]
+        with SweepService(ServiceConfig(max_wait_ms=5.0), device="cpu") as svc:
+            got = svc.kv_gate(leaves)
+    assert got.shape == want.shape == (8,)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not np.array_equal(eager.view(np.uint32), want.view(np.uint32))
+
+
 def test_bfloat16_leaves_through_the_service():
     """The service reads bfloat16 leaves (numpy has no bfloat16): its CRs
     == the engine's own for the same leaves."""

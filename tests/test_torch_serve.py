@@ -417,37 +417,58 @@ def test_warmup_covers_all_registered_methods():
         assert len(svc._executables) == before
 
 
-def test_kv_gate_matches_reference_model():
-    """Served kv_gate CRs are bit-equal to the reference's
-    ``predicted_cr_int8`` of each raw leaf."""
-    import jax.numpy as jnp
-    from repro.train.grad_compress import predicted_cr_int8
+def _gate_leaves():
+    """``tests/test_methods.py``'s kv_gate leaves and one of 3000 values
+    (3072 codes, no power of two) on which the reference's eager call
+    and its jitted form give different CRs."""
     rng = np.random.default_rng(1)
-    leaves = [
+    return [
         np.asarray(rng.standard_normal((2, 3, 8, 16)), np.float32),
         np.asarray(rng.standard_normal((4, 64)) * 1e-3, np.float32),
         np.zeros((512,), np.float32) + 0.25,
+        np.asarray(np.random.default_rng(1).standard_normal(3000) * 1e-3,
+                   np.float32),
     ]
-    ref = np.asarray([np.float32(predicted_cr_int8(jnp.asarray(x)))
+
+
+def test_kv_gate_matches_reference_model():
+    """Served kv_gate CRs are bit-equal to the reference's jitted
+    ``predicted_cr_int8`` of each raw leaf and to its own service's
+    ``kv_gate`` (``Int8CRLauncher``'s ``jit(vmap)``), the forms its
+    program runs; its eager call differs on the 3000-value leaf."""
+    import jax
+    import jax.numpy as jnp
+    from repro.serve.sweep_service import ServiceConfig as RServiceConfig
+    from repro.serve.sweep_service import SweepService as RSweepService
+    from repro.train.grad_compress import predicted_cr_int8
+    leaves = _gate_leaves()
+    ref = np.asarray([np.float32(jax.jit(predicted_cr_int8)(jnp.asarray(x)))
                       for x in leaves], np.float32)
+    eager = np.float32(predicted_cr_int8(jnp.asarray(leaves[3])))
+    assert eager.view(np.int32) != ref[3].view(np.int32)
+    with RSweepService(RServiceConfig(max_wait_ms=5.0)) as rsvc:
+        served = np.asarray(rsvc.kv_gate(leaves), np.float32)
+    np.testing.assert_array_equal(served.view(np.int32), ref.view(np.int32))
     with _service(ServiceConfig(max_wait_ms=5.0)) as svc:
         got = svc.kv_gate(leaves)
-    assert got.shape == (3,)
+    assert got.shape == (4,)
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
 def test_int8_quantizer_matches_reference():
     """``quantize_int8`` / ``dequantize_int8`` and a batch of
-    ``predicted_cr_rows`` give the reference's bits (a ragged last
-    block, mixed magnitudes, a constant leaf)."""
+    ``predicted_cr_rows`` give the reference's bits, the CRs those of
+    its ``jit(vmap(predicted_cr_int8))`` (a ragged last block, mixed
+    magnitudes, a constant leaf; 3000 values: 3072 codes, no power of
+    two)."""
     import jax
     import jax.numpy as jnp
     from repro.train import grad_compress as JGC
     rng = np.random.default_rng(6)
-    leaves = [(rng.standard_normal(1000) * 10.0 ** rng.integers(-3, 3, 1000)
+    leaves = [(rng.standard_normal(3000) * 10.0 ** rng.integers(-3, 3, 3000)
                ).astype(np.float32),
-              np.cumsum(rng.standard_normal(1000)).astype(np.float32),
-              np.full(1000, 0.25, np.float32)]
+              np.cumsum(rng.standard_normal(3000)).astype(np.float32),
+              np.full(3000, 0.25, np.float32)]
     for x in leaves:
         jc, js = JGC.quantize_int8(jnp.asarray(x))
         tc, ts = TGC.quantize_int8(torch.from_numpy(x))
@@ -455,13 +476,56 @@ def test_int8_quantizer_matches_reference():
         np.testing.assert_array_equal(ts.numpy().view(np.int32),
                                       np.asarray(js).view(np.int32))
         np.testing.assert_array_equal(
-            TGC.dequantize_int8(tc, ts, (10, 100)).numpy().view(np.int32),
-            np.asarray(JGC.dequantize_int8(jc, js, (10, 100))).view(np.int32))
+            TGC.dequantize_int8(tc, ts, (30, 100)).numpy().view(np.int32),
+            np.asarray(JGC.dequantize_int8(jc, js, (30, 100))).view(np.int32))
     rows = np.stack(leaves)
     want = np.asarray(jax.jit(jax.vmap(JGC.predicted_cr_int8))(
         jnp.asarray(rows)))
     got = TGC.predicted_cr_rows(torch.from_numpy(rows)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _gate_lengths(count: int, seed: int):
+    """``count`` leaf lengths in [2304, 306687] whose padded code counts
+    are no power of two."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < count:
+        n = int(rng.integers(2304, 306688))
+        codes = -(-n // 256) * 256
+        if codes & (codes - 1) and n & (n - 1):
+            out.append(n)
+    return out
+
+
+def test_predicted_cr_rows_is_the_jitted_size_model():
+    """300 seeded float32 leaves of 2304-306687 values (30 lengths, 10
+    leaves each, magnitudes 1e-4-10), none with a power of two of codes:
+    ``predicted_cr_rows`` of each length's rows == the reference's
+    ``jax.jit(predicted_cr_int8)`` of each leaf and its
+    ``jax.jit(jax.vmap(...))`` of the rows, bit for bit, and each row
+    alone == in its batch."""
+    import jax
+    import jax.numpy as jnp
+    from repro.train import grad_compress as JGC
+    rng = np.random.default_rng(26)
+    jit1 = jax.jit(JGC.predicted_cr_int8)
+    jitv = jax.jit(jax.vmap(JGC.predicted_cr_int8))
+    checked = 0
+    for n in _gate_lengths(30, 26):
+        rows = (rng.standard_normal((10, n))
+                * 10.0 ** rng.uniform(-4, 1, (10, 1))).astype(np.float32)
+        got = TGC.predicted_cr_rows(torch.from_numpy(rows)).numpy()
+        want_v = np.asarray(jitv(jnp.asarray(rows)), np.float32)
+        want_1 = np.asarray([np.float32(jit1(jnp.asarray(r))) for r in rows])
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want_v.view(np.int32), err_msg=str(n))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want_1.view(np.int32), err_msg=str(n))
+        alone = TGC.predicted_cr_int8(torch.from_numpy(rows[3])).numpy()
+        assert alone.view(np.int32) == got[3].view(np.int32)
+        checked += len(rows)
+    assert checked == 300
 
 
 def test_kv_gate_dedups_and_coalesces():

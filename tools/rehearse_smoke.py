@@ -13,7 +13,11 @@ over 2 hot slices and kv leaves of 4096 values; the load CLI at 64 x
 22 on granite-3-2b's smoke config, 2 layers of d_model 64, for its
 launcher runs, its decode check, its CPU comparison and the gate's
 leaves; phase 23 on the same config for its full-width steps, its CPU
-comparison, checkpoints and launcher), every tensor on the CPU, the
+comparison, checkpoints and launcher, with AdamW's chunk cut to 4096
+values and ``compress_tree``'s to 32 blocks so that its spans of 2048
+head values and 256 values each side of a boundary still cross both
+chunk boundaries; phase 24 on the smoke configs of phi3.5-moe and
+qwen2-vl, 2 layers each where it serves), every tensor on the CPU, the
 kernel build,
 the quotient proof and the launch-count and built-library checks left
 out and the
@@ -40,7 +44,7 @@ CUTS = [
     ('N_STREAM, STREAM_N = "cesm-cloud", 96, 1800',
      'N_STREAM, STREAM_N = "cesm-cloud", 10, 64'),
     ('STREAM_BUDGET_MB = 512', 'STREAM_BUDGET_MB = 0.0625'),
-    ('SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 32, 4',
+    ('SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 16, 4',
      'SERVE_CLIENTS, SERVE_REQUESTS, SERVE_HOT = 8, 16, 2'),
     ('KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 4 << 20',
      'KV_LEAVES, KV_REPEATS, KV_LEAF_N = 16, 4, 1 << 12'),
@@ -63,7 +67,13 @@ CUTS = [
     ('x.cpu()', 'x.clone()'),
     ('kernels = check_kernels(torch, train, test, ebs_t)',
      'kernels = [check_zfp(torch, test)]'),
+    ('TRAIN_HEAD_VALUES = 1 << 22', 'TRAIN_HEAD_VALUES = 1 << 11'),
+    ('TRAIN_SPAN_VALUES = 1 << 20', 'TRAIN_SPAN_VALUES = 1 << 8'),
+    ('FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 16), ("qwen2-vl-72b", 24))',
+     'FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 2), ("qwen2-vl-72b", 2))'),
 ]
+# the training chunks, cut so that the smoke leaves cross their boundaries
+CHUNK_VALUES, CHUNK_BLOCKS = 1 << 12, 1 << 5
 
 
 class _Event:
@@ -100,6 +110,10 @@ def main(argv=None) -> int:
     cuda.mem_get_info = lambda *a, **k: (0, 0)
     cuda.get_device_name = lambda *a: "cpu rehearsal"
     cuda.device_count = lambda: 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.train import grad_compress, optimizer
+    optimizer.CHUNK = CHUNK_VALUES
+    grad_compress.CHUNK_BLOCKS = CHUNK_BLOCKS
     sys.path.insert(0, str(out_dir))
     import smoke_cpu
     smoke_cpu.nvidia_smi_line = lambda: "cpu rehearsal (no card)"
