@@ -229,7 +229,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               ``launch.train``; the step's products are ``torch.matmul``)
               in this process, its launches counted as the "Train" path
               and held by phase 21, which runs after it: (a)
-              ``make_train_step`` at granite-3-2b's full width and 8 of
+              ``make_train_step`` at granite-3-2b's full width and 4 of
               its 40 layers (bfloat16 parameters from seed 0, the state
               donated), 4 steps of batch 4 x seq 512 in 2 microbatches
               with ``CompressConfig()`` and ``AdamWConfig(lr=1e-3)``:
@@ -264,8 +264,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 24. families -- the moe and vlm families (``models.moe``, M-RoPE; no
               kernel of their own) at full width, depth cut to fit 80 GB,
               in this process after 23, each model freed before the next:
-              (a) ``serve.engine.Engine`` for phi3.5-moe at 16 of 32
-              layers and qwen2-vl-72b at 24 of 80, random parameters,
+              (a) ``serve.engine.Engine`` for phi3.5-moe at 8 of 32
+              layers and qwen2-vl-72b at 12 of 80, random parameters,
               batch 4, prompt 32, 16 decode steps, ``max_len`` 256 and the
               KV gate, then the gate through a ``SweepService``: the same
               ids and metering, one kv_gate request of 2 rows; init s,
@@ -277,13 +277,33 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               one; (c) at 1 layer, card against CPU in float32 and
               bfloat16 (phase 22's bounds): prefill logits and K/V; MoE
               routing recomputed on the CPU from the card's router
-              logits bit-equal, the share of pairs routed apart when
-              each side makes its own logits, the MoE output on the
+              logits bit-equal, the router logits card against CPU,
+              each pair routed apart when each side makes its own
+              logits a near-tie of them and their share bounded, the
+              MoE output on the
               tokens routed alike; vlm logits under three streams; (d)
-              ``make_train_step`` of phi3.5-moe at 2 layers, 4 steps as
+              ``make_train_step`` of phi3.5-moe at 1 layer, 4 steps as
               23 (a), model FLOP/s from its active parameters, the
               float32 router gated at every step.
-Phases 5, 8-11, 14, 15, 17, 18 (their form (a)), 23 and 24 each set the
+25. mla/ssm  -- the mla_moe and ssm families (MLA and the dense first
+              layer in ``models.causal_lm``, ``models.ssm``; no kernel),
+              each model freed before the next: (a) as 24 (a) for
+              deepseek-v2-236b at 6 of 60 layers and mamba2-370m at 48
+              of 48, each scored cache leaf's CR and decision logged
+              (MLA's ckv and krope of both segments, the SSM's conv
+              window and float32 state); (b) as 24 (b) at 2 layers
+              (deepseek: the dense first layer and one MoE layer; its
+              decode step is MLA's absorbed form, its forward the
+              expanded one; bound 1e-4); (c) card against CPU: deepseek
+              at 2 layers in bfloat16 (routing from the same logits
+              bit-equal and every pair routed apart a near-tie of the
+              router logits, as 24 (c); the share apart at most 1/8) and
+              one MLA layer in float32, both
+              forms with its cache writes; mamba2 at 2 layers in both
+              dtypes, the SSM cache after prefill included; (d)
+              ``make_train_step`` of mamba2-370m whole, 4 steps as 23
+              (a), its float32 SSM leaves among the gate's leaves.
+Phases 5, 8-11, 14, 15, 17, 18 (their form (a)), 23, 24 and 25 each set the
 kernels' launch counters to 0 just before they run and read them just
 after, and the load CLI and the advise runs (in this process) and the
 subprocesses (the process groups and 2-rank advise of phase 17, phase
@@ -322,6 +342,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -397,7 +418,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 4, 512, 2, 4   # (a)
 TRAIN_LR = 1e-3
 TRAIN_CMP_LAYERS, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 2, 2, 64     # (b)
 TRAIN_BF16_ULPS = 16            # tests/test_torch_train.py's gradient bound
-TRAIN_LAYERS = 8                # (a): depth cut from 40 to pay for phase 24
+TRAIN_LAYERS = 4                # (a): depth cut from 40 to pay for phases 24-25
 TRAIN_HEAD_VALUES = 1 << 22     # (b): each leaf's first values, held by
                                 # compress_tree and AdamW card vs CPU, and
 TRAIN_SPAN_VALUES = 1 << 20     # half a span across a chunk boundary, and
@@ -409,7 +430,7 @@ TRAIN_CLI_ARGS = ["--smoke", "--steps", "8", "--compress", "--lossy-ckpt",
                   "--device", "cuda"]                            # (d)
 # phase 24: the moe and vlm families at full width; only depth is cut, to
 # fit the card's 80 GB in bfloat16 (all 32 / 80 layers take 84 / 145 GB)
-FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 16), ("qwen2-vl-72b", 24))   # (a)
+FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 8), ("qwen2-vl-72b", 12))    # (a)
 FAM_BATCH, FAM_PROMPT, FAM_STEPS, FAM_MAX_LEN = 4, 32, 16, 256
 FAM_DECODE_LAYERS = 2           # (b): float32 decode vs forward, no drops
 FAM_CMP_LAYERS = 1              # (c): the card against the CPU
@@ -417,7 +438,25 @@ FAM_CMP_LAYERS = 1              # (c): the card against the CPU
 # the card and the CPU each compute their router logits; 0 of 64 measured
 # in both dtypes on the H100, a bfloat16 near-tie allowed 4 of 64
 FAM_ROUTING_DIFFERS_MAX = {"float32": 0.0, "bfloat16": 1 / 16}
-FAM_TRAIN_ARCH, FAM_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 2       # (d)
+FAM_TRAIN_ARCH, FAM_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 1       # (d)
+# phase 25: the mla_moe and ssm families at full width; deepseek-v2's depth
+# is cut to fit the card in bfloat16 (all 60 layers take 471 GB), mamba2
+# runs whole
+FAM2_SERVE = (("deepseek-v2-236b", 6), ("mamba2-370m", 48))       # (a)
+# (c): layers and dtypes of the whole model card vs CPU; deepseek's 2
+# layers (the dense first one and one MoE layer) in float32 would copy
+# 21 GB to the host, so its float32 check is one MLA layer alone
+FAM2_CMP = {"deepseek-v2-236b": (2, ("bfloat16",)),
+            "mamba2-370m": (2, ("float32", "bfloat16"))}
+# (c): deepseek's top-6 of 160 experts has many more near-tied choices than
+# phi3.5-moe's top-2 of 16: 14 of its 192 pairs routed apart in bfloat16
+# on the H100 (13 experts, each within 0.03125 of its neighbouring router
+# logit against twice their 0.0234375 max abs err, and 1 keep at an
+# expert those touched), where phase 24's 1/16 allows 12; the near-tie
+# check is what holds the router, the share a coarse guard above it
+FAM2_ROUTING_DIFFERS_MAX = {"float32": 0.0, "bfloat16": 1 / 8}
+FAM2_TRAIN_ARCH = "mamba2-370m"                                  # (d), whole
+FAM2_SSM_F32 = ("ssm.a_log", "ssm.d_skip", "ssm.dt_bias")
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -3994,17 +4033,31 @@ def mrope_streams(torch, b: int, s: int, grid=(2, 4)):
     return pos[:, None, :].expand(3, b, s).to(torch.int32).contiguous()
 
 
-def family_serve(torch, arch: str, layers: int, card) -> dict:
+def gate_leaf_names(torch, cfg) -> list:
+    """The paths of the cache leaves the KV gate scores (float, rank >= 4),
+    in ``jax.tree.flatten``'s order, from a cache made on the meta
+    device."""
+    from repro_torch.models import causal_lm as CLM
+    from repro_torch.models.params import tree_flatten
+    return [k for k, x in tree_flatten(CLM.init_cache(cfg, 1, 1, "meta"))
+            if x.dtype in (torch.bfloat16, torch.float32) and x.ndim >= 4]
+
+
+def family_serve(torch, arch: str, layers: int, card,
+                 tag="families (a)") -> dict:
     """(a): ``serve.engine.Engine`` at full width and ``layers`` layers,
     random parameters from seed 0, ``FAM_BATCH`` prompts of
     ``FAM_PROMPT`` ids, ``FAM_STEPS`` greedy steps, a ``FAM_MAX_LEN``
     cache and the KV gate; then the gate through a ``SweepService``: the
-    same ids and metering, one kv_gate request of 2 rows."""
+    same ids and metering, one kv_gate request of a row per scored leaf.
+    Each scored leaf's CR and decision is logged; the gate must save
+    some bytes of the cache, not all."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.sweep_service import ServiceConfig, SweepService
     cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    names = gate_leaf_names(torch, cfg)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
@@ -4012,7 +4065,7 @@ def family_serve(torch, arch: str, layers: int, card) -> dict:
     init_s = time.perf_counter() - t
     n_params = sum(x.numel() for x in params.parameters())
     if n_params != cfg.param_count():
-        raise AssertionError(f"families (a) {arch}: {n_params} parameters")
+        raise AssertionError(f"{tag} {arch}: {n_params} parameters")
     param_bytes = sum(x.numel() * x.element_size() for x in params.parameters())
     tokens = torch.randint(0, cfg.vocab_size, (FAM_BATCH, FAM_PROMPT),
                            generator=torch.Generator().manual_seed(1),
@@ -4022,9 +4075,16 @@ def family_serve(torch, arch: str, layers: int, card) -> dict:
         svc = (SweepService(ServiceConfig(max_wait_ms=1.0),
                             device=torch.device("cuda"))
                if name == "service" else None)
+        crs = []
         try:
             eng = Engine(cfg, params, ServeConfig(
                 max_len=FAM_MAX_LEN, kv_compress=True), sweep_service=svc)
+
+            def spy(leaves, predict=eng._predict_crs):
+                crs.append(predict(leaves))
+                return crs[-1]
+
+            eng._predict_crs = spy
             t = time.perf_counter()
             ids = eng.generate({"tokens": tokens}, steps=FAM_STEPS)
             wall = time.perf_counter() - t
@@ -4033,43 +4093,51 @@ def family_serve(torch, arch: str, layers: int, card) -> dict:
             if svc is not None:
                 svc.close()
         tm = eng.timings
+        ratio = eng.scfg.kv_gate_ratio
         runs[name] = dict(
             shape=list(ids.shape), ids=ids.cpu().tolist(),
             prefill_ms=tm["prefill_s"] * 1e3, gate_ms=tm["gate_s"] * 1e3,
             decode_ms_per_step=float(np.median(tm["decode_s"])) * 1e3,
             generate_s=wall, tokens_per_s=FAM_BATCH * FAM_STEPS / wall,
             kv_saved_bytes=eng.kv_saved_bytes,
-            kv_total_bytes=eng.kv_total_bytes, kv_gate=gate)
+            kv_total_bytes=eng.kv_total_bytes, kv_gate=gate,
+            leaf_crs={k: float(c) for k, c in zip(names, crs[0])},
+            gated=[k for k, c in zip(names, crs[0]) if float(c) >= ratio])
     a, b = runs["direct"], runs["service"]
     nums = [r[k] for r in (a, b) for k in ("prefill_ms", "gate_ms",
                                            "decode_ms_per_step",
                                            "tokens_per_s")]
     if a["shape"] != [FAM_BATCH, FAM_STEPS] or not np.all(np.isfinite(nums)):
-        raise AssertionError(f"families (a) {arch}: bad run {a['shape']} "
-                             f"{nums}")
+        raise AssertionError(f"{tag} {arch}: bad run {a['shape']} {nums}")
     if a["ids"] != b["ids"]:
-        raise AssertionError(f"families (a) {arch}: the service run's ids "
-                             "differ")
+        raise AssertionError(f"{tag} {arch}: the service run's ids differ")
     if (a["kv_saved_bytes"], a["kv_total_bytes"]) != \
             (b["kv_saved_bytes"], b["kv_total_bytes"]) or \
-            not 0 < a["kv_saved_bytes"] < a["kv_total_bytes"]:
-        raise AssertionError(f"families (a) {arch}: metering "
+            not 0 < a["kv_saved_bytes"] < a["kv_total_bytes"] or \
+            a["leaf_crs"] != b["leaf_crs"]:
+        raise AssertionError(f"{tag} {arch}: metering "
                              f"{a['kv_saved_bytes']}/{a['kv_total_bytes']} vs "
-                             f"{b['kv_saved_bytes']}/{b['kv_total_bytes']}")
-    if (b["kv_gate"]["completed"], b["kv_gate"]["rows"]) != (1, 2):
-        raise AssertionError(f"families (a) {arch}: kv_gate {b['kv_gate']}")
+                             f"{b['kv_saved_bytes']}/{b['kv_total_bytes']}, "
+                             f"CRs {a['leaf_crs']} vs {b['leaf_crs']}")
+    if (b["kv_gate"]["completed"], b["kv_gate"]["rows"]) != (1, len(names)):
+        raise AssertionError(f"{tag} {arch}: kv_gate {b['kv_gate']} for "
+                             f"the leaves {names}")
     rec = dict(layers=layers, params=n_params, param_bytes=param_bytes,
                init_s=init_s, runs=runs,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     for name, r in runs.items():
-        log(f"families (a) {arch} at {layers} of {get_arch(arch).num_layers} "
+        log(f"{tag} {arch} at {layers} of {get_arch(arch).num_layers} "
             f"layers, {name}: {n_params:,} parameters, "
             f"{param_bytes / 1e9:.3f} GB, init {init_s:.3f} s, prefill "
             f"{r['prefill_ms']:.2f} ms, gate {r['gate_ms']:.2f} ms, decode "
             f"{r['decode_ms_per_step']:.3f} ms/step, "
             f"{r['tokens_per_s']:.1f} tokens/s, KV saved "
             f"{r['kv_saved_bytes']:,}/{r['kv_total_bytes']:,} B", card)
-    log(f"families (a) {arch}: ids equal with and without the service; "
+    log(f"{tag} {arch}: the gate's leaves, CR and decision at ratio "
+        f"{ratio}: " + ", ".join(
+            f"{k} {c:.4f} {'gated' if k in a['gated'] else 'kept'}"
+            for k, c in a["leaf_crs"].items()), card)
+    log(f"{tag} {arch}: ids equal with and without the service; "
         f"kv_gate {json.dumps(b['kv_gate'])}; peak device memory "
         f"{rec['peak_gib']:.2f} GiB", card)
     del params, eng
@@ -4078,12 +4146,14 @@ def family_serve(torch, arch: str, layers: int, card) -> dict:
     return rec
 
 
-def family_decode(torch, arch: str, card) -> dict:
+def family_decode(torch, arch: str, card, tag="families (b)") -> dict:
     """(b): float32 parameters at full width and ``FAM_DECODE_LAYERS``
     layers, capacity factor 64 (no token dropped), as the reference's
     test: prefill 15 tokens and decode the 16th against the full
-    forward's last logits (bound 1e-4).  For vlm also the loss with three
-    different position streams: finite, and not the broadcast one."""
+    forward's last logits (bound 1e-4; for mla_moe the decode step is
+    MLA's absorbed form and the forward its expanded one).  For vlm also
+    the loss with three different position streams: finite, and not the
+    broadcast one."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import causal_lm as CLM
     from repro_torch.models import model as M
@@ -4104,12 +4174,11 @@ def family_decode(torch, arch: str, card) -> dict:
                               else flat[:, :, 15:16])
         err = float((lg - full).abs().max())
         rec = {"max_abs_err": err, "max_logit": float(full.abs().max())}
-        log(f"families (b) {arch} float32 decode vs forward at full width, "
+        log(f"{tag} {arch} float32 decode vs forward at full width, "
             f"{FAM_DECODE_LAYERS} layers: max abs err {err:.3g} (|logit| <= "
             f"{rec['max_logit']:.3g}, bound {LLM_DECODE_TOL})", card)
         if not err < LLM_DECODE_TOL:
-            raise AssertionError(f"families (b) {arch}: decode vs forward "
-                                 f"{err}")
+            raise AssertionError(f"{tag} {arch}: decode vs forward {err}")
         if vlm:
             batch = {"tokens": toks[:, :16], "labels": toks[:, 1:]}
             streams = mrope_streams(torch, 2, 16).to("cuda")
@@ -4117,31 +4186,78 @@ def family_decode(torch, arch: str, card) -> dict:
                 batch, mrope_positions=flat), cfg, remat=False))
             rec["loss_streams"] = float(M.loss_fn(model, dict(
                 batch, mrope_positions=streams), cfg, remat=False))
-            log(f"families (b) {arch}: loss with broadcast positions "
+            log(f"{tag} {arch}: loss with broadcast positions "
                 f"{rec['loss_broadcast']:.6f}, with an image's three "
                 f"streams {rec['loss_streams']:.6f}", card)
             if not (np.isfinite(rec["loss_streams"])
                     and rec["loss_streams"] != rec["loss_broadcast"]):
-                raise AssertionError(f"families (b) {arch}: losses {rec}")
+                raise AssertionError(f"{tag} {arch}: losses {rec}")
     del model, cache, full, lg
     gc.collect()
     torch.cuda.empty_cache()
     return rec
 
 
-def family_card_vs_cpu(torch, arch: str, card) -> dict:
-    """(c): full width at ``FAM_CMP_LAYERS`` layer, parameters drawn on the
+def routed_apart_at_near_ties(torch, logits, a, b, err: float,
+                              what: str) -> dict:
+    """Two routings (``moe.route``'s (weights, idx, pos, keep)) of one
+    group stack: ``a`` from ``logits`` (G, T, E), ``b`` from logits at
+    most ``err`` from them.  A pair whose expert differs must sit at a
+    near-tie of ``logits``: the gap from its rank's logit to the next
+    one above or below at most 2 ``err`` (where both gaps are wider, no
+    change within ``err`` moves an expert off that rank).  A pair whose
+    expert agrees but whose keep differs must be at an expert that some
+    differing pair of its group chose on either side (only those
+    experts' queues change).  Returns the counts and the widest such
+    gap."""
+    idx_a, idx_b = a[1].cpu(), b[1].cpu()
+    keep_a, keep_b = a[3].cpu(), b[3].cpu()
+    k = idx_a.shape[-1]
+    top = torch.sort(logits.float().cpu(), dim=-1, descending=True
+                     ).values[..., :k + 1]
+    below = top[..., :-1] - top[..., 1:]                    # (G, T, k)
+    above = torch.cat([torch.full_like(below[..., :1], math.inf),
+                       below[..., :-1]], dim=-1)
+    gap = torch.minimum(above, below)
+    moved = idx_a != idx_b
+    widest = float(gap[moved].max()) if bool(moved.any()) else 0.0
+    if widest > 2 * err:
+        raise AssertionError(f"{what}: a pair routed apart sits {widest:g} "
+                             f"from its neighbouring logit, past twice the "
+                             f"logits' max abs err {err:g}")
+    keep_only = ~moved & (keep_a != keep_b)
+    for g, t, c in keep_only.nonzero().tolist():
+        touched = set(idx_a[g][moved[g]].tolist()) | set(
+            idx_b[g][moved[g]].tolist())
+        if int(idx_a[g, t, c]) not in touched:
+            raise AssertionError(f"{what}: pair ({g}, {t}, {c}) kept apart "
+                                 f"at expert {int(idx_a[g, t, c])}, whose "
+                                 "queue no pair routed apart changed")
+    return dict(expert_apart=int(moved.sum()), keep_apart=int(
+        keep_only.sum()), pairs=moved.numel(), widest_gap=widest,
+        gap_bound=2 * err)
+
+
+def family_card_vs_cpu(torch, arch: str, card, layers=FAM_CMP_LAYERS,
+                       dtypes=("float32", "bfloat16"), tag="families (c)",
+                       routing_max=FAM_ROUTING_DIFFERS_MAX) -> dict:
+    """(c): full width at ``layers`` layers, parameters drawn on the
     card (the host's generator takes ~7 ns a value: 24 s for qwen2-vl's
     embedding, head and layer) and copied to the CPU, so both sides
-    hold the same values; float32 and bfloat16 (the router float32 in
-    both; each side casts its own copy).  Prefill logits and K/V caches card against CPU at phase 22's
-    bounds.  MoE: the routing of the card's router logits recomputed on
-    the CPU from the same logits, bit-equal (top-k indices, dispatch
-    positions, keep, within_cap); the share of (token, choice) pairs
-    whose routing differs when each side computes its own logits, held
-    to ``FAM_ROUTING_DIFFERS_MAX``, and the MoE output held on the
-    tokens whose routing agrees (the last token's logits on the rows
-    whose last token agrees, of which there must be one: one layer).  vlm: also
+    hold the same values; in each of ``dtypes`` (the router and the
+    SSM's leaves float32 in both; each side casts its own copy).
+    Prefill logits and every cache leaf (K/V, MLA's latent and rotary
+    key, the SSM's conv window and float32 state) card against CPU at
+    phase 22's bounds, positions equal.  MoE: the routing of the card's
+    router logits recomputed on the CPU from the same logits, bit-equal
+    (top-k indices, dispatch positions, keep, within_cap); the router
+    logits card against CPU at phase 22's bounds, and every (token,
+    choice) pair routed apart by each side's own logits a near-tie of
+    them (``routed_apart_at_near_ties``); the share of such pairs held
+    to ``routing_max`` (phase 24:
+    ``FAM_ROUTING_DIFFERS_MAX``), and the MoE output held on the tokens
+    whose routing agrees (the last token's logits on the rows whose last
+    token agrees, of which there must be one: one MoE layer).  vlm: also
     the final hidden states of a float32 forward with three different
     position streams (M-RoPE's angles are float32 in both dtypes)."""
     from repro_torch.configs.base import get_arch
@@ -4149,7 +4265,7 @@ def family_card_vs_cpu(torch, arch: str, card) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
     from repro_torch.models import params as PRM
-    cfg = dataclasses.replace(get_arch(arch), num_layers=FAM_CMP_LAYERS)
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
     made = PRM.init_params(M.param_table(cfg),
                            torch.Generator("cuda").manual_seed(2))
     tree = PRM.tree_unflatten(made, [x.cpu() for x in PRM.tree_leaves(made)])
@@ -4170,7 +4286,7 @@ def family_card_vs_cpu(torch, arch: str, card) -> dict:
         return y
 
     rec = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         cfgd = dataclasses.replace(cfg, dtype=dtype)
         dt = getattr(torch, dtype)
 
@@ -4190,12 +4306,13 @@ def family_card_vs_cpu(torch, arch: str, card) -> dict:
                 lg, cg = M.prefill(dev, {"tokens": toks.to("cuda")}, cfgd, 24)
         finally:
             MOE.route, MOE.moe_ffn = orig_route, orig_ffn
-        for name in ("k", "v"):
-            r[name] = llm_close(getattr(cg["seg0"], name),
-                                getattr(cc["seg0"], name), dtype,
-                                f"{arch} prefill {name}")
-        if not torch.equal(cg["seg0"].pos.cpu(), cc["seg0"].pos):
-            raise AssertionError(f"families (c) {arch} {dtype}: pos")
+        for (name, a), (_, b) in zip(PRM.tree_flatten(cg),
+                                     PRM.tree_flatten(cc)):
+            if a.dtype == torch.int32:
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{tag} {arch} {dtype}: {name}")
+            else:
+                r[name] = llm_close(a, b, dtype, f"{arch} prefill {name}")
         if moe:
             (_, l_cpu, k, cap, out_cpu), (_, y_cpu) = seen[0], seen[1]
             (_, l_dev, _, _, out_dev), (_, y_dev) = seen[2], seen[3]
@@ -4206,24 +4323,29 @@ def family_card_vs_cpu(torch, arch: str, card) -> dict:
             names = ("weights", "idx", "pos", "keep", "within_cap")
             for name, a, b in list(zip(names, want, got))[1:]:
                 if not torch.equal(a, b.cpu()):
-                    raise AssertionError(f"families (c) {arch} {dtype}: "
+                    raise AssertionError(f"{tag} {arch} {dtype}: "
                                          f"{name} from the same logits differ")
+            r["router_logits"] = llm_close(l_dev, l_cpu, dtype,
+                                           f"{arch} router logits")
+            r["routed_apart"] = routed_apart_at_near_ties(
+                torch, l_cpu, out_cpu, out_dev, r["router_logits"],
+                f"{tag} {arch} {dtype}")
             agree = ((out_cpu[1] == out_dev[1].cpu())
                      & (out_cpu[3] == out_dev[3].cpu()))      # (G, T, k)
             r["routing_differs_share"] = float(1.0 - agree.float().mean())
-            if r["routing_differs_share"] > FAM_ROUTING_DIFFERS_MAX[dtype]:
+            if r["routing_differs_share"] > routing_max[dtype]:
                 raise AssertionError(
-                    f"families (c) {arch} {dtype}: "
+                    f"{tag} {arch} {dtype}: "
                     f"{r['routing_differs_share']:.4f} of the (token, "
                     "choice) pairs route apart on the card and the CPU "
-                    f"(at most {FAM_ROUTING_DIFFERS_MAX[dtype]})")
+                    f"(at most {routing_max[dtype]})")
             tok_ok = agree.all(dim=-1).reshape(toks.shape)    # (B, S)
             r["tokens_agreeing"] = int(tok_ok.sum())
             r["moe_out"] = llm_close(y_dev.cpu()[tok_ok], y_cpu[tok_ok], dtype,
                                      f"{arch} MoE output, agreeing tokens")
             rows = tok_ok[:, -1]
             if not bool(rows.any()):
-                raise AssertionError(f"families (c) {arch} {dtype}: no row's "
+                raise AssertionError(f"{tag} {arch} {dtype}: no row's "
                                      "last token routes alike, no logits "
                                      "to compare")
             r["logits"] = llm_close(lg.cpu()[rows], lc[rows], dtype,
@@ -4246,8 +4368,8 @@ def family_card_vs_cpu(torch, arch: str, card) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     del made, tree
-    log(f"families (c) {arch} card vs CPU at full width, {FAM_CMP_LAYERS} "
-        f"layer, prefill of 2 x 16: " + json.dumps(rec)
+    log(f"{tag} {arch} card vs CPU at full width, {layers} "
+        f"layer(s), prefill of 2 x 16: " + json.dumps(rec)
         + (" (routing from the card's logits bit-equal on the CPU)"
            if moe else ""), card)
     return rec
@@ -4293,6 +4415,117 @@ def phase_families(torch, card) -> dict:
         {a: {k: round(v, 2) for k, v in r.items() if k.endswith("_s")}
          for a, r in rec.items() if isinstance(r, dict) and a != "train"
          and a != "launches"} | {"train_s": round(rec["train_s"], 2)})
+        + "; kernel launches " + json.dumps(rec["launches"]), card)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the mla_moe and ssm families
+# ---------------------------------------------------------------------------
+
+def mla_card_vs_cpu(torch, arch: str, card, tag="mla/ssm (c)") -> dict:
+    """(c): one MLA layer of ``arch`` at full width in float32, its
+    parameters drawn on the card and copied to the CPU: the expanded
+    form without a cache and as a prefill of 2 x 16 into a 24-slot
+    latent cache, then the absorbed form's decode step of the 17th
+    token; outputs and cache leaves card against CPU at phase 22's
+    float32 bound, positions equal."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import causal_lm as CLM
+    from repro_torch.models import params as PRM
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32")
+    made = PRM.init_params(CLM.param_table(cfg)["seg1"]["attn"],
+                           torch.Generator("cuda").manual_seed(5))
+    made = {k: x[0].float() for k, x in made.items()}
+    sides = {"cuda": SimpleNamespace(**made),
+             "cpu": SimpleNamespace(**{k: x.cpu() for k, x in made.items()})}
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 17, cfg.d_model)).astype(
+        np.float32))
+    outs = {}
+    with torch.inference_mode():
+        for dev, p in sides.items():
+            xd = x.to(dev)
+            cache = CLM.MLACache(
+                torch.zeros((2, 24, cfg.kv_lora_rank), device=dev),
+                torch.zeros((2, 24, cfg.qk_rope_head_dim), device=dev),
+                torch.full((2, 24), 10 ** 9, dtype=torch.int32, device=dev))
+            expanded = CLM.mla_block(xd[:, :16], p, cfg)
+            prefill = CLM.mla_block(xd[:, :16], p, cfg, cache=cache)
+            absorbed = CLM.mla_block(xd[:, 16:], p, cfg, cache=cache,
+                                     pos_offset=16)
+            outs[dev] = dict(expanded=expanded, prefill=prefill,
+                             absorbed=absorbed, ckv=cache.ckv,
+                             krope=cache.krope, pos=cache.pos)
+    rec = {}
+    for k, want in outs["cpu"].items():
+        got = outs["cuda"][k]
+        if k == "pos":
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{tag} {arch} MLA: pos")
+            continue
+        rec[k] = llm_close(got, want, "float32", f"{arch} MLA {k}")
+    log(f"{tag} {arch}: one MLA layer card vs CPU at full width in float32 "
+        "(expanded, prefill into the latent cache, absorbed decode): max "
+        "abs err " + json.dumps(rec), card)
+    del made, sides, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_mla_ssm(torch, card) -> dict:
+    """Phase 25: the mla_moe and ssm families (``models.causal_lm``'s MLA
+    and dense first layer, ``models.ssm``) in this process, each model
+    freed before the next: for each of ``FAM2_SERVE``, (a)
+    ``family_serve``, (b)
+    ``family_decode`` (deepseek: MLA's absorbed form against its
+    expanded one), (c) ``family_card_vs_cpu`` at ``FAM2_CMP``'s layers
+    and dtypes (routing from the same logits bit-equal) and, for
+    deepseek, ``mla_card_vs_cpu``; then (d) ``train_steps`` of mamba2 at
+    full depth, its float32 SSM leaves among the gate's leaves.  It
+    launches no kernel of its own (products are ``torch.matmul``); its
+    launches are read and logged."""
+    from repro_torch.configs.base import get_arch
+    rec = {}
+    zero_counts(torch)
+    for arch, layers in FAM2_SERVE:
+        cmp_layers, dtypes = FAM2_CMP[arch]
+        parts = [("serve", lambda: family_serve(
+                     torch, arch, layers, card, "mla/ssm (a)")),
+                 ("decode_vs_forward", lambda: family_decode(
+                     torch, arch, card, "mla/ssm (b)")),
+                 ("card_vs_cpu", lambda: family_card_vs_cpu(
+                     torch, arch, card, cmp_layers, dtypes, "mla/ssm (c)",
+                     FAM2_ROUTING_DIFFERS_MAX))]
+        if get_arch(arch).family == "mla_moe":
+            parts.append(("mla_card_vs_cpu",
+                          lambda: mla_card_vs_cpu(torch, arch, card)))
+        r = {}
+        for key, fn in parts:
+            t = time.perf_counter()
+            r[key] = fn()
+            r[f"{key}_s"] = time.perf_counter() - t
+        rec[arch] = r
+    t = time.perf_counter()
+    rec["train"] = train_steps(torch, card, get_arch(FAM2_TRAIN_ARCH),
+                               "mla/ssm (d)")
+    rec["train_s"] = time.perf_counter() - t
+    leaves = [k for k in rec["train"]["steps"][0]["crs"]
+              if k.endswith(FAM2_SSM_F32)]
+    if len(leaves) != len(FAM2_SSM_F32) or any(
+            set(leaves) - set(s["crs"]) for s in rec["train"]["steps"]):
+        raise AssertionError(f"mla/ssm (d): the float32 SSM leaves "
+                             f"{leaves} are not among the gate's leaves")
+    log("mla/ssm (d): the float32 SSM leaves' CRs by step " + json.dumps(
+        [{k: [round(s["crs"][k], 4), k in s["gated"]] for k in leaves}
+         for s in rec["train"]["steps"]]), card)
+    launches = read_counts(torch, "MLA/SSM", ())
+    rec["launches"] = {n: c["launches"] for n, c in launches.items()}
+    log("mla/ssm: stages s " + json.dumps(
+        {a: {k: round(v, 2) for k, v in r.items() if k.endswith("_s")}
+         for a, r in rec.items() if a in dict(FAM2_SERVE)}
+        | {"train_s": round(rec["train_s"], 2)})
         + "; kernel launches " + json.dumps(rec["launches"]), card)
     return rec
 
@@ -4655,6 +4888,14 @@ def main(argv=None) -> int:
     families = phase_families(torch, smi)
     stages["families_phase_s"] = time.perf_counter() - t
 
+    # ---- phase 25: the mla_moe and ssm families at full width, in this
+    # process, after phase 24 has freed the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    mla_ssm = phase_mla_ssm(torch, smi)
+    stages["mla_ssm_phase_s"] = time.perf_counter() - t
+
     # ---- phase 21: every shape a path launched that no row above holds:
     # its kernel against the plain version there, timed
     t = time.perf_counter()
@@ -4698,7 +4939,7 @@ def main(argv=None) -> int:
             studies=studies, stream=streamed, batch_probes=batch_probes,
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
             dist=dist, fabric=fabric, fault=fault, tune=tuned, llm=llm,
-            train=trained, families=families,
+            train=trained, families=families, mla_ssm=mla_ssm,
             sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],

@@ -105,10 +105,13 @@ def lm_params(tree, cfg, device="cuda") -> CLM.CausalLM:
 
 
 def lm_cache(tree, device="cuda") -> dict:
-    """The port's cache from a reference ``{"seg0": AttnCache(k, v, pos)}``
-    tree with numpy leaves."""
-    return {seg: CLM.AttnCache(*(array(a, device) for a in entry))
-            for seg, entry in tree.items()}
+    """The port's cache from a reference cache tree with numpy leaves
+    (``{"seg0": AttnCache(k, v, pos)}``, ``MLACache(ckv, krope, pos)``
+    per segment, or ssm's ``HybridCache(None, conv, state)``): each entry
+    the port's tuple of the same name."""
+    return {seg: getattr(CLM, type(entry).__name__)(
+        *(None if a is None else array(a, device) for a in entry))
+        for seg, entry in tree.items()}
 
 
 def lm_tree(tree, device="cuda"):

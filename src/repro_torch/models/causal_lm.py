@@ -1,48 +1,67 @@
-"""Decoder-only causal LM (``repro/models/causal_lm.py``), three families:
+"""Decoder-only causal LM (``repro/models/causal_lm.py``), five families:
 
-  dense -- stablelm-3b, codeqwen1.5-7b, granite-8b, granite-3-2b
-  moe   -- phi3.5-moe (16 experts, top-2; ``models/moe``)
-  vlm   -- qwen2-vl's backbone (the dense layers with QKV biases and
-           M-RoPE; the patch frontend is stubbed, as in the reference)
+  dense   -- stablelm-3b, codeqwen1.5-7b, granite-8b, granite-3-2b
+  moe     -- phi3.5-moe (16 experts, top-2; ``models/moe``)
+  mla_moe -- deepseek-v2 (multi-head latent attention; 2 shared and 160
+             routed experts, top-6; a dense first layer)
+  vlm     -- qwen2-vl's backbone (the dense layers with QKV biases and
+             M-RoPE; the patch frontend is stubbed, as in the reference)
+  ssm     -- mamba2 (attention-free; ``models/ssm``)
 
-The parameter table is the reference's, stacked over layers
-(``seg0.attn.wq`` is (n, d, hq * hd)); ``CausalLM`` holds it as an
-``nn.Module`` with one module per layer, each parameter a view of its
-layer's slice, so ``layers.3.attn.wq`` is ``seg0.attn.wq[3]``.  Weights
-keep the reference's (d_in, d_out) layout: ``x @ W`` is its einsum.
+The parameter table is the reference's, stacked over the layers of
+each segment (``seg0.attn.wq`` is (n, d, hq * hd)).  A model has one
+("scan", num_layers) segment, but deepseek-v2, whose first layer is
+dense: ``seg0`` holds that layer (MLA and an MLP of d_ff 12288) and
+``seg1`` the other num_layers - 1.  ``CausalLM`` holds the table as an
+``nn.Module`` with one module per layer, numbered across the segments,
+each parameter a view of its layer's slice, so ``layers.3.attn.wq`` is
+``seg0.attn.wq[3]`` in a one-segment model.  Weights keep the
+reference's (d_in, d_out) layout: ``x @ W`` is its einsum.
 
-The KV cache is the reference's too: one stacked ``AttnCache`` per
-segment, k and v (n, B, T, Hkv, hd) and pos (n, B, T) int32 with
-unwritten slots at 10**9.  Layer i reads and writes slice i in place,
-so ``prefill`` and ``decode_step`` return the cache they were given,
-written.  The KV gate scores whole leaves, so per-layer caches would
-change its decisions and byte counts.
+The cache is the reference's too, one stacked entry per segment:
+``AttnCache`` (k and v (n, B, T, Hkv, hd), pos (n, B, T) int32 with
+unwritten slots at 10**9), ``MLACache`` (the latent ckv (n, B, T,
+kv_lora), the shared krope (n, B, T, rope_dim) and pos) or, for ssm,
+``HybridCache(attn=None, conv (n, B, K-1, conv_dim), state (n, B, H, P,
+N) float32)``, whose ``None`` holds no leaf.  Layer i reads and writes
+slice i in place, so ``prefill`` and ``decode_step`` return the cache
+they were given, written.  The KV gate scores whole leaves, so
+per-layer caches would change its decisions and byte counts.
+
+MLA (``mla_block``) runs in two forms, as the reference's: for S > 1
+the expanded one (per-head K/V decompressed from the latent, then
+``layers.attention`` with the scale ``(dn + dr) ** -0.5`` and a V head
+dimension of its own); for a decode step the absorbed one, scores taken
+against the latent cache in float32 (masked to -1e30, softmax, cast
+back), so the cache holds only (ckv, krope).
 
 Training reads the same table as a tree of tensors (``{"embed": ...,
 "seg0": {"attn": {"wq": (n, d, hq * hd), ...}}}``, the reference's
 stacked leaves): ``forward`` and ``loss_fn`` take either a ``CausalLM``
-or such a tree, and on a tree layer i reads slice i of each leaf
-through one ``unbind`` per leaf, so a gradient comes back stacked, one
-leaf per reference leaf.  With ``remat`` each layer runs under
-``torch.utils.checkpoint`` (the reference's default ``full`` policy:
-only layer boundaries are kept).  ``xent_loss`` chunks the sequence by
-512 as the reference's scan does.
+or such a tree, and on a tree layer i of a segment reads slice i of
+each leaf through one ``unbind`` per leaf, so a gradient comes back
+stacked, one leaf per reference leaf.  With ``remat`` each layer runs
+under ``torch.utils.checkpoint`` (the reference's default ``full``
+policy: only layer boundaries are kept).  ``xent_loss`` chunks the
+sequence by 512 as the reference's scan does.
 
 A moe layer carries a ``moe`` group (a float32 router and the
-experts' stacks) where a dense one carries ``mlp``.  A vlm model's
-attention rotates by M-RoPE over three position streams
-(``mrope_positions``, (3, B, S): t, h, w), which ``forward``,
-``loss_fn`` (the batch's ``mrope_positions``) and ``decode_step``
-take; without them each stream is the token's position, and M-RoPE is
-plain RoPE.  ``prefill`` takes none, as the reference's does, so a
-served prompt rotates by its broadcast positions.
+experts' stacks, shared experts with them) where a dense one carries
+``mlp``.  A vlm model's attention rotates by M-RoPE over three
+position streams (``mrope_positions``, (3, B, S): t, h, w), which
+``forward``, ``loss_fn`` (the batch's ``mrope_positions``) and
+``decode_step`` take; without them each stream is the token's
+position, and M-RoPE is plain RoPE.  ``prefill`` takes none, as the
+reference's does, so a served prompt rotates by its broadcast
+positions.
 
-The other families (mla_moe, ssm, hybrid, encdec) are ROADMAP Queue 1
-items 2-5; the ``REPRO_REMAT=dots|tp_outs`` policies come with training
-across cards (item 7).
+The hybrid and encdec families are ROADMAP Queue 1 items 4-5; the
+``REPRO_REMAT=dots|tp_outs`` policies and ``cache_logical_axes`` come
+with training across cards (item 7).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional
@@ -55,17 +74,18 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamDef, tree_flatten
 
-_FAMILIES = ("dense", "moe", "vlm")
+_FAMILIES = ("dense", "moe", "vlm", "mla_moe", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported: the port "
-            "builds the dense, moe and vlm families; mla_moe, ssm, hybrid "
-            "and encdec are ROADMAP Queue 1 items 2-5")
+            "builds the dense, moe, vlm, mla_moe and ssm families; hybrid "
+            "and encdec are ROADMAP Queue 1 items 4-5")
 
 
 def is_moe(cfg: ModelConfig) -> bool:
@@ -96,6 +116,22 @@ def _attn_table(n: int, cfg: ModelConfig) -> Dict[str, ParamDef]:
     return t
 
 
+def _mla_table(n: int, cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamDef((n, d, qr), ("layers", "fsdp", None)),
+        "q_norm": ParamDef((n, qr), ("layers", None), init="ones"),
+        "wq_b": ParamDef((n, qr, h * (dn + dr)), ("layers", None, "model")),
+        "wkv_a": ParamDef((n, d, kvr + dr), ("layers", "fsdp", None)),
+        "kv_norm": ParamDef((n, kvr), ("layers", None), init="ones"),
+        "wk_b": ParamDef((n, kvr, h * dn), ("layers", None, "model")),
+        "wv_b": ParamDef((n, kvr, h * dv), ("layers", None, "model")),
+        "wo": ParamDef((n, h * dv, d), ("layers", "model", "fsdp")),
+    }
+
+
 def _mlp_table(n: int, cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
     return {
@@ -111,10 +147,16 @@ def _norms_table(n: int, cfg: ModelConfig, names) -> Dict[str, ParamDef]:
 
 
 def _layer_table(n: int, cfg: ModelConfig, moe_layer: bool) -> dict:
-    """Table for a stack of ``n`` homogeneous layers: attention, then a
-    ``moe`` group (the reference keeps shared experts in it, sized
+    """Table for a stack of ``n`` homogeneous layers: an ssm layer's
+    mixer and norm; else attention (MLA for mla_moe), then a ``moe``
+    group (the reference keeps shared experts in it, sized
     ``moe_d_ff * max(num_shared, 1)``) or an ``mlp`` one."""
-    t = {"attn": _attn_table(n, cfg)}
+    if cfg.family == "ssm":
+        t = {"ssm": SSM.ssm_param_table(n, cfg)}
+        t.update(_norms_table(n, cfg, ["norm1"]))
+        return t
+    t = {"attn": (_mla_table(n, cfg) if cfg.family == "mla_moe"
+                  else _attn_table(n, cfg))}
     if moe_layer:
         ff = cfg.moe_d_ff or cfg.d_ff
         t["moe"] = MOE.moe_param_table(
@@ -126,10 +168,16 @@ def _layer_table(n: int, cfg: ModelConfig, moe_layer: bool) -> dict:
     return t
 
 
+DENSE0_D_FF = 12288     # deepseek-v2's dense first layer's MLP
+
+
 def segments(cfg: ModelConfig):
-    """Layer segmentation: one ("scan", num_layers) segment (the ported
-    families have no unrolled layers)."""
+    """Layer segmentation, a list of (kind, count): deepseek-v2's dense
+    first layer is a ("dense0", 1) segment before ("scan", n - 1); every
+    other ported family has one ("scan", num_layers)."""
     check_family(cfg)
+    if cfg.family == "mla_moe" and cfg.dense_first_layer:
+        return [("dense0", 1), ("scan", cfg.num_layers - 1)]
     return [("scan", cfg.num_layers)]
 
 
@@ -140,8 +188,12 @@ def param_table(cfg: ModelConfig) -> dict:
         "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
         "lm_head": ParamDef((cfg.d_model, v), ("fsdp", "model")),
     }
-    for i, (_, n) in enumerate(segments(cfg)):
-        t[f"seg{i}"] = _layer_table(n, cfg, moe_layer=is_moe(cfg))
+    for i, (kind, n) in enumerate(segments(cfg)):
+        if kind == "dense0":
+            t[f"seg{i}"] = _layer_table(n, dataclasses.replace(
+                cfg, d_ff=DENSE0_D_FF), moe_layer=False)
+        else:
+            t[f"seg{i}"] = _layer_table(n, cfg, moe_layer=is_moe(cfg))
     return t
 
 
@@ -154,8 +206,8 @@ def _param(x: torch.Tensor) -> nn.Parameter:
 
 
 class _Params(nn.Module):
-    """A flat group of parameters (``attn``, ``mlp``, ``moe``) of one
-    layer."""
+    """A flat group of parameters (``attn``, ``mlp``, ``moe``, ``ssm``)
+    of one layer."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         super().__init__()
@@ -163,19 +215,15 @@ class _Params(nn.Module):
             setattr(self, k, _param(x))
 
 
-def _ffn_group(seg: dict) -> str:
-    """A segment's feed-forward group, as ``param_table`` chose it."""
-    return "moe" if "moe" in seg else "mlp"
-
-
 class DecoderLayer(nn.Module):
+    """Layer ``i`` of a stacked segment: a ``_Params`` per group of its
+    table (``attn`` and ``mlp`` or ``moe``; ``ssm``) and its norms."""
+
     def __init__(self, seg: dict, i: int):
         super().__init__()
-        self.attn = _Params({k: x[i] for k, x in seg["attn"].items()})
-        ffn = _ffn_group(seg)
-        setattr(self, ffn, _Params({k: x[i] for k, x in seg[ffn].items()}))
-        self.norm1 = _param(seg["norm1"][i])
-        self.norm2 = _param(seg["norm2"][i])
+        for k, x in seg.items():
+            setattr(self, k, _Params({n: y[i] for n, y in x.items()})
+                    if isinstance(x, dict) else _param(x[i]))
 
 
 class CausalLM(nn.Module):
@@ -201,8 +249,10 @@ class CausalLM(nn.Module):
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
         self.lm_head = _param(tree["lm_head"])
-        self.layers = nn.ModuleList(DecoderLayer(tree["seg0"], i)
-                                    for i in range(cfg.num_layers))
+        self.layer_slots = [(f"seg{i}", j) for i, (_, n)
+                            in enumerate(segments(cfg)) for j in range(n)]
+        self.layers = nn.ModuleList(DecoderLayer(tree[seg], j)
+                                    for seg, j in self.layer_slots)
 
     @property
     def device(self) -> torch.device:
@@ -224,6 +274,18 @@ class AttnCache(NamedTuple):
     pos: torch.Tensor       # (n, B, T) absolute positions of slots
 
 
+class MLACache(NamedTuple):
+    ckv: torch.Tensor       # (n, B, T, kv_lora)
+    krope: torch.Tensor     # (n, B, T, rope_dim)
+    pos: torch.Tensor
+
+
+class HybridCache(NamedTuple):
+    attn: Optional[AttnCache]   # None for ssm
+    conv: torch.Tensor          # (n, B, K-1, conv_dim)
+    state: torch.Tensor         # (n, B, H, P, N) float32
+
+
 def _attn_cache(n: int, b: int, t: int, cfg: ModelConfig, dtype,
                 device) -> AttnCache:
     shape = (n, b, t, cfg.num_kv_heads, cfg.hd)
@@ -235,11 +297,34 @@ def _attn_cache(n: int, b: int, t: int, cfg: ModelConfig, dtype,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> Dict[str, AttnCache]:
-    """Cache tree keyed by segment, in the activation dtype."""
+               device="cuda") -> dict:
+    """Cache tree keyed by segment, in the activation dtype (the ssm
+    state float32)."""
     dtype = act_dtype(cfg)
-    return {f"seg{i}": _attn_cache(n, batch, max_len, cfg, dtype, device)
-            for i, (_, n) in enumerate(segments(cfg))}
+    caches = {}
+    for i, (_, n) in enumerate(segments(cfg)):
+        if cfg.family == "ssm":
+            c = SSM.init_ssm_cache(batch, cfg, dtype, device)
+            caches[f"seg{i}"] = HybridCache(
+                attn=None, conv=c.conv[None].repeat(n, 1, 1, 1),
+                state=c.state[None].repeat(n, 1, 1, 1, 1))
+        elif cfg.family == "mla_moe":
+            caches[f"seg{i}"] = MLACache(
+                ckv=torch.zeros((n, batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+                krope=torch.zeros((n, batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device),
+                pos=torch.full((n, batch, max_len), 10 ** 9,
+                               dtype=torch.int32, device=device))
+        else:
+            caches[f"seg{i}"] = _attn_cache(n, batch, max_len, cfg, dtype,
+                                            device)
+    return caches
+
+
+def _layer_cache(seg, j: int):
+    """Slice ``j`` of a segment's stacked cache entry (views)."""
+    return type(seg)(*[None if a is None else a[j] for a in seg])
 
 
 # ===========================================================================
@@ -309,6 +394,68 @@ def attn_block(x, p, cfg: ModelConfig, *,
     return L.dot(out, p.wo)
 
 
+def mla_block(x, p, cfg: ModelConfig, *,
+              cache: Optional[MLACache] = None, pos_offset: int = 0):
+    """DeepSeek-V2 multi-head latent attention; with a cache, the decode
+    (S == 1) or prefill write of this layer's latent and shared rotary
+    key into its (B, T, ...) slices, in place.  S > 1 takes the
+    expanded form, a decode step the absorbed one (module docstring)."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    kvr = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    positions = pos_offset + torch.arange(s, device=x.device)[None, :]
+
+    cq = L.rms_norm(L.dot(x, p.wq_a), p.q_norm)
+    q = L.dot(cq, p.wq_b).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = L.dot(x, p.wkv_a)
+    ckv = L.rms_norm(kv_a[..., :kvr], p.kv_norm)
+    k_rope = L.apply_rope(kv_a[..., kvr:][:, :, None, :], positions,
+                          cfg.rope_theta)[:, :, 0]        # shared by heads
+
+    if cache is not None:
+        cckv, ckr, cpos = cache
+        t = cckv.shape[1]
+        if s == 1:
+            slot = pos_offset % t
+            cckv[:, slot] = ckv[:, 0]
+            ckr[:, slot] = k_rope[:, 0]
+            cpos[:, slot] = pos_offset
+        else:
+            n = min(s, t)
+            cckv[:, :n] = ckv[:, -t:]
+            ckr[:, :n] = k_rope[:, -t:]
+            cpos[:, :n] = positions[:, -t:].to(torch.int32).expand(b, n)
+
+    scale = (dn + dr) ** -0.5
+    if s > 1:
+        # expanded form: per-head K/V from the latent, chunked attention
+        k_nope = L.dot(ckv, p.wk_b).reshape(b, s, h, dn)
+        v = L.dot(ckv, p.wv_b).reshape(b, s, h, dv)
+        kr = k_rope[:, :, None, :].expand(b, s, h, dr)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        kk = torch.cat([k_nope, kr], dim=-1)
+        out = L.attention(qq, kk, v, causal=True, q_offset=0, scale=scale)
+    else:
+        # absorbed decode: scores against the latent cache directly
+        wk_b = p.wk_b.reshape(kvr, h, dn)
+        q_eff = torch.einsum("bshn,rhn->bshr", q_nope, wk_b.to(q_nope.dtype))
+        scores = (torch.einsum("bshr,btr->bhst", q_eff, cckv)
+                  + torch.einsum("bshr,btr->bhst", q_rope, ckr))
+        scores = scores.to(torch.float32) * torch.tensor(
+            scale, dtype=torch.float32)
+        mask = cpos[:, None, None, :] <= pos_offset
+        scores = torch.where(mask, scores, -1e30)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        lat = torch.einsum("bhst,btr->bshr", w, cckv)       # (B,1,H,kvr)
+        wv_b = p.wv_b.reshape(kvr, h, dv)
+        out = torch.einsum("bshr,rhv->bshv", lat, wv_b.to(lat.dtype))
+    return L.dot(out.reshape(b, s, h * dv), p.wo)
+
+
 def mlp_or_moe(x, lp, cfg: ModelConfig):
     """The layer's feed-forward: its experts, where its table gave it a
     ``moe`` group, else its SwiGLU."""
@@ -321,12 +468,25 @@ def mlp_or_moe(x, lp, cfg: ModelConfig):
 
 
 def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *,
-              cache: Optional[AttnCache] = None, pos_offset: int = 0,
-              mrope_positions=None):
-    """One transformer layer.  cache: this layer's entry."""
-    x = x + attn_block(L.rms_norm(x, lp.norm1), lp.attn, cfg, cache=cache,
-                       pos_offset=pos_offset,
-                       mrope_positions=mrope_positions)
+              cache=None, pos_offset: int = 0, mrope_positions=None):
+    """One layer of any ported family.  cache: this layer's entry, whose
+    slices are written in place (an ssm layer copies its new conv
+    window and state into them)."""
+    h = L.rms_norm(x, lp.norm1)
+    if cfg.family == "ssm":
+        sc = (SSM.SSMCache(cache.conv, cache.state)
+              if cache is not None else None)
+        y, new = SSM.mamba_mixer(h, lp.ssm, cfg, sc)
+        if cache is not None:
+            cache.conv.copy_(new.conv)
+            cache.state.copy_(new.state)
+        return x + y
+    if cfg.family == "mla_moe":
+        x = x + mla_block(h, lp.attn, cfg, cache=cache, pos_offset=pos_offset)
+    else:
+        x = x + attn_block(h, lp.attn, cfg, cache=cache,
+                           pos_offset=pos_offset,
+                           mrope_positions=mrope_positions)
     return x + mlp_or_moe(L.rms_norm(x, lp.norm2), lp, cfg)
 
 
@@ -334,25 +494,32 @@ def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *,
 # Model forward: embed -> layers -> norm -> head
 # ===========================================================================
 
-def _stacked_layers(seg: dict):
-    """Per-layer views of a stacked segment tree: layer i reads slice i
-    of every leaf.  One ``unbind`` per leaf, so autograd stacks the
-    layers' gradients once per leaf."""
-    groups = {g: {k: x.unbind(0) for k, x in seg[g].items()}
-              for g in ("attn", _ffn_group(seg))}
-    n1, n2 = seg["norm1"].unbind(0), seg["norm2"].unbind(0)
-    return [SimpleNamespace(
-        **{g: SimpleNamespace(**{k: v[i] for k, v in grp.items()})
-           for g, grp in groups.items()},
-        norm1=n1[i], norm2=n2[i]) for i in range(len(n1))]
+def _stacked_layers(seg: dict, n: int):
+    """Per-layer views of a stacked segment tree of ``n`` layers: layer i
+    reads slice i of every leaf.  One ``unbind`` per leaf, so autograd
+    stacks the layers' gradients once per leaf."""
+    parts = {k: ({g: x.unbind(0) for g, x in v.items()}
+                 if isinstance(v, dict) else v.unbind(0))
+             for k, v in seg.items()}
+    return [SimpleNamespace(**{
+        k: (SimpleNamespace(**{g: x[i] for g, x in v.items()})
+            if isinstance(v, dict) else v[i]) for k, v in parts.items()})
+        for i in range(n)]
 
 
-def _parts(params):
-    """(embed, final_norm, layers) of a ``CausalLM`` or a tree."""
+def _parts(params, cfg: ModelConfig):
+    """(embed, final_norm, [(segment, slot, layer)]) of a ``CausalLM`` or
+    a tree, the layers in order across the segments."""
     if isinstance(params, CausalLM):
-        return params.embed, params.final_norm, params.layers
-    return (params["embed"], params["final_norm"],
-            _stacked_layers(params["seg0"]))
+        return (params.embed, params.final_norm,
+                [(seg, j, lp) for (seg, j), lp
+                 in zip(params.layer_slots, params.layers)])
+    layers = []
+    for i, (_, n) in enumerate(segments(cfg)):
+        seg = f"seg{i}"
+        layers += [(seg, j, lp) for j, lp
+                   in enumerate(_stacked_layers(params[seg], n))]
+    return params["embed"], params["final_norm"], layers
 
 
 def _head(params) -> torch.Tensor:
@@ -367,18 +534,16 @@ def forward(model, tokens: torch.Tensor, cfg: ModelConfig, *,
     is a ``CausalLM`` or a parameter tree; ``mrope_positions`` (3, B, S)
     the vlm family's position streams; ``remat`` checkpoints each layer
     when autograd records (no cache)."""
-    embed, final_norm, layers = _parts(model)
+    embed, final_norm, layers = _parts(model, cfg)
     x = embed[tokens.long()].to(act_dtype(cfg))
-    seg = caches["seg0"] if caches is not None else None
-    remat = remat and seg is None and torch.is_grad_enabled()
-    for i, lp in enumerate(layers):
+    remat = remat and caches is None and torch.is_grad_enabled()
+    for seg, j, lp in layers:
         if remat:
             x = checkpoint(functools.partial(
                 layer_fwd, lp=lp, cfg=cfg, pos_offset=pos_offset,
                 mrope_positions=mrope_positions), x, use_reentrant=False)
             continue
-        lc = (AttnCache(seg.k[i], seg.v[i], seg.pos[i])
-              if seg is not None else None)
+        lc = _layer_cache(caches[seg], j) if caches is not None else None
         x = layer_fwd(x, lp, cfg, cache=lc, pos_offset=pos_offset,
                       mrope_positions=mrope_positions)
     x = L.rms_norm(x, final_norm)

@@ -5,9 +5,9 @@ the serving entry points (``prefill``, ``decode_step``, ``init_cache``)
 and training's ``loss_fn``.  For serving "params" is the
 ``causal_lm.CausalLM`` module; ``init_tree`` gives the same tensors as
 the reference's stacked tree, which training differentiates.  The
-dense, moe and vlm families are built; whisper (``encdec``) and the
-other families raise ``NotImplementedError`` (ROADMAP Queue 1 items
-2-5); the dry-run's ``input_specs`` / ``abstract_*`` and the mesh's
+dense, moe, mla_moe, vlm and ssm families are built; hybrid and whisper
+(``encdec``) raise ``NotImplementedError`` (ROADMAP Queue 1 items 4-5);
+the dry-run's ``input_specs`` / ``abstract_*`` and the mesh's
 ``param_specs`` / ``cache_logical_axes`` are not ported yet (items 6
 and 7).
 """

@@ -160,8 +160,8 @@ def test_param_table_equals_reference_at_full_size(arch):
 
 
 def test_other_families_raise():
-    for arch in ("whisper-large-v3", "mamba2-370m"):
-        with pytest.raises(NotImplementedError, match="Queue 1 items 2-5"):
+    for arch in ("whisper-large-v3", "hymba-1.5b"):
+        with pytest.raises(NotImplementedError, match="Queue 1 items 4-5"):
             TM.count_params(TB.get_smoke(arch))
 
 

@@ -839,8 +839,11 @@ def test_port_modules_load_without_jax_or_reference():
     CUDA."""
     code = (
         "import pkgutil, importlib, sys, repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print('SSM', 'repro_torch.models.ssm' in names)\n"
         "from repro_torch.serve.sweep_service import SweepService\n"
         "SweepService(device='cpu').close()\n"
         "import torch\n"
@@ -860,6 +863,7 @@ def test_port_modules_load_without_jax_or_reference():
                          env=dict(os.environ, PYTHONPATH=str(src)))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "SSM True" in out.stdout, out.stdout
     assert "CUDA_INIT False" in out.stdout, out.stdout
 
 

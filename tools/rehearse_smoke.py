@@ -17,7 +17,9 @@ comparison, checkpoints and launcher, with AdamW's chunk cut to 4096
 values and ``compress_tree``'s to 32 blocks so that its spans of 2048
 head values and 256 values each side of a boundary still cross both
 chunk boundaries; phase 24 on the smoke configs of phi3.5-moe and
-qwen2-vl, 2 layers each where it serves), every tensor on the CPU, the
+qwen2-vl, 2 layers each where it serves; phase 25 on the smoke configs
+of deepseek-v2 and mamba2, at 6 and 48 layers where it serves), every
+tensor on the CPU, the
 kernel build,
 the quotient proof and the launch-count and built-library checks left
 out and the
@@ -69,7 +71,7 @@ CUTS = [
      'kernels = [check_zfp(torch, test)]'),
     ('TRAIN_HEAD_VALUES = 1 << 22', 'TRAIN_HEAD_VALUES = 1 << 11'),
     ('TRAIN_SPAN_VALUES = 1 << 20', 'TRAIN_SPAN_VALUES = 1 << 8'),
-    ('FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 16), ("qwen2-vl-72b", 24))',
+    ('FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 8), ("qwen2-vl-72b", 12))',
      'FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 2), ("qwen2-vl-72b", 2))'),
 ]
 # the training chunks, cut so that the smoke leaves cross their boundaries
