@@ -211,8 +211,9 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 22. llm      -- the LLM serving path (``repro_torch.models``,
               ``serve.engine``, ``launch.serve``; no kernel of its own:
               products are ``torch.matmul``) at granite-3-2b's full
-              width and depth, random parameters, in this process:
-              (a) ``launch.serve.main`` with ``--batch 4 --prompt-len 32
+              width, random parameters, in this process: (a)
+              ``launch.serve.main`` at 10 of its 40 layers (cut to
+              pay for phase 26) with ``--batch 4 --prompt-len 32
               --steps 16 --max-len 256 --kv-compress``, then again with
               ``--kv-gate-service``: the same ids and metering, one
               kv_gate request of 2 rows, times and peak memory logged;
@@ -303,7 +304,27 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               dtypes, the SSM cache after prefill included; (d)
               ``make_train_step`` of mamba2-370m whole, 4 steps as 23
               (a), its float32 SSM leaves among the gate's leaves.
-Phases 5, 8-11, 14, 15, 17, 18 (their form (a)), 23, 24 and 25 each set the
+26. hybrid/encdec -- the hybrid family (hymba in ``models.causal_lm``:
+              attention and a mamba2 mixer side by side, sliding-window
+              attention but in 3 global layers, 128 meta tokens) and the
+              encdec family (``models.whisper``; no kernel), each model
+              freed before the next: (a) as 24 (a) for hymba-1.5b whole
+              (1 641 995 520 parameters; a prompt of 1100 ids past the
+              window of 1024 and the windowed segments' 1152 ring
+              slots, ``max_len`` 1280; 24 scored leaves: k, v, conv and
+              state of 6 segments) and whisper-large-v3 whole
+              (1 614 643 200; 1500 frames from a seeded generator; k, v,
+              xk and xv scored); (b) float32 prefill and 2 decode steps
+              against the forward (hymba at 4 layers past the window,
+              whisper at 2 + 2; bound 1e-4); (c) card against CPU at
+              phase 22's bounds: hymba at 2 layers in bfloat16 and in
+              float32 past the window with its ring wrapped, whisper at
+              1 + 1 layers over 1500 frames in both dtypes, the encoder
+              memory included; (d) 4 training steps as 23 (a) of hymba
+              at a global and a windowed layer (its float32 SSM leaves
+              among the gate's) and of whisper at 2 + 2 layers, frames
+              in the batch.  Its kernel launches must be none.
+Phases 5, 8-11, 14, 15, 17, 18 (their form (a)), 23, 24, 25 and 26 each set the
 kernels' launch counters to 0 just before they run and read them just
 after, and the load CLI and the advise runs (in this process) and the
 subprocesses (the process groups and 2-rank advise of phase 17, phase
@@ -336,6 +357,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -396,6 +418,8 @@ FAULT_TIMEOUT_S = 240           # (a)'s and (b)'s groups' wall-clock limit
 FAULT_REQUESTS = 16             # the plan cut to 8 clients x 16 requests
 FAULT_ARM_REQUESTS = 16         # requests served before a follower's fault
 FAULT_ARM_KEY = "chip_smoke/fault/arm"   # the leader's signal to arm it
+FAULT_ACK_KEY = "chip_smoke/fault/armed"  # the follower's: it is armed
+FAULT_ACK_TIMEOUT_S = 30.0      # the leader's wait for it, traffic held
 FAULT_HANG_TIMEOUT_S = 8.0      # (b)'s launch deadline once warm
 FAULT_LEADER_KILL = 6           # (c): 4 warmup launches, then the second
 LEADER_LOST_BOUND_S = 30.0      # (c): the follower's exit after the leader's
@@ -408,6 +432,7 @@ TUNE_SHAPE_DIV = 1
 LLM_ARCH = "granite-3-2b"
 LLM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--steps", "16",
                   "--max-len", "256", "--kv-compress", "--device", "cuda"]
+LLM_SERVE_LAYERS = 10           # (a): depth cut from 40 to pay for phase 26
 LLM_DECODE_TOL = 1e-4           # (b): the reference's bound at smoke size
 LLM_CMP_LAYERS = 2              # (c): the card against the CPU, full width
 LLM_F32_TOL = dict(rtol=1e-5, atol=2e-5)   # tests/test_torch_models.py's
@@ -457,6 +482,24 @@ FAM2_CMP = {"deepseek-v2-236b": (2, ("bfloat16",)),
 FAM2_ROUTING_DIFFERS_MAX = {"float32": 0.0, "bfloat16": 1 / 8}
 FAM2_TRAIN_ARCH = "mamba2-370m"                                  # (d), whole
 FAM2_SSM_F32 = ("ssm.a_log", "ssm.d_skip", "ssm.dt_bias")
+# phase 26: the hybrid and encdec families at full width and full depth
+HYB_ARCH, ENC_ARCH = "hymba-1.5b", "whisper-large-v3"
+PHASE26_PARAMS = {HYB_ARCH: 1_641_995_520, ENC_ARCH: 1_614_643_200}
+# (a): 1100 ids and the 128 meta tokens pass the window of 1024 and the
+# windowed segments' 1152 ring slots, so the prefill wraps the ring
+HYB_PROMPT, HYB_MAX_LEN = 1100, 1280
+# (b), (c), (d): hymba's cut depths as (layers, global layers); (d) was
+# whole, cut to a global and a windowed layer to pay for the phase
+HYB_DECODE_DEPTH, HYB_CMP_DEPTH, HYB_TRAIN_DEPTH = (4, 1), (2, 1), (2, 1)
+HYB_DECODE_PROMPT = 1100        # (b): past the window, then 2 steps
+# (c): (dtype, batch, prompt, max_len): float32 past the window (900 ids
+# and 128 meta tokens: 1028 positions) and past the windowed segment's
+# min(1024, 512) + 128 ring slots; the CPU side cut from 2 x 32 and 1 x
+# 1100 ids to pay for the phase
+HYB_CMP = (("bfloat16", 1, FAM_PROMPT, FAM_MAX_LEN),
+           ("float32", 1, 900, 512))
+ENC_DECODE_LAYERS, ENC_CMP_LAYERS, ENC_TRAIN_LAYERS = 2, 1, 2  # + as many
+ENC_CMP = (("bfloat16", 1, 16, 24), ("float32", 1, 16, 24))
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -1735,18 +1778,36 @@ def same_result(got, want) -> bool:
     return got == want
 
 
-def serve_traffic(svc, plan, ctx, stamps=None):
+def serve_traffic(svc, plan, ctx, stamps=None, hold=None):
     """Every client thread submits its requests one after another and
     waits for each (appending each completion's ``perf_counter`` to
-    ``stamps`` when given).  Returns (results by (client, request),
-    latencies in ms by kind, wall s)."""
+    ``stamps`` when given).  ``hold`` (n, event, fault): the clients
+    submit n requests in all, then wait for ``event`` before the rest,
+    and raise ``fault["error"]`` where it is set by then.  Returns
+    (results by (client, request), latencies in ms by kind, wall s)."""
     import threading
     results, lat, errors = {}, {}, []
     lock = threading.Lock()
+    submitted = [0]
+
+    def held():
+        after, event, fault = hold
+        with lock:
+            n = submitted[0]
+            submitted[0] += 1
+        if n < after:
+            return
+        if not event.wait(FAULT_TIMEOUT_S):
+            raise AssertionError(f"the traffic held after {after} requests "
+                                 f"was not released in {FAULT_TIMEOUT_S} s")
+        if fault.get("error"):
+            raise AssertionError(fault["error"])
 
     def client(c):
         try:
             for r, req in enumerate(plan[c]):
+                if hold is not None:
+                    held()
                 t = time.perf_counter()
                 out = serve_submit(svc, req, ctx).result(timeout=600)
                 ms = (time.perf_counter() - t) * 1e3
@@ -2206,11 +2267,18 @@ def fault_child(job_file: str) -> int:
     ``group_timeout_s``) with one shard on its device and builds the
     service on the spanning mesh (``launch_timeout_s``).  The leader
     warms it up (then, with ``hang_timeout_s``, cuts its launch deadline
-    to that) and serves the cut plan from 8 client threads, and sets
-    ``FAULT_ARM_KEY`` in the group's store once ``FAULT_ARM_REQUESTS``
-    requests are done; a follower with a ``chaos`` spec arms it
-    (``dist.faultinject``) when it sees the key, so the fault lands in
-    its next launch, mid-traffic.  Each stays ``linger_s`` after its
+    to that) and serves the cut plan from 8 client threads; they submit
+    ``FAULT_ARM_REQUESTS`` requests and wait.  Once those are done the
+    leader sets ``FAULT_ARM_KEY`` in the group's store (its value the
+    wall-clock time) and polls for ``FAULT_ACK_KEY`` with ``check``; a
+    follower with a ``chaos`` spec arms it (``dist.faultinject``) when it
+    sees the key and then sets ``FAULT_ACK_KEY``, and the leader releases
+    its clients, so the fault lands in the follower's next launch,
+    mid-traffic.  No acknowledgement within ``FAULT_ACK_TIMEOUT_S`` fails
+    the leader's traffic, naming the key: the traffic never goes on
+    unarmed.  Each side records the arm's delay: the leader from setting
+    the key to seeing the acknowledgement, the follower from the key's
+    time to its injector's arming.  Each stays ``linger_s`` after its
     service ends (past the group's timeout: an NCCL watchdog that found
     a collective stuck would end it meanwhile), writes its kernels'
     launches by shape and what it saw, the leader also its served
@@ -2248,15 +2316,31 @@ def fault_child(job_file: str) -> int:
         plan = serve_plan(SERVE_HOT, len(ctx["slices"]) - SERVE_HOT,
                           FAULT_REQUESTS)
         stamps = []
+        release, fault = threading.Event(), {}
 
         def signal_arm():
             while len(stamps) < FAULT_ARM_REQUESTS:
                 time.sleep(0.002)
-            M.coordination_store().set(FAULT_ARM_KEY, "1")
+            store = M.coordination_store()
+            set_at = time.time()
+            store.set(FAULT_ARM_KEY, repr(set_at))
+            deadline = time.perf_counter() + FAULT_ACK_TIMEOUT_S
+            while not store.check([FAULT_ACK_KEY]):
+                if time.perf_counter() > deadline:
+                    fault["error"] = (
+                        f"the follower did not acknowledge the arm "
+                        f"({FAULT_ACK_KEY} unset {FAULT_ACK_TIMEOUT_S} s "
+                        f"after {FAULT_ARM_KEY}): the traffic would go on "
+                        "unarmed")
+                    break
+                time.sleep(0.002)
+            rec["arm_wait_s"] = time.time() - set_at
+            release.set()
 
         threading.Thread(target=signal_arm, daemon=True).start()
         t0 = time.perf_counter()
-        results, _, wall = serve_traffic(svc, plan, ctx, stamps)
+        results, _, wall = serve_traffic(
+            svc, plan, ctx, stamps, (FAULT_ARM_REQUESTS, release, fault))
         st = svc.stats()
         window = svc._fault_window
         svc.close()
@@ -2284,6 +2368,13 @@ def fault_child(job_file: str) -> int:
                 while not store.check([FAULT_ARM_KEY]):
                     time.sleep(0.002)
                 FI.configure(job["chaos"])
+                store.set(FAULT_ACK_KEY, "1")
+                rec["arm_delay_s"] = time.time() - float(
+                    store.get(FAULT_ARM_KEY))
+                sys.stdout.write(f"armed {job['chaos']} "
+                                 f"{rec['arm_delay_s']:.4f} s after the "
+                                 "leader's key\n")
+                sys.stdout.flush()
             threading.Thread(target=arm, daemon=True).start()
         t = time.perf_counter()
         try:
@@ -2354,11 +2445,20 @@ def phase_fault(torch, models, test, ebs, directs, card):
                              str(tmp / f"job_{form}_{r}.json")])
                 outs.append(Path(job["out"]))
             killed = {nprocs - 1: -signal.SIGKILL} if form == "a" else {}
+            logs = {}
             out[f"{form}_wall_s"] = run_group(f"fault ({form})", cmds, tmp,
-                                              FAULT_TIMEOUT_S, expect=killed)
+                                              FAULT_TIMEOUT_S, expect=killed,
+                                              logs=logs)
             ranks = [json.loads(p.read_text()) for i, p in enumerate(outs)
                      if i not in killed]
             out[form] = ranks
+            armed = re.search(r"armed \S+ (\S+) s after the leader's key",
+                              logs[nprocs - 1])
+            if armed is None:
+                raise AssertionError(f"fault ({form}): the follower never "
+                                     f"armed:\n{logs[nprocs - 1][-3000:]}")
+            out[f"{form}_arm"] = {"leader_wait_s": ranks[0]["arm_wait_s"],
+                                  "follower_delay_s": float(armed.group(1))}
             parts += [r["by_shape"] for r in ranks]
             lead = ranks[0]
             with open(tmp / f"results_{form}.pkl", "rb") as f:
@@ -2385,7 +2485,11 @@ def phase_fault(torch, models, test, ebs, directs, card):
                 f"{lead['kv_bytes']} bytes through the store, "
                 f"{lead['launches']} launches; follower: {ranks[1]['serve']} "
                 f"after {ranks[1]['serve_s']:.3f} s; every served result == "
-                "the direct call", card)
+                "the direct call; the traffic held at the arm: the leader "
+                f"saw the acknowledgement {lead['arm_wait_s']:.4f} s after "
+                f"its key, the follower armed "
+                f"{out[form + '_arm']['follower_delay_s']:.4f} s after it",
+                card)
 
         # (c) the store in a process of its own; the leader killed
         init = f"tcp://127.0.0.1:{free_port()}"
@@ -3403,9 +3507,24 @@ def llm_gate_bits(torch, gate) -> dict:
     return {"crs": crs, "saved": saved, "total": total}
 
 
+@contextlib.contextmanager
+def arch_depth(arch: str, layers: int):
+    """``configs.base.get_arch(arch)`` at ``layers`` layers while
+    entered, for a launcher that takes an architecture's name."""
+    from repro_torch.configs import base
+    orig = base.get_arch
+    base.get_arch = lambda a: (dataclasses.replace(orig(a), num_layers=layers)
+                               if a == arch else orig(a))
+    try:
+        yield
+    finally:
+        base.get_arch = orig
+
+
 def phase_llm(torch, card) -> dict:
-    """Phase 22: the LLM serving path at granite-3-2b's full width and
-    depth, in this process.  (a) ``launch.serve.main`` with
+    """Phase 22: the LLM serving path at granite-3-2b's full width, in
+    this process.  (a) ``launch.serve.main`` at ``LLM_SERVE_LAYERS`` of
+    its 40 layers with
     ``--kv-compress`` and again with ``--kv-gate-service``: the same ids
     and metering, one kv_gate request of 2 rows; (b) float32 parameters,
     prefill 15 tokens and decode the 16th against the full forward's last
@@ -3433,7 +3552,8 @@ def phase_llm(torch, card) -> dict:
     try:
         for name, extra in (("direct", []), ("service", ["--kv-gate-service"])):
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), \
+                    arch_depth(LLM_ARCH, LLM_SERVE_LAYERS):
                 r = LS.main(["--arch", LLM_ARCH] + LLM_SERVE_ARGS + extra)
             for line in buf.getvalue().splitlines():
                 log(f"serve {name} | {line}")
@@ -4036,22 +4156,27 @@ def mrope_streams(torch, b: int, s: int, grid=(2, 4)):
 def gate_leaf_names(torch, cfg) -> list:
     """The paths of the cache leaves the KV gate scores (float, rank >= 4),
     in ``jax.tree.flatten``'s order, from a cache made on the meta
-    device."""
+    device (encdec: ``model.init_cache``'s form)."""
     from repro_torch.models import causal_lm as CLM
+    from repro_torch.models import whisper as WSP
     from repro_torch.models.params import tree_flatten
-    return [k for k, x in tree_flatten(CLM.init_cache(cfg, 1, 1, "meta"))
+    cache = (WSP.empty_cache(cfg, 1, 1, "meta") if cfg.family == "encdec"
+             else CLM.init_cache(cfg, 1, 1, "meta"))
+    return [k for k, x in tree_flatten(cache)
             if x.dtype in (torch.bfloat16, torch.float32) and x.ndim >= 4]
 
 
 def family_serve(torch, arch: str, layers: int, card,
-                 tag="families (a)") -> dict:
+                 tag="families (a)", prompt: int = FAM_PROMPT,
+                 max_len: int = FAM_MAX_LEN) -> dict:
     """(a): ``serve.engine.Engine`` at full width and ``layers`` layers,
-    random parameters from seed 0, ``FAM_BATCH`` prompts of
-    ``FAM_PROMPT`` ids, ``FAM_STEPS`` greedy steps, a ``FAM_MAX_LEN``
-    cache and the KV gate; then the gate through a ``SweepService``: the
-    same ids and metering, one kv_gate request of a row per scored leaf.
-    Each scored leaf's CR and decision is logged; the gate must save
-    some bytes of the cache, not all."""
+    random parameters from seed 0, ``FAM_BATCH`` prompts of ``prompt``
+    ids (encdec: and frames from a seeded generator), ``FAM_STEPS``
+    greedy steps, a ``max_len`` cache and the KV gate; then the gate
+    through a ``SweepService``: the same ids and metering, one kv_gate
+    request of a row per scored leaf.  Each scored leaf's CR and
+    decision is logged; the gate must save some bytes of the cache, not
+    all."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -4067,9 +4192,12 @@ def family_serve(torch, arch: str, layers: int, card,
     if n_params != cfg.param_count():
         raise AssertionError(f"{tag} {arch}: {n_params} parameters")
     param_bytes = sum(x.numel() * x.element_size() for x in params.parameters())
-    tokens = torch.randint(0, cfg.vocab_size, (FAM_BATCH, FAM_PROMPT),
+    tokens = torch.randint(0, cfg.vocab_size, (FAM_BATCH, prompt),
                            generator=torch.Generator().manual_seed(1),
                            dtype=torch.int32).to("cuda")
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        batch["frames"] = frames_for(torch, cfg, FAM_BATCH, 3)
     runs = {}
     for name in ("direct", "service"):
         svc = (SweepService(ServiceConfig(max_wait_ms=1.0),
@@ -4078,7 +4206,7 @@ def family_serve(torch, arch: str, layers: int, card,
         crs = []
         try:
             eng = Engine(cfg, params, ServeConfig(
-                max_len=FAM_MAX_LEN, kv_compress=True), sweep_service=svc)
+                max_len=max_len, kv_compress=True), sweep_service=svc)
 
             def spy(leaves, predict=eng._predict_crs):
                 crs.append(predict(leaves))
@@ -4086,7 +4214,7 @@ def family_serve(torch, arch: str, layers: int, card,
 
             eng._predict_crs = spy
             t = time.perf_counter()
-            ids = eng.generate({"tokens": tokens}, steps=FAM_STEPS)
+            ids = eng.generate(batch, steps=FAM_STEPS)
             wall = time.perf_counter() - t
             gate = svc.stats()["methods"].get("kv_gate") if svc else None
         finally:
@@ -4122,12 +4250,14 @@ def family_serve(torch, arch: str, layers: int, card,
     if (b["kv_gate"]["completed"], b["kv_gate"]["rows"]) != (1, len(names)):
         raise AssertionError(f"{tag} {arch}: kv_gate {b['kv_gate']} for "
                              f"the leaves {names}")
-    rec = dict(layers=layers, params=n_params, param_bytes=param_bytes,
-               init_s=init_s, runs=runs,
+    rec = dict(layers=cfg.num_layers, params=n_params,
+               param_bytes=param_bytes, init_s=init_s, prompt=prompt,
+               max_len=max_len, runs=runs,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     for name, r in runs.items():
-        log(f"{tag} {arch} at {layers} of {get_arch(arch).num_layers} "
-            f"layers, {name}: {n_params:,} parameters, "
+        log(f"{tag} {arch} at {cfg.num_layers} of "
+            f"{get_arch(arch).num_layers} layers, batch {FAM_BATCH} x "
+            f"prompt {prompt}, {name}: {n_params:,} parameters, "
             f"{param_bytes / 1e9:.3f} GB, init {init_s:.3f} s, prefill "
             f"{r['prefill_ms']:.2f} ms, gate {r['gate_ms']:.2f} ms, decode "
             f"{r['decode_ms_per_step']:.3f} ms/step, "
@@ -4140,7 +4270,7 @@ def family_serve(torch, arch: str, layers: int, card,
     log(f"{tag} {arch}: ids equal with and without the service; "
         f"kv_gate {json.dumps(b['kv_gate'])}; peak device memory "
         f"{rec['peak_gib']:.2f} GiB", card)
-    del params, eng
+    del params, eng, batch
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -4530,6 +4660,229 @@ def phase_mla_ssm(torch, card) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the hybrid and encdec families
+# ---------------------------------------------------------------------------
+
+def phase26_cfg(arch: str, depth, **kw):
+    """``arch``'s config at full width: hymba at ``depth`` = (layers,
+    global layers), whisper at ``depth`` encoder and decoder layers."""
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(arch)
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, num_layers=depth,
+                                   encoder_layers=depth, **kw)
+    return dataclasses.replace(cfg, num_layers=depth[0],
+                               num_global_layers=depth[1], **kw)
+
+
+def frames_for(torch, cfg, b: int, seed: int, device="cuda"):
+    """(b, encoder_frames, d_model) frames from a seeded generator on
+    ``device``, in the activation dtype."""
+    return torch.randn((b, cfg.encoder_frames, cfg.d_model),
+                       generator=torch.Generator(device).manual_seed(seed),
+                       device=device).to(getattr(torch, cfg.dtype))
+
+
+def phase26_decode(torch, arch: str, card, tag="hybrid/encdec (b)") -> dict:
+    """(b): float32 parameters at full width (hymba at
+    ``HYB_DECODE_DEPTH``, a prompt of ``HYB_DECODE_PROMPT`` ids past the
+    window; whisper at ``ENC_DECODE_LAYERS`` + as many, 15 ids and 1500
+    frames): the prefill's logits and 2 decode steps' against the full
+    forward's at the same positions (bound 1e-4)."""
+    from repro_torch.models import causal_lm as CLM
+    from repro_torch.models import model as M
+    from repro_torch.models import whisper as WSP
+    enc = arch == ENC_ARCH
+    cfg = phase26_cfg(arch, ENC_DECODE_LAYERS if enc
+                      else HYB_DECODE_DEPTH, dtype="float32")
+    prompt, steps = (15 if enc else HYB_DECODE_PROMPT), 2
+    model = M.init_params(cfg, torch.Generator("cuda").manual_seed(0)).float()
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, prompt + steps)).astype(np.int32)).to("cuda")
+    batch = {"tokens": toks[:, :prompt]}
+    errs = []
+    with torch.inference_mode():
+        if enc:
+            batch["frames"] = frames_for(torch, cfg, 2, 5)
+            mem = WSP.encode(model, batch["frames"], cfg)
+            full = CLM.logits_fn(model, WSP.decode(model, toks, mem, cfg)[0])
+        else:
+            full = CLM.logits_fn(model, CLM.forward(model, toks, cfg))
+        lg, cache = M.prefill(model, batch, cfg, prompt + steps + 2)
+        for i in range(prompt, prompt + steps + 1):
+            errs.append(float((lg - full[:, i - 1]).abs().max()))
+            if i < prompt + steps:
+                lg, cache = M.decode_step(model, cache, toks[:, i:i + 1], i,
+                                          cfg)
+    rec = {"layers": cfg.num_layers, "prompt": prompt, "max_abs_err": errs,
+           "max_logit": float(full.abs().max())}
+    log(f"{tag} {arch} float32 prefill of {prompt} ids and {steps} decode "
+        f"steps vs the forward at full width, {cfg.num_layers} layers"
+        + (f" (+ {cfg.encoder_layers} encoder layers, "
+           f"{cfg.encoder_frames} frames)" if enc else
+           f" (segments {CLM.segments(cfg)}, window {cfg.window_size}, "
+           f"{cfg.meta_tokens} meta tokens)")
+        + f": max abs err {errs} (|logit| <= {rec['max_logit']:.3g}, bound "
+        f"{LLM_DECODE_TOL})", card)
+    if not max(errs) < LLM_DECODE_TOL:
+        raise AssertionError(f"{tag} {arch}: decode vs forward {errs}")
+    del model, cache, full, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase26_card_vs_cpu(torch, arch: str, card,
+                        tag="hybrid/encdec (c)") -> dict:
+    """(c): full width at ``HYB_CMP_DEPTH`` / ``ENC_CMP_LAYERS``,
+    parameters drawn on the card and copied to the CPU, in each case of
+    ``HYB_CMP`` / ``ENC_CMP`` (dtype, batch, prompt, max_len; the SSM's
+    float32 leaves stay float32): the prefill's logits and every cache
+    leaf card against CPU at phase 22's bounds, positions equal; hymba's
+    float32 case passes the window and wraps its ring on both sides;
+    whisper also the encoder's memory of the same 1500 frames."""
+    from repro_torch.models import model as M
+    from repro_torch.models import params as PRM
+    from repro_torch.models import whisper as WSP
+    enc = arch == ENC_ARCH
+    cfg = phase26_cfg(arch, ENC_CMP_LAYERS if enc else HYB_CMP_DEPTH)
+    made = PRM.init_params(M.param_table(cfg),
+                           torch.Generator("cuda").manual_seed(2))
+    tree = PRM.tree_unflatten(made, [x.cpu() for x in PRM.tree_leaves(made)])
+    rec = {}
+    for dtype, b, prompt, max_len in (ENC_CMP if enc else HYB_CMP):
+        cfgd = dataclasses.replace(cfg, dtype=dtype)
+        dt = getattr(torch, dtype)
+
+        def cast(x):
+            return x.to(dt) if x.dtype == torch.bfloat16 else x
+
+        cpu = M.build(cfgd, PRM.tree_unflatten(
+            tree, [cast(x) for x in PRM.tree_leaves(tree)]))
+        dev = M.build(cfgd, PRM.tree_unflatten(
+            made, [cast(x) for x in PRM.tree_leaves(made)]))
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (b, prompt)).astype(np.int32))
+        sides = {"cpu": {"tokens": toks}, "cuda": {"tokens": toks.to("cuda")}}
+        if enc:
+            fr = frames_for(torch, cfgd, b, 6)
+            sides["cuda"]["frames"], sides["cpu"]["frames"] = fr, fr.cpu()
+        memories, orig = [], WSP.encode
+
+        def encode_spy(*a, **kw):
+            memories.append(orig(*a, **kw))
+            return memories[-1]
+
+        WSP.encode = encode_spy
+        try:
+            with torch.inference_mode():
+                lc, cc = M.prefill(cpu, sides["cpu"], cfgd, max_len)
+                lg, cg = M.prefill(dev, sides["cuda"], cfgd, max_len)
+        finally:
+            WSP.encode = orig
+        r = {}
+        for (name, a), (_, w) in zip(PRM.tree_flatten(cg),
+                                     PRM.tree_flatten(cc)):
+            if a.dtype == torch.int32:
+                if not torch.equal(a.cpu(), w):
+                    raise AssertionError(f"{tag} {arch} {dtype}: {name}")
+            else:
+                r[name] = llm_close(a, w, dtype, f"{arch} prefill {name}")
+        r["logits"] = llm_close(lg, lc, dtype, f"{arch} prefill logits")
+        if enc:
+            r["memory"] = llm_close(memories[1], memories[0], dtype,
+                                    f"{arch} encoder memory")
+        else:
+            slots = cc["seg1"].attn.k.shape[2]
+            r["ring_wrapped"] = prompt + cfg.meta_tokens > slots
+            r["past_window"] = prompt + cfg.meta_tokens > cfg.window_size
+        r["max_logit"] = float(lc.float().abs().max())
+        rec[f"{dtype} {b}x{prompt}"] = r
+        del cpu, dev, lc, cc, lg, cg, memories
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32 = None if enc else rec[f"float32 {HYB_CMP[1][1]}x{HYB_CMP[1][2]}"]
+    if f32 is not None and not (f32["ring_wrapped"] and f32["past_window"]):
+        raise AssertionError(f"{tag} {arch}: the float32 prefill did not "
+                             "pass the window and wrap the windowed "
+                             "segment's ring")
+    del made, tree
+    log(f"{tag} {arch} card vs CPU at full width, {cfg.num_layers} "
+        f"layer(s)" + (f" + {cfg.encoder_layers} encoder layer(s), "
+                       f"{cfg.encoder_frames} frames" if enc else "")
+        + ": " + json.dumps(rec), card)
+    return rec
+
+
+def phase_hybrid_encdec(torch, card) -> dict:
+    """Phase 26: the hybrid and encdec families (hymba in
+    ``models.causal_lm``, ``models.whisper``) at full width and full
+    depth, in this process, each model freed before the next: for each
+    family, (a) ``family_serve`` whole (hymba: ``HYB_PROMPT`` ids past
+    its window and ring; whisper: 1500 frames), the parameter count the
+    published one, (b) ``phase26_decode``, (c) ``phase26_card_vs_cpu``;
+    then (d) ``train_steps`` of hymba at ``HYB_TRAIN_DEPTH`` (its float32
+    SSM leaves among the gate's) and of whisper at ``ENC_TRAIN_LAYERS``
+    + as many, frames in the batch.  It launches no kernel of its own;
+    its launches are read and logged."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import causal_lm as CLM
+    rec = {}
+    zero_counts(torch)
+    for arch in (HYB_ARCH, ENC_ARCH):
+        cfg = get_arch(arch)
+        hyb = cfg.family == "hybrid"
+        r = {}
+        for key, fn in (
+                ("serve", lambda: family_serve(
+                    torch, arch, cfg.num_layers, card, "hybrid/encdec (a)",
+                    *((HYB_PROMPT, HYB_MAX_LEN) if hyb else ()))),
+                ("decode_vs_forward", lambda: phase26_decode(
+                    torch, arch, card)),
+                ("card_vs_cpu", lambda: phase26_card_vs_cpu(
+                    torch, arch, card))):
+            t = time.perf_counter()
+            r[key] = fn()
+            r[f"{key}_s"] = time.perf_counter() - t
+        want = PHASE26_PARAMS.get(arch)
+        if want is not None and r["serve"]["params"] != want:
+            raise AssertionError(f"hybrid/encdec (a) {arch}: "
+                                 f"{r['serve']['params']} parameters, not "
+                                 f"{want}")
+        rec[arch] = r
+    for arch, depth in ((HYB_ARCH, HYB_TRAIN_DEPTH),
+                        (ENC_ARCH, ENC_TRAIN_LAYERS)):
+        t = time.perf_counter()
+        cfg = phase26_cfg(arch, depth)
+        r = train_steps(torch, card, cfg, "hybrid/encdec (d)")
+        if arch == HYB_ARCH:
+            leaves = [k for k in r["steps"][0]["crs"]
+                      if k.endswith(FAM2_SSM_F32)]
+            if len(leaves) != len(FAM2_SSM_F32) * len(CLM.segments(cfg)) \
+                    or any(set(leaves) - set(s["crs"]) for s in r["steps"]):
+                raise AssertionError(f"hybrid/encdec (d): the float32 SSM "
+                                     f"leaves {leaves} are not among the "
+                                     "gate's leaves")
+            log("hybrid/encdec (d): the float32 SSM leaves' CRs by step "
+                + json.dumps([{k: [round(s["crs"][k], 4), k in s["gated"]]
+                               for k in leaves} for s in r["steps"]]), card)
+        rec[f"train {arch}"] = r
+        rec[f"train {arch}_s"] = time.perf_counter() - t
+    launches = read_counts(torch, "Hybrid/encdec", ())
+    rec["launches"] = {n: c["launches"] for n, c in launches.items()
+                       if c["launches"]}
+    if rec["launches"]:
+        raise AssertionError(f"hybrid/encdec: the families' path launched "
+                             f"the sweep kernels {rec['launches']}")
+    log("hybrid/encdec: stages s " + json.dumps(
+        {a: {k: round(v, 2) for k, v in rec[a].items() if k.endswith("_s")}
+         for a in (HYB_ARCH, ENC_ARCH)}
+        | {k: round(v, 2) for k, v in rec.items() if k.endswith("_s")})
+        + "; kernel launches " + json.dumps(rec["launches"]), card)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -4896,6 +5249,14 @@ def main(argv=None) -> int:
     mla_ssm = phase_mla_ssm(torch, smi)
     stages["mla_ssm_phase_s"] = time.perf_counter() - t
 
+    # ---- phase 26: the hybrid and encdec families at full width and
+    # depth, in this process, after phase 25 has freed the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    hybrid_encdec = phase_hybrid_encdec(torch, smi)
+    stages["hybrid_encdec_phase_s"] = time.perf_counter() - t
+
     # ---- phase 21: every shape a path launched that no row above holds:
     # its kernel against the plain version there, timed
     t = time.perf_counter()
@@ -4940,6 +5301,7 @@ def main(argv=None) -> int:
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
             dist=dist, fabric=fabric, fault=fault, tune=tuned, llm=llm,
             train=trained, families=families, mla_ssm=mla_ssm,
+            hybrid_encdec=hybrid_encdec,
             sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],

@@ -4,8 +4,9 @@ The reference's ``repro/configs/base.py`` field for field: every assigned
 architecture is a ``ModelConfig`` (exact published dims) in
 ``repro_torch/configs/<id>.py`` with a reduced ``smoke()`` variant for
 CPU tests, and ``ShapeConfig`` encodes the assigned input-shape cells.
-All ten architectures are data here; the port's model builds the
-dense, moe and vlm families (``models/causal_lm``).
+All ten architectures are data here, and the port's model builds each
+(``models/model``: ``models/whisper`` for encdec, ``models/causal_lm``
+for the other six families).
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     def param_count(self) -> int:
-        """Parameter count of the port's model (the ported families)."""
+        """Parameter count of the port's model."""
         from repro_torch.models import model as M
         return M.count_params(self)
 

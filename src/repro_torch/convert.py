@@ -35,6 +35,8 @@ from repro_torch.core import predictors as P
 from repro_torch.core import regression as R
 from repro_torch.core import usecases as UC
 from repro_torch.models import causal_lm as CLM
+from repro_torch.models import model as M
+from repro_torch.models import whisper as WSP
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.train import grad_compress as GC
 from repro_torch.train import optimizer as OPT
@@ -96,22 +98,33 @@ def array(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def lm_params(tree, cfg, device="cuda") -> CLM.CausalLM:
-    """The port's model holding a reference parameter tree's values in
-    its dtypes; raises ``ValueError`` on a missing, extra or mis-shaped
-    leaf."""
-    return CLM.CausalLM(cfg, tree_unflatten(
+def lm_params(tree, cfg, device="cuda"):
+    """The port's model (a ``CausalLM``, or a ``Whisper`` for the encdec
+    family) holding a reference parameter tree's values in its dtypes;
+    raises ``ValueError`` on a missing, extra or mis-shaped leaf."""
+    return M.build(cfg, tree_unflatten(
         tree, [array(a, device) for a in tree_leaves(tree)]))
 
 
-def lm_cache(tree, device="cuda") -> dict:
+def lm_cache(tree, device="cuda"):
     """The port's cache from a reference cache tree with numpy leaves
     (``{"seg0": AttnCache(k, v, pos)}``, ``MLACache(ckv, krope, pos)``
-    per segment, or ssm's ``HybridCache(None, conv, state)``): each entry
-    the port's tuple of the same name."""
-    return {seg: getattr(CLM, type(entry).__name__)(
-        *(None if a is None else array(a, device) for a in entry))
-        for seg, entry in tree.items()}
+    per segment, ssm's ``HybridCache(None, conv, state)``, hybrid's
+    ``HybridCache(AttnCache(k, v, pos), conv, state)``, or whisper's
+    bare ``WhisperCache(k, v, pos, xk, xv)``): each tuple the port's of
+    the same name, nested as the reference's."""
+    def entry(e):
+        if e is None:
+            return None
+        if isinstance(e, tuple):
+            kind = type(e).__name__
+            mod = WSP if kind == "WhisperCache" else CLM
+            return getattr(mod, kind)(*(entry(a) for a in e))
+        return array(e, device)
+
+    if isinstance(tree, dict):
+        return {seg: entry(e) for seg, e in tree.items()}
+    return entry(tree)
 
 
 def lm_tree(tree, device="cuda"):

@@ -11,6 +11,9 @@ gates the prefilled cache's K/V leaves on their predicted int8 CR;
 with ``--kv-gate-service`` the gate's CRs are served by a
 ``serve.sweep_service.SweepService`` through its ``kv_gate`` method.
 The run is on the card unless ``--device cpu`` asks for the host.
+An encdec architecture (whisper) is refused: its prefill needs the
+batch's ``frames``, which this launcher, as the reference's, does not
+make.
 
 ``main(argv)`` prints the report and returns it as a dict: the ids and
 their shape, the parameter count and bytes, init and prefill seconds,
@@ -56,6 +59,14 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    if cfg.family == "encdec":
+        # the reference's launcher builds a batch of tokens alone and
+        # fails in its prefill (KeyError: 'frames'); this one makes up
+        # no frames either
+        ap.error(f"--arch {args.arch}: the encdec family's prefill encodes "
+                 "the batch's frames (the stubbed conv frontend's output, "
+                 f"(batch, {cfg.encoder_frames}, {cfg.d_model})), and this "
+                 "launcher's batch has only token ids")
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
     if dev.type == "cuda":

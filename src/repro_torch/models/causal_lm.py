@@ -1,4 +1,4 @@
-"""Decoder-only causal LM (``repro/models/causal_lm.py``), five families:
+"""Decoder-only causal LM (``repro/models/causal_lm.py``), six families:
 
   dense   -- stablelm-3b, codeqwen1.5-7b, granite-8b, granite-3-2b
   moe     -- phi3.5-moe (16 experts, top-2; ``models/moe``)
@@ -7,23 +7,33 @@
   vlm     -- qwen2-vl's backbone (the dense layers with QKV biases and
              M-RoPE; the patch frontend is stubbed, as in the reference)
   ssm     -- mamba2 (attention-free; ``models/ssm``)
+  hybrid  -- hymba (attention and mamba2 heads in parallel on the same
+             normed input, sliding-window attention but in 3 global
+             layers, 128 learned meta tokens before the prompt)
 
-The parameter table is the reference's, stacked over the layers of
-each segment (``seg0.attn.wq`` is (n, d, hq * hd)).  A model has one
-("scan", num_layers) segment, but deepseek-v2, whose first layer is
-dense: ``seg0`` holds that layer (MLA and an MLP of d_ff 12288) and
-``seg1`` the other num_layers - 1.  ``CausalLM`` holds the table as an
-``nn.Module`` with one module per layer, numbered across the segments,
-each parameter a view of its layer's slice, so ``layers.3.attn.wq`` is
-``seg0.attn.wq[3]`` in a one-segment model.  Weights keep the
-reference's (d_in, d_out) layout: ``x @ W`` is its einsum.
+(whisper, the encdec family, is ``models/whisper``.)  The parameter
+table is the reference's, stacked over the layers of each segment
+(``seg0.attn.wq`` is (n, d, hq * hd)).  A model has one ("scan",
+num_layers) segment, but deepseek-v2, whose first layer is dense:
+``seg0`` holds that layer (MLA and an MLP of d_ff 12288) and ``seg1``
+the other num_layers - 1; and hymba, whose global layers are ("global",
+1) segments at the start, the middle and the end, with windowed
+("scan", n) segments between them (``segments``).  ``CausalLM`` holds
+the table as an ``nn.Module`` with one module per layer, numbered
+across the segments, each parameter a view of its layer's slice, so
+``layers.3.attn.wq`` is ``seg0.attn.wq[3]`` in a one-segment model.
+Weights keep the reference's (d_in, d_out) layout: ``x @ W`` is its
+einsum.
 
 The cache is the reference's too, one stacked entry per segment:
 ``AttnCache`` (k and v (n, B, T, Hkv, hd), pos (n, B, T) int32 with
 unwritten slots at 10**9), ``MLACache`` (the latent ckv (n, B, T,
 kv_lora), the shared krope (n, B, T, rope_dim) and pos) or, for ssm,
 ``HybridCache(attn=None, conv (n, B, K-1, conv_dim), state (n, B, H, P,
-N) float32)``, whose ``None`` holds no leaf.  Layer i reads and writes
+N) float32)``, whose ``None`` holds no leaf, or, for hybrid, the same
+with ``attn`` an ``AttnCache`` of ``min(window, max_len) + meta`` slots
+in a windowed segment (a ring buffer, with ``sliding_window_decode``)
+and ``max_len + meta`` in a global one.  Layer i reads and writes
 slice i in place, so ``prefill`` and ``decode_step`` return the cache
 they were given, written.  The KV gate scores whole leaves, so
 per-layer caches would change its decisions and byte counts.
@@ -55,9 +65,14 @@ position, and M-RoPE is plain RoPE.  ``prefill`` takes none, as the
 reference's does, so a served prompt rotates by its broadcast
 positions.
 
-The hybrid and encdec families are ROADMAP Queue 1 items 4-5; the
-``REPRO_REMAT=dots|tp_outs`` policies and ``cache_logical_axes`` come
-with training across cards (item 7).
+A hybrid layer adds its attention and its mixer's outputs as ``0.5 *
+(a * mix_attn + y * mix_ssm)`` in the activation dtype; its model
+prepends the ``meta`` tokens to a sequence (not to a decode step's
+token) and cuts them off after the final norm, and a decode step's
+position counts them (``pos + meta_tokens``).
+
+The ``REPRO_REMAT=dots|tp_outs`` policies and ``cache_logical_axes``
+come with training across cards (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -77,15 +92,14 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamDef, tree_flatten
 
-_FAMILIES = ("dense", "moe", "vlm", "mla_moe", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "mla_moe", "ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported: the port "
-            "builds the dense, moe, vlm, mla_moe and ssm families; hybrid "
-            "and encdec are ROADMAP Queue 1 items 4-5")
+    """Raises ``ValueError`` on a family no config of the repo has."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}): "
+                         f"the families are {', '.join(FAMILIES)}")
 
 
 def is_moe(cfg: ModelConfig) -> bool:
@@ -148,15 +162,19 @@ def _norms_table(n: int, cfg: ModelConfig, names) -> Dict[str, ParamDef]:
 
 def _layer_table(n: int, cfg: ModelConfig, moe_layer: bool) -> dict:
     """Table for a stack of ``n`` homogeneous layers: an ssm layer's
-    mixer and norm; else attention (MLA for mla_moe), then a ``moe``
-    group (the reference keeps shared experts in it, sized
-    ``moe_d_ff * max(num_shared, 1)``) or an ``mlp`` one."""
+    mixer and norm; else attention (MLA for mla_moe; for hybrid also a
+    mixer and the two mixing vectors, ones), then a ``moe`` group (the
+    reference keeps shared experts in it, sized ``moe_d_ff *
+    max(num_shared, 1)``) or an ``mlp`` one."""
     if cfg.family == "ssm":
         t = {"ssm": SSM.ssm_param_table(n, cfg)}
         t.update(_norms_table(n, cfg, ["norm1"]))
         return t
     t = {"attn": (_mla_table(n, cfg) if cfg.family == "mla_moe"
                   else _attn_table(n, cfg))}
+    if cfg.family == "hybrid":
+        t["ssm"] = SSM.ssm_param_table(n, cfg)
+        t.update(_norms_table(n, cfg, ["mix_attn", "mix_ssm"]))
     if moe_layer:
         ff = cfg.moe_d_ff or cfg.d_ff
         t["moe"] = MOE.moe_param_table(
@@ -173,12 +191,34 @@ DENSE0_D_FF = 12288     # deepseek-v2's dense first layer's MLP
 
 def segments(cfg: ModelConfig):
     """Layer segmentation, a list of (kind, count): deepseek-v2's dense
-    first layer is a ("dense0", 1) segment before ("scan", n - 1); every
-    other ported family has one ("scan", num_layers)."""
+    first layer is a ("dense0", 1) segment before ("scan", n - 1);
+    hymba's ``num_global_layers`` are ("global", 1) segments, each
+    followed by a ("scan", n) one of the windowed layers, ``(layers -
+    globals) // globals`` of them, the last taking the rest (the
+    reference's arithmetic: fewer layers than globals give negative
+    counts); every other family has one ("scan", num_layers)."""
     check_family(cfg)
     if cfg.family == "mla_moe" and cfg.dense_first_layer:
         return [("dense0", 1), ("scan", cfg.num_layers - 1)]
+    if cfg.family == "hybrid" and cfg.num_global_layers:
+        ng = cfg.num_global_layers
+        ns = cfg.num_layers - ng
+        per = ns // ng
+        segs = []
+        for i in range(ng):
+            segs.append(("global", 1))
+            take = per if i < ng - 1 else ns - per * (ng - 1)
+            if take:
+                segs.append(("scan", take))
+        return segs
     return [("scan", cfg.num_layers)]
+
+
+def seg_window(cfg: ModelConfig, kind: str) -> int:
+    """The attention window of a segment's layers (0: none)."""
+    if cfg.family == "hybrid" and kind == "scan" and cfg.window_size:
+        return cfg.window_size
+    return 0
 
 
 def param_table(cfg: ModelConfig) -> dict:
@@ -188,6 +228,8 @@ def param_table(cfg: ModelConfig) -> dict:
         "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
         "lm_head": ParamDef((cfg.d_model, v), ("fsdp", "model")),
     }
+    if cfg.meta_tokens:
+        t["meta"] = ParamDef((cfg.meta_tokens, cfg.d_model), (None, "fsdp"))
     for i, (kind, n) in enumerate(segments(cfg)):
         if kind == "dense0":
             t[f"seg{i}"] = _layer_table(n, dataclasses.replace(
@@ -226,6 +268,22 @@ class DecoderLayer(nn.Module):
                     if isinstance(x, dict) else _param(x[i]))
 
 
+def check_tree(cfg: ModelConfig, table: dict, tree: dict) -> None:
+    """Raises ``ValueError`` where ``tree`` misses a leaf of ``table``,
+    has one more, or shapes one otherwise."""
+    want = dict(tree_flatten(table, lambda x: isinstance(x, ParamDef)))
+    got = dict(tree_flatten(tree))
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: parameter tree misses {missing} "
+                         f"and has extra {extra}")
+    bad = [f"{k}: {tuple(got[k].shape)} != {want[k].shape}"
+           for k in want if tuple(got[k].shape) != want[k].shape]
+    if bad:
+        raise ValueError(f"{cfg.name}: mis-shaped parameters {bad}")
+
+
 class CausalLM(nn.Module):
     """The model from a parameter tree shaped as ``param_table(cfg)``
     (stacked layers; any float dtype).  Raises ``ValueError`` on a
@@ -233,22 +291,13 @@ class CausalLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        want = dict(tree_flatten(param_table(cfg),
-                                 lambda x: isinstance(x, ParamDef)))
-        got = dict(tree_flatten(tree))
-        missing = sorted(set(want) - set(got))
-        extra = sorted(set(got) - set(want))
-        if missing or extra:
-            raise ValueError(f"{cfg.name}: parameter tree misses {missing} "
-                             f"and has extra {extra}")
-        bad = [f"{k}: {tuple(got[k].shape)} != {want[k].shape}"
-               for k in want if tuple(got[k].shape) != want[k].shape]
-        if bad:
-            raise ValueError(f"{cfg.name}: mis-shaped parameters {bad}")
+        check_tree(cfg, param_table(cfg), tree)
         self.cfg = cfg
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
         self.lm_head = _param(tree["lm_head"])
+        if cfg.meta_tokens:
+            self.meta = _param(tree["meta"])
         self.layer_slots = [(f"seg{i}", j) for i, (_, n)
                             in enumerate(segments(cfg)) for j in range(n)]
         self.layers = nn.ModuleList(DecoderLayer(tree[seg], j)
@@ -302,11 +351,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     state float32)."""
     dtype = act_dtype(cfg)
     caches = {}
-    for i, (_, n) in enumerate(segments(cfg)):
-        if cfg.family == "ssm":
+    for i, (kind, n) in enumerate(segments(cfg)):
+        if cfg.family in ("ssm", "hybrid"):
             c = SSM.init_ssm_cache(batch, cfg, dtype, device)
+            attn = None
+            if cfg.family == "hybrid":
+                w = (cfg.window_size if kind == "scan" and cfg.window_size
+                     and cfg.sliding_window_decode else max_len)
+                attn = _attn_cache(n, batch, min(w, max_len)
+                                   + cfg.meta_tokens, cfg, dtype, device)
             caches[f"seg{i}"] = HybridCache(
-                attn=None, conv=c.conv[None].repeat(n, 1, 1, 1),
+                attn=attn, conv=c.conv[None].repeat(n, 1, 1, 1),
                 state=c.state[None].repeat(n, 1, 1, 1, 1))
         elif cfg.family == "mla_moe":
             caches[f"seg{i}"] = MLACache(
@@ -323,8 +378,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _layer_cache(seg, j: int):
-    """Slice ``j`` of a segment's stacked cache entry (views)."""
-    return type(seg)(*[None if a is None else a[j] for a in seg])
+    """Slice ``j`` of a segment's stacked cache entry (views; a nested
+    entry sliced through)."""
+    return type(seg)(*[None if a is None else _layer_cache(a, j)
+                       if isinstance(a, tuple) else a[j] for a in seg])
 
 
 # ===========================================================================
@@ -354,19 +411,20 @@ def _rope_qk(q, k, positions, cfg: ModelConfig, mrope_positions=None):
             L.apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary))
 
 
-def attn_block(x, p, cfg: ModelConfig, *,
+def attn_block(x, p, cfg: ModelConfig, *, window: int = 0,
                cache: Optional[AttnCache] = None, pos_offset: int = 0,
                mrope_positions=None):
-    """Causal GQA attention; with a cache, the decode (S == 1) or prefill
-    write into this layer's (B, T, ...) slices, in place.  (Windowed
-    layers belong to the hybrid family.)"""
+    """Causal GQA attention, over the last ``window`` positions when it
+    is set; with a cache, the decode (S == 1) or prefill write into this
+    layer's (B, T, ...) slices, in place (a cache shorter than the
+    sequence is a ring buffer: position p in slot p % T)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     positions = pos_offset + torch.arange(s, device=x.device)[None, :]
     q, k = _rope_qk(q, k, positions, cfg, mrope_positions)
 
     if cache is None:
-        out = L.attention(q, k, v, causal=True, q_offset=0)
+        out = L.attention(q, k, v, causal=True, q_offset=0, window=window)
     elif s == 1:  # decode: ring-buffer or linear cache write
         ck, cv, cpos = cache
         slot = pos_offset % ck.shape[1]
@@ -374,7 +432,7 @@ def attn_block(x, p, cfg: ModelConfig, *,
         cv[:, slot] = v[:, 0]
         cpos[:, slot] = pos_offset
         out = L.attention(q, ck, cv, causal=True, q_offset=pos_offset,
-                          kv_positions=cpos)
+                          window=window, kv_positions=cpos)
     else:  # prefill: attend over the full local K/V, cache stores the tail
         ck, cv, cpos = cache
         t = ck.shape[1]
@@ -389,7 +447,7 @@ def attn_block(x, p, cfg: ModelConfig, *,
         ck[:, :n] = k_tail
         cv[:, :n] = v_tail
         cpos[:, :n] = pos_tail
-        out = L.attention(q, k, v, causal=True, q_offset=0)
+        out = L.attention(q, k, v, causal=True, q_offset=0, window=window)
     out = out.reshape(b, s, cfg.num_heads * cfg.hd)
     return L.dot(out, p.wo)
 
@@ -467,26 +525,38 @@ def mlp_or_moe(x, lp, cfg: ModelConfig):
     return L.swiglu(x, m.wg, m.wu, m.wd)
 
 
-def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *,
+def _mixer(h, lp, cfg: ModelConfig, cache):
+    """The layer's mamba2 mixer on ``h``; with a cache, its new conv
+    window and state copied into the cache's slices."""
+    sc = SSM.SSMCache(cache.conv, cache.state) if cache is not None else None
+    y, new = SSM.mamba_mixer(h, lp.ssm, cfg, sc)
+    if cache is not None:
+        cache.conv.copy_(new.conv)
+        cache.state.copy_(new.state)
+    return y
+
+
+def layer_fwd(x, lp: DecoderLayer, cfg: ModelConfig, *, window: int = 0,
               cache=None, pos_offset: int = 0, mrope_positions=None):
-    """One layer of any ported family.  cache: this layer's entry, whose
-    slices are written in place (an ssm layer copies its new conv
-    window and state into them)."""
+    """One layer of any family of this module.  cache: this layer's
+    entry, whose slices are written in place."""
     h = L.rms_norm(x, lp.norm1)
     if cfg.family == "ssm":
-        sc = (SSM.SSMCache(cache.conv, cache.state)
-              if cache is not None else None)
-        y, new = SSM.mamba_mixer(h, lp.ssm, cfg, sc)
-        if cache is not None:
-            cache.conv.copy_(new.conv)
-            cache.state.copy_(new.state)
-        return x + y
+        return x + _mixer(h, lp, cfg, cache)
     if cfg.family == "mla_moe":
-        x = x + mla_block(h, lp.attn, cfg, cache=cache, pos_offset=pos_offset)
+        a = mla_block(h, lp.attn, cfg, cache=cache, pos_offset=pos_offset)
+    elif cfg.family == "hybrid":
+        # attention and the mixer read the same normed h
+        a = attn_block(h, lp.attn, cfg, window=window,
+                       cache=None if cache is None else cache.attn,
+                       pos_offset=pos_offset)
+        y = _mixer(h, lp, cfg, cache)
+        a = torch.tensor(0.5, dtype=a.dtype) * (a * lp.mix_attn
+                                                + y * lp.mix_ssm)
     else:
-        x = x + attn_block(h, lp.attn, cfg, cache=cache,
-                           pos_offset=pos_offset,
-                           mrope_positions=mrope_positions)
+        a = attn_block(h, lp.attn, cfg, cache=cache, pos_offset=pos_offset,
+                       mrope_positions=mrope_positions)
+    x = x + a
     return x + mlp_or_moe(L.rms_norm(x, lp.norm2), lp, cfg)
 
 
@@ -507,23 +577,27 @@ def _stacked_layers(seg: dict, n: int):
         for i in range(n)]
 
 
-def _parts(params, cfg: ModelConfig):
-    """(embed, final_norm, [(segment, slot, layer)]) of a ``CausalLM`` or
-    a tree, the layers in order across the segments."""
+def _layers(params, cfg: ModelConfig):
+    """[(segment, slot, layer, window)] of a ``CausalLM`` or a tree, the
+    layers in order across the segments."""
+    window = {f"seg{i}": seg_window(cfg, kind)
+              for i, (kind, _) in enumerate(segments(cfg))}
     if isinstance(params, CausalLM):
-        return (params.embed, params.final_norm,
-                [(seg, j, lp) for (seg, j), lp
-                 in zip(params.layer_slots, params.layers)])
+        return [(seg, j, lp, window[seg]) for (seg, j), lp
+                in zip(params.layer_slots, params.layers)]
     layers = []
     for i, (_, n) in enumerate(segments(cfg)):
         seg = f"seg{i}"
-        layers += [(seg, j, lp) for j, lp
+        layers += [(seg, j, lp, window[seg]) for j, lp
                    in enumerate(_stacked_layers(params[seg], n))]
-    return params["embed"], params["final_norm"], layers
+    return layers
 
 
-def _head(params) -> torch.Tensor:
-    return params.lm_head if isinstance(params, CausalLM) else params["lm_head"]
+def _top(params, name: str) -> torch.Tensor:
+    """A leaf outside the layers (``embed``, ``meta``, ``lm_head``) of a
+    model (a module) or a tree."""
+    return (getattr(params, name) if isinstance(params, nn.Module)
+            else params[name])
 
 
 def forward(model, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -533,25 +607,32 @@ def forward(model, tokens: torch.Tensor, cfg: ModelConfig, *,
     (dict per segment, written in place) also returns them.  ``model``
     is a ``CausalLM`` or a parameter tree; ``mrope_positions`` (3, B, S)
     the vlm family's position streams; ``remat`` checkpoints each layer
-    when autograd records (no cache)."""
-    embed, final_norm, layers = _parts(model, cfg)
-    x = embed[tokens.long()].to(act_dtype(cfg))
+    when autograd records (no cache).  The meta tokens (hybrid) go before
+    a sequence, or a prefill, and not before a decode step's token."""
+    x = _top(model, "embed")[tokens.long()].to(act_dtype(cfg))
+    meta = cfg.meta_tokens and (caches is None or tokens.shape[1] > 1)
+    if meta:
+        m = _top(model, "meta").to(x.dtype)
+        x = torch.cat([m[None].expand(x.shape[0], -1, -1), x], dim=1)
     remat = remat and caches is None and torch.is_grad_enabled()
-    for seg, j, lp in layers:
+    for seg, j, lp, window in _layers(model, cfg):
         if remat:
             x = checkpoint(functools.partial(
-                layer_fwd, lp=lp, cfg=cfg, pos_offset=pos_offset,
-                mrope_positions=mrope_positions), x, use_reentrant=False)
+                layer_fwd, lp=lp, cfg=cfg, window=window,
+                pos_offset=pos_offset, mrope_positions=mrope_positions), x,
+                use_reentrant=False)
             continue
         lc = _layer_cache(caches[seg], j) if caches is not None else None
-        x = layer_fwd(x, lp, cfg, cache=lc, pos_offset=pos_offset,
-                      mrope_positions=mrope_positions)
-    x = L.rms_norm(x, final_norm)
+        x = layer_fwd(x, lp, cfg, window=window, cache=lc,
+                      pos_offset=pos_offset, mrope_positions=mrope_positions)
+    x = L.rms_norm(x, _top(model, "final_norm"))
+    if meta:
+        x = x[:, cfg.meta_tokens:]
     return (x, caches) if caches is not None else x
 
 
 def logits_fn(model, hidden: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(hidden, _head(model).to(hidden.dtype))
+    return torch.matmul(hidden, _top(model, "lm_head").to(hidden.dtype))
 
 
 def xent_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
@@ -569,7 +650,7 @@ def xent_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
     nc = s // chunk
     h = hidden.reshape(b, nc, chunk, d)
     y = labels.reshape(b, nc, chunk).long()
-    w = _head(params).to(hidden.dtype)
+    w = _top(params, "lm_head").to(hidden.dtype)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(nc):
         logit = torch.matmul(h[:, i], w).to(torch.float32)
@@ -600,10 +681,11 @@ def prefill(model: CausalLM, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(model: CausalLM, caches, token: torch.Tensor, pos,
                 cfg: ModelConfig, mrope_positions=None):
-    """token: (B, 1) int; pos: the absolute position (an int);
+    """token: (B, 1) int; pos: the token's position in the prompt and its
+    continuation (an int; the meta tokens come on top of it);
     ``mrope_positions`` (3, B, 1) the vlm family's streams.  Writes the
     token's K/V into ``caches`` and returns (logits (B, V), caches)."""
     hidden, caches = forward(model, token, cfg, caches=caches,
-                             pos_offset=int(pos),
+                             pos_offset=int(pos) + cfg.meta_tokens,
                              mrope_positions=mrope_positions)
     return logits_fn(model, hidden)[:, 0], caches

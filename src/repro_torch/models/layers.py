@@ -16,7 +16,9 @@ softmax, weights cast to the activation dtype, then V), not
 ``scaled_dot_product_attention``, which normalizes in another order.
 ``rms_norm`` carries the reference's custom backward for training;
 ``apply_mrope`` is Qwen2-VL's multimodal RoPE (the vlm family);
-``layer_norm`` and the GELU MLP come with the other families.
+``layer_norm`` and ``gelu_mlp`` are whisper's (the encdec family).
+``gelu`` is ``jax.nn.gelu``'s default, the tanh approximation, written
+out in its order (``F.gelu`` defaults to the erf form).
 """
 from __future__ import annotations
 
@@ -73,6 +75,19 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
         return _RMSNorm.apply(x, gamma, eps)
     return _rms_norm_fwd(x, gamma, eps)[0]
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32, two passes as the reference's: the mean,
+    then the mean of ``(x - mu) ** 2``, then ``rsqrt(var + eps)``;
+    returned in ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    xc = xf - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return (y * gamma.to(torch.float32) + beta.to(torch.float32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +237,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
+
+_SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)`` (``approximate=True``) in ``x``'s dtype:
+    ``x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 * x ** 3))))``,
+    the cube ``x * (x * x)`` as JAX's ``integer_pow`` takes it."""
+    x3 = x * (x * x)
+    inner = torch.tensor(_SQRT_2_OVER_PI, dtype=x.dtype) * (
+        x + torch.tensor(0.044715, dtype=x.dtype) * x3)
+    return x * (torch.tensor(0.5, dtype=x.dtype) * (1.0 + torch.tanh(inner)))
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """Whisper's MLP: x (B,S,D); w1 (D,F), b1 (F,); w2 (F,D), b2 (D,).
+    The GELU in float32, cast back to ``x``'s dtype."""
+    h = dot(x, w1) + b1
+    h = gelu(h.to(torch.float32)).to(x.dtype)
+    return dot(h, w2) + b2
+
 
 def swiglu(x, wg, wu, wd):
     """SwiGLU MLP: x (B,S,D); wg/wu (D,F); wd (F,D)."""

@@ -1,15 +1,15 @@
-"""Model facade (``repro/models/model.py``) for the ported families.
+"""Model facade (``repro/models/model.py``) for the seven families.
 
 Builds the model of a config, sizes it without allocating, and gives
 the serving entry points (``prefill``, ``decode_step``, ``init_cache``)
-and training's ``loss_fn``.  For serving "params" is the
-``causal_lm.CausalLM`` module; ``init_tree`` gives the same tensors as
-the reference's stacked tree, which training differentiates.  The
-dense, moe, mla_moe, vlm and ssm families are built; hybrid and whisper
-(``encdec``) raise ``NotImplementedError`` (ROADMAP Queue 1 items 4-5);
-the dry-run's ``input_specs`` / ``abstract_*`` and the mesh's
-``param_specs`` / ``cache_logical_axes`` are not ported yet (items 6
-and 7).
+and training's ``loss_fn``, each dispatching on ``cfg.family ==
+"encdec"`` (``models.whisper``) as the reference's does; every other
+family is ``models.causal_lm``.  For serving "params" is the model's
+module (``CausalLM`` or ``Whisper``); ``init_tree`` gives the same
+tensors as the reference's stacked tree, which training differentiates.
+The dry run's ``input_specs`` / ``abstract_*`` (ROADMAP Queue 1 item
+6) and the mesh's ``param_specs`` / ``cache_logical_axes`` (item 7,
+across cards) are not ported.
 """
 from __future__ import annotations
 
@@ -20,20 +20,30 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import causal_lm as CLM
 from repro_torch.models import params as PRM
+from repro_torch.models import whisper as WSP
 
 
 def param_table(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return WSP.param_table(cfg)
     return CLM.param_table(cfg)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> CLM.CausalLM:
+def build(cfg: ModelConfig, tree: dict):
+    """The model's module holding a parameter tree."""
+    if cfg.family == "encdec":
+        return WSP.Whisper(cfg, tree)
+    return CLM.CausalLM(cfg, tree)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator):
     """A randomly initialized model on ``generator``'s device."""
-    return CLM.CausalLM(cfg, PRM.init_params(param_table(cfg), generator))
+    return build(cfg, PRM.init_params(param_table(cfg), generator))
 
 
 def init_tree(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters as the reference's stacked tree, on
-    ``generator``'s device (``CLM.CausalLM(cfg, tree)`` serves them)."""
+    ``generator``'s device (``build(cfg, tree)`` serves them)."""
     return PRM.init_params(param_table(cfg), generator)
 
 
@@ -57,29 +67,50 @@ def active_params(cfg: ModelConfig) -> int:
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: bool = True) -> torch.Tensor:
-    """Mean next-token cross-entropy of a batch; ``params`` a tree or a
-    ``CausalLM`` (raises for the families not ported)."""
+    """Mean next-token cross-entropy of a batch (encdec: given the
+    encoder's memory of its ``frames``); ``params`` a tree or a model."""
     CLM.check_family(cfg)
+    if cfg.family == "encdec":
+        return WSP.loss_fn(params, batch, cfg, remat=remat)
     return CLM.loss_fn(params, batch, cfg, remat=remat)
 
 
-def prefill(params: CLM.CausalLM, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, max_len: int):
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            max_len: int):
     """(last-token logits, cache) of ``batch["tokens"]``; a batch's
     ``mrope_positions`` are not read (the reference's prefill reads
-    none)."""
+    none).  encdec encodes the batch's ``frames`` and makes the cross
+    K/V from the memory (``whisper.init_cache``); a batch without them
+    raises ``KeyError``, as the reference's does."""
+    if cfg.family == "encdec":
+        if "frames" not in batch:
+            raise KeyError(f"frames: {cfg.name}'s prefill encodes the "
+                           "batch's frames (B, encoder_frames, d_model), "
+                           "and this batch has none")
+        memory = WSP.encode(params, batch["frames"], cfg)
+        cache = WSP.init_cache(params, memory, cfg, max_len)
+        hidden, cache = WSP.decode(params, batch["tokens"], memory, cfg,
+                                   cache)
+        return CLM.logits_fn(params, hidden[:, -1:])[:, 0], cache
     return CLM.prefill(params, batch["tokens"], cfg, max_len)
 
 
-def decode_step(params: CLM.CausalLM, cache, token: torch.Tensor, pos,
-                cfg: ModelConfig, mrope_positions=None):
-    """token: (B, 1); pos: the current absolute position;
+def decode_step(params, cache, token: torch.Tensor, pos, cfg: ModelConfig,
+                mrope_positions=None):
+    """token: (B, 1); pos: the token's position (the hybrid family's meta
+    tokens come on top of it; encdec's decoder has none);
     ``mrope_positions`` (3, B, 1) for the vlm family."""
+    if cfg.family == "encdec":
+        hidden, cache = WSP.decode(params, token, None, cfg, cache,
+                                   pos_offset=int(pos))
+        return CLM.logits_fn(params, hidden)[:, 0], cache
     return CLM.decode_step(params, cache, token, pos, cfg,
                            mrope_positions=mrope_positions)
 
 
-def init_cache(cfg: ModelConfig, params: CLM.CausalLM, batch: int,
-               max_len: int):
-    """The cache tree on ``params``' device."""
+def init_cache(cfg: ModelConfig, params, batch: int, max_len: int):
+    """The cache tree on ``params``' device (encdec: zero placeholders
+    for the cross K/V, as the reference's)."""
+    if cfg.family == "encdec":
+        return WSP.empty_cache(cfg, batch, max_len, device=params.device)
     return CLM.init_cache(cfg, batch, max_len, device=params.device)

@@ -16,8 +16,10 @@ one dequantize over all their blocks together (a block's codes depend on
 the block alone, so this equals the per-leaf round trip bit for bit).
 
 A leaf is a candidate when it is a bfloat16 or float32 tensor of rank
->= 4, in ``jax.tree.flatten``'s order: for the model's cache that is
-``[seg0.k, seg0.v]`` (``pos`` is int32), each leaf stacked over layers.
+>= 4, in ``jax.tree.flatten``'s order: for a dense model's cache that is
+``[seg0.k, seg0.v]`` (``pos`` is int32), each leaf stacked over layers;
+a hybrid segment adds its SSM's ``conv`` and float32 ``state``, and
+whisper's cache scores ``k``, ``v``, ``xk`` and ``xv``.
 """
 from __future__ import annotations
 
@@ -114,7 +116,8 @@ class Engine:
     def generate(self, batch: Dict[str, torch.Tensor],
                  steps: int) -> torch.Tensor:
         """Prefill, one gate pass, then ``steps`` greedy decode steps;
-        returns (B, steps) int32 ids.  The first id comes from the
+        returns (B, steps) int32 ids.  The batch goes to the prefill
+        whole: encdec reads its ``frames`` there.  The first id comes from the
         prefill's logits; the last decode's logits are not used.
         ``timings`` gets the prefill's and gate's seconds and each
         decode step's (each read after a device synchronize)."""

@@ -844,6 +844,7 @@ def test_port_modules_load_without_jax_or_reference():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "print('SSM', 'repro_torch.models.ssm' in names)\n"
+        "print('WSP', 'repro_torch.models.whisper' in names)\n"
         "from repro_torch.serve.sweep_service import SweepService\n"
         "SweepService(device='cpu').close()\n"
         "import torch\n"
@@ -864,6 +865,7 @@ def test_port_modules_load_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "SSM True" in out.stdout, out.stdout
+    assert "WSP True" in out.stdout, out.stdout
     assert "CUDA_INIT False" in out.stdout, out.stdout
 
 

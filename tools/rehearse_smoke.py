@@ -18,7 +18,10 @@ values and ``compress_tree``'s to 32 blocks so that its spans of 2048
 head values and 256 values each side of a boundary still cross both
 chunk boundaries; phase 24 on the smoke configs of phi3.5-moe and
 qwen2-vl, 2 layers each where it serves; phase 25 on the smoke configs
-of deepseek-v2 and mamba2, at 6 and 48 layers where it serves), every
+of deepseek-v2 and mamba2, at 6 and 48 layers where it serves; phase
+26 on the smoke configs of hymba-1.5b and whisper-large-v3, hymba at 5
+layers where it serves, its prompts of 48 ids past the smoke window of
+32 and its 40 ring slots), every
 tensor on the CPU, the
 kernel build,
 the quotient proof and the launch-count and built-library checks left
@@ -73,6 +76,11 @@ CUTS = [
     ('TRAIN_SPAN_VALUES = 1 << 20', 'TRAIN_SPAN_VALUES = 1 << 8'),
     ('FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 8), ("qwen2-vl-72b", 12))',
      'FAM_SERVE = (("phi3.5-moe-42b-a6.6b", 2), ("qwen2-vl-72b", 2))'),
+    ('PHASE26_PARAMS = {HYB_ARCH: 1_641_995_520, ENC_ARCH: 1_614_643_200}',
+     'PHASE26_PARAMS = {}'),
+    ('HYB_PROMPT, HYB_MAX_LEN = 1100, 1280', 'HYB_PROMPT, HYB_MAX_LEN = 48, 64'),
+    ('HYB_DECODE_PROMPT = 1100', 'HYB_DECODE_PROMPT = 48'),
+    ('("float32", 1, 900, 512))', '("float32", 1, 48, 52))'),
 ]
 # the training chunks, cut so that the smoke leaves cross their boundaries
 CHUNK_VALUES, CHUNK_BLOCKS = 1 << 12, 1 << 5
