@@ -324,7 +324,29 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
               at a global and a windowed layer (its float32 SSM leaves
               among the gate's) and of whisper at 2 + 2 layers, frames
               in the batch.  Its kernel launches must be none.
-Phases 5, 8-11, 14, 15, 17, 18 (their form (a)), 23, 24, 25 and 26 each set the
+27. across   -- training across processes on a mesh's pod and data axes
+              (``dist.{sharding, collectives, fault}``, ``train_step``'s
+              podsync and data-parallel modes; no kernel), granite-3-2b
+              at full width and 2 layers, batch 4 x 512 in 2
+              microbatches.  (a)-(c) run in phase 17 (c)'s two gloo
+              ranks on the card, after everything 17 (c) compares: (a)
+              3 podsync steps on a 2 x 1 x 1 mesh with the int8
+              collective and error feedback, both ranks' parameters and
+              moments bit-equal after every step, and step 1's codes
+              (each rank's and the gathered pair), scales, synced
+              gradients and residuals equal, by bit digests, to this
+              process's serial composition of the two pods (computed
+              while the ranks run), the compressed mean within 0.05 of
+              the plain mean; (c) a bfloat16 and a float32 leaf of (a)'s
+              state through ``remesh_state`` onto 2 x 1 and
+              ``shrink_mesh`` to 1, bit-equal; (b) 2 data-parallel
+              ``pjit`` steps on 2 x 1, both ranks bit-equal, within the
+              LLM bounds of the whole batch in one process.  (d) in this
+              process: one gradient pass under each ``REPRO_REMAT``
+              policy (full, dots, tp_outs), gradients bit-equal to
+              full's, with each one's ms and peak memory.  Its kernel
+              launches must be none.
+Phases 5, 8-11, 14, 15, 17, 18 (their form (a)), 23, 24, 25, 26 and 27 each set the
 kernels' launch counters to 0 just before they run and read them just
 after, and the load CLI and the advise runs (in this process) and the
 subprocesses (the process groups and 2-rank advise of phase 17, phase
@@ -500,6 +522,14 @@ HYB_CMP = (("bfloat16", 1, FAM_PROMPT, FAM_MAX_LEN),
            ("float32", 1, 900, 512))
 ENC_DECODE_LAYERS, ENC_CMP_LAYERS, ENC_TRAIN_LAYERS = 2, 1, 2  # + as many
 ENC_CMP = (("bfloat16", 1, 16, 24), ("float32", 1, 16, 24))
+# phase 27: training across processes on the pod and data axes, in phase
+# 17 (c)'s two gloo ranks on the card after its sweeps, and (d) in this
+# process: granite-3-2b at full width, 2 of its 40 layers
+ACROSS_ARCH, ACROSS_LAYERS = "granite-3-2b", 2
+ACROSS_BATCH, ACROSS_SEQ, ACROSS_MB = 4, 512, 2
+ACROSS_POD_STEPS, ACROSS_DP_STEPS = 3, 2        # (a) podsync, (b) pjit
+ACROSS_REL_MAX = 0.05           # tests/test_dist.py's compressed-mean bound
+ACROSS_REMAT = ("full", "dots", "tp_outs")      # (d)
 # H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -2911,7 +2941,8 @@ def dist_child(job_file: str) -> int:
     sweep and the gather), the volumes, a 2-slice batch, the training
     tables and the streams -- holds each result to the single-device one
     the parent left in the job's directory, bit for bit, and writes its
-    wall times and its kernels' launches by shape."""
+    wall times and its kernels' launches by shape; with the ``across``
+    part, then phase 27 (a)-(c) (``across_child``) and its record."""
     import torch
     from repro_torch import compressors as C
     from repro_torch import kernels as K
@@ -3006,9 +3037,16 @@ def dist_child(job_file: str) -> int:
                                P.PredictorConfig(), mesh=mesh, device=dev,
                                stream=budget))), np.load(d / "want_vol.npy"))
     total, by_shape = K.launches_since(before)
+    across = None
+    if "across" in job["parts"]:
+        # phase 27 (a)-(c), after everything 17 (c) compares
+        del train
+        gc.collect()
+        across = across_child(torch, dev, job["rank"])
     Path(job["out"]).write_text(json.dumps(
         {"times": times, "launches": total, "by_shape": by_shape,
-         "shares": list(mesh.shares), "libraries_found": built}))
+         "shares": list(mesh.shares), "libraries_found": built,
+         "across": across}))
     import torch.distributed as dist
     dist.destroy_process_group()
     return 0
@@ -3016,7 +3054,7 @@ def dist_child(job_file: str) -> int:
 
 def run_group(what: str, cmds, logs_dir: Path, timeout: float,
               expect: dict | None = None, exits: dict | None = None,
-              logs: dict | None = None) -> float:
+              logs: dict | None = None, meanwhile=None) -> float:
     """Start ``cmds`` together (one process each, output to files under
     ``logs_dir``), wait for all within ``timeout`` s and raise if one
     exits with another code than ``expect`` gives it (default 0) or the
@@ -3025,7 +3063,8 @@ def run_group(what: str, cmds, logs_dir: Path, timeout: float,
     ``logs`` its output.  Each process gets its share of the host's
     cores for its thread pools, as ``torchrun`` gives its ranks: ranks
     that each spin up a pool of every core starve each other's CPU work
-    (LAPACK's above all)."""
+    (LAPACK's above all).  ``meanwhile`` (no arguments) runs in this
+    process once all are started."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // len(cmds))))
     env.pop("REPRO_FAULT_INJECT", None)
@@ -3040,6 +3079,8 @@ def run_group(what: str, cmds, logs_dir: Path, timeout: float,
             procs.append(subprocess.Popen(cmd, env=env, stdout=files[-1],
                                           stderr=subprocess.STDOUT, text=True))
         deadline = time.monotonic() + timeout
+        if meanwhile is not None:
+            meanwhile()
         while len(exits) < len(procs) and time.monotonic() < deadline:
             for i, p in enumerate(procs):
                 if i not in exits and p.poll() is not None:
@@ -3156,19 +3197,25 @@ def phase_dist(torch, ebs, vol_eps, tmp, crs_tables, card):
         return [sys.executable, str(Path(__file__).resolve()), "--dist-child",
                 str(path)], Path(job["out"])
 
+    serial = tmp / "across_serial.json"
     for role, nprocs, backend, shards, parts_ in (
             ("b", 1, DIST_NCCL, 2, ["train"]),
-            ("c", 2, "gloo", 1, ["train", "more"])):
+            ("c", 2, "gloo", 1, ["train", "more", "across"])):
         cmds, outs = zip(*[child(role, nprocs, r, backend, shards, parts_)
                            for r in range(nprocs)])
-        out[f"{role}_wall_s"] = run_group(f"dist ({role})", cmds, tmp,
-                                          DIST_TIMEOUT_S)
+        out[f"{role}_wall_s"] = run_group(
+            f"dist ({role})", cmds, tmp, DIST_TIMEOUT_S,
+            meanwhile=(lambda: across_serial(torch, serial))
+            if role == "c" else None)
         out[role] = [json.loads(p.read_text()) for p in outs]
         parts += [r["by_shape"] for r in out[role]]
         for r in out[role]:
             if not r["libraries_found"]:
                 raise AssertionError(f"dist ({role}): a child found the "
                                      "kernels unbuilt")
+    # phase 27 (a)-(c) rode in (c)'s ranks: held to the serial composition
+    out["across"] = across_check([r.pop("across") for r in out["c"]],
+                                 json.loads(serial.read_text()), card)
 
     # the advise CLI: two shards on the card in one process, and over two
     # gloo ranks
@@ -3211,7 +3258,8 @@ def phase_dist(torch, ebs, vol_eps, tmp, crs_tables, card):
         "the pair, training tables, streams; (a)'s one device and two "
         "shards one run each in this order, not timings made in turns); "
         + json.dumps(
-            {k: v for k, v in out.items() if k not in ("b", "c")}), card)
+            {k: v for k, v in out.items() if k not in ("b", "c", "across")}),
+        card)
     for role in ("b", "c"):
         for r, res in enumerate(out[role]):
             log(f"dist ({role}) rank {r} shares {res['shares']}: "
@@ -4883,6 +4931,438 @@ def phase_hybrid_encdec(torch, card) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 27: training across processes on the pod and data axes
+# ---------------------------------------------------------------------------
+
+def bits_digest(torch, x) -> list:
+    """Two int64 sums of a tensor's bit patterns (as integers of its
+    width): plain and position-weighted, exact and order-free integer
+    arithmetic on its device, so two tensors with the same bits give the
+    same pair, and one flipped bit changes both."""
+    flat = x.detach().reshape(-1)
+    ints = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        flat.element_size()])
+    s1 = torch.zeros((), dtype=torch.int64, device=flat.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for lo in range(0, flat.numel(), 1 << 24):
+        b = ints[lo:lo + (1 << 24)].to(torch.int64)
+        w = torch.arange(lo, lo + b.numel(), dtype=torch.int64,
+                         device=flat.device) * 2654435761 % 2147483647 + 1
+        s1 += b.sum()
+        s2 += (b * w).sum()
+    return [int(s1), int(s2)]
+
+
+def tree_digests(torch, tree) -> dict:
+    from repro_torch.models.params import tree_flatten
+    return {k: bits_digest(torch, v) for k, v in tree_flatten(tree)}
+
+
+def across_cfg():
+    from repro_torch.configs.base import get_arch
+    return dataclasses.replace(get_arch(ACROSS_ARCH), num_layers=ACROSS_LAYERS)
+
+
+def across_serial(torch, out_path: Path) -> None:
+    """27 (a)'s serial composition, in this process while the ranks run:
+    step 1 of two pods from the ranks' initial parameters (seed
+    ``SEED`` on the card) -- each pod's ``_grads`` on its rows, the port's
+    ``quantize_int8`` of ``g + 0`` (the zero residual), the pods' mean
+    (``pod_mean``) and each pod's residual -- as bit digests, and the
+    compressed mean's relative error against the plain mean, per leaf."""
+    from repro_torch.data.tokens import make_data_iter
+    from repro_torch.dist import collectives as COL
+    from repro_torch.models import model as MM
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.train import train_step as TS
+    cfg = across_cfg()
+    params = MM.init_tree(cfg, torch.Generator("cuda").manual_seed(SEED))
+    batch = make_data_iter(cfg, ACROSS_BATCH, ACROSS_SEQ, seed=SEED,
+                           device="cuda")(0)
+    pods = [TS._grads(cfg, params, TS._rows(batch, 2, p), ACROSS_MB)
+            for p in range(2)]
+    out = {"loss": float((pods[0][0] + pods[1][0]) * torch.tensor(
+        0.5, dtype=torch.float32)), "leaves": {}, "rel": {}}
+    grads = [dict(tree_flatten(g)) for _, g in pods]
+    for k in grads[0]:
+        gf = [g[k].to(torch.float32) + torch.zeros_like(g[k], dtype=torch.float32)
+              for g in grads]
+        qs = [COL.quantize_int8(x) for x in gf]
+        synced = COL.pod_mean([q for q, _ in qs], [s for _, s in qs])
+        plain = (gf[0] + gf[1]) * 0.5
+        out["rel"][k] = float((synced - plain).abs().max()
+                              / plain.abs().max().clamp(min=1e-30))
+        out["leaves"][k] = {
+            "q": [bits_digest(torch, q) for q, _ in qs],
+            "s": [bits_digest(torch, s) for _, s in qs],
+            "synced": bits_digest(torch, synced),
+            "res": [bits_digest(torch, COL.residual(x, q, s))
+                    for x, (q, s) in zip(gf, qs)]}
+        del gf, qs, synced, plain
+    out_path.write_text(json.dumps(out))
+    del params, pods, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def across_child(torch, dev, rank: int) -> dict:
+    """27 (a)-(c) in a rank of phase 17 (c)'s two-rank gloo group, on
+    ``dev`` (granite-3-2b at full width, ``ACROSS_LAYERS`` layers, batch
+    ``ACROSS_BATCH`` x ``ACROSS_SEQ`` in ``ACROSS_MB`` microbatches):
+
+    (a) the podsync step on a 2 x 1 x 1 mesh, one pod a rank, the int8
+        collective with error feedback (``gate_ratio`` 0),
+        ``ACROSS_POD_STEPS`` donated steps: each rank's parameters and
+        moments equal to the other's (bit digests exchanged) after every
+        step; step 1's codes, scales, gathered codes, synced gradients
+        and residuals as digests, for the main process to hold against
+        its serial composition; step ms, each all-gather's bytes and ms,
+        the loss per step, peak memory;
+    (c) one bfloat16 and one float32 leaf of (a)'s state placed by
+        ``remesh_state`` on a 2 x 1 (data, model) mesh -- each rank's
+        block bit-equal to its slice of the leaf -- then on
+        ``shrink_mesh(.., "data", 1)``: rank 0 holds the whole leaf, bit
+        for bit;
+    (b) the pjit step across the 2 x 1 mesh's data axis,
+        ``ACROSS_DP_STEPS`` donated steps without compression: parameters
+        equal on both ranks after every step; rank 0 then runs the
+        whole batch in one process from the same start and holds the
+        losses and parameters to the LLM bounds (bfloat16: rtol 2e-2 /
+        atol 2 sum(lr), at most 1 % of a leaf past 2e-4 + 2e-2 |ref|)."""
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    from repro_torch.data.tokens import make_data_iter
+    from repro_torch.dist import collectives as COL
+    from repro_torch.dist import fault as F
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import model as MM
+    from repro_torch.models import params as PRM
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+    cuda = dev.type != "cpu"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = K.launch_counts()
+    cfg = across_cfg()
+    rec = {"rank": rank}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    gather_cpu = COL.all_gather
+
+    def same_on_ranks(what, digests: dict) -> None:
+        mine = torch.tensor([v for k in sorted(digests) for v in digests[k]],
+                            dtype=torch.int64)
+        both = gather_cpu(mine, dist.group.WORLD)
+        if not torch.equal(both[0], both[1]):
+            bad = [k for i, k in enumerate(sorted(digests))
+                   if not torch.equal(both[0][2 * i:2 * i + 2],
+                                      both[1][2 * i:2 * i + 2])]
+            raise AssertionError(f"across (rank {rank}) {what}: the ranks "
+                                 f"differ on {bad}")
+
+    data = make_data_iter(cfg, ACROSS_BATCH, ACROSS_SEQ, seed=SEED,
+                          device=dev)
+    ocfg = OPT.AdamWConfig(lr=TRAIN_LR)
+    # (b) without warmup: every entry moves by ~lr at step 1, so the
+    # parameters test the averaged gradients' signs and sizes
+    ocfg_b = OPT.AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+
+    # (a) podsync
+    t0 = time.perf_counter()
+    pod_mesh = M.make_mesh((2, 1, 1), ("pod", "data", "model"))
+    state = TS.stack_for_podsync(TS.init_state(
+        cfg, torch.Generator(dev).manual_seed(SEED), compress=True), 2)
+    sync()
+    rec["a_init_s"] = time.perf_counter() - t0
+    step = TS.make_train_step(
+        cfg, ocfg, microbatches=ACROSS_MB, compress=GC.CompressConfig(
+            enabled=True, gate_ratio=0.0), mode="podsync", mesh=pod_mesh,
+        donate=True)
+    gathers, first = [], {}
+    orig = (COL.all_gather, COL.quantize_int8, COL.pod_mean)
+
+    def gather(x, group):
+        sync()
+        t = time.perf_counter()
+        out = orig[0](x, group)
+        sync()
+        gathers.append((x.numel() * x.element_size(),
+                        1e3 * (time.perf_counter() - t)))
+        if first.get("on") and x.dtype == torch.int8:
+            first["gathered"].append([bits_digest(torch, o) for o in out])
+        return out
+
+    def quantize(x):
+        q, s = orig[1](x)
+        if first.get("on"):
+            first["q"].append(bits_digest(torch, q))
+            first["s"].append(bits_digest(torch, s))
+        return q, s
+
+    def mean(qs, ss):
+        out = orig[2](qs, ss)
+        if first.get("on"):
+            first["synced"].append(bits_digest(torch, out))
+        return out
+
+    COL.all_gather, COL.quantize_int8, COL.pod_mean = gather, quantize, mean
+    steps = []
+    try:
+        for i in range(ACROSS_POD_STEPS):
+            if i == 0:
+                first.update(on=True, q=[], s=[], gathered=[], synced=[])
+            batch = data(i)
+            n0 = len(gathers)
+            sync()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            sync()
+            ms = 1e3 * (time.perf_counter() - t)
+            first["on"] = False
+            st = {"ms": ms, "loss": float(m["loss"]),
+                  "grad_norm": float(m["grad_norm"]),
+                  "gather_bytes": sum(b for b, _ in gathers[n0:]),
+                  "gather_ms": sum(t_ for _, t_ in gathers[n0:]),
+                  "gathers": len(gathers) - n0}
+            same_on_ranks(f"(a) step {i} parameters and moments",
+                          {f"{part}.{k}": v for part, tree in (
+                              ("params", state.params), ("mu", state.opt.mu),
+                              ("nu", state.opt.nu))
+                           for k, v in tree_digests(torch, tree).items()})
+            if i == 0:
+                first["res"] = list(tree_digests(
+                    torch, state.ef.residuals).values())
+                first["loss"] = float(m["loss"])
+            steps.append(st)
+    finally:
+        COL.all_gather, COL.quantize_int8, COL.pod_mean = orig
+    first.pop("on")
+    first["names"] = [k for k, _ in tree_flatten(state.params)]
+    rec["a"] = {"steps": steps, "first": first, "params": sum(
+        x.numel() for x in PRM.tree_leaves(state.params)),
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                     if cuda else None)}
+    rec["a_s"] = time.perf_counter() - t0
+
+    # (c) re-meshing one leaf of each dtype of (a)'s state
+    t0 = time.perf_counter()
+    data_mesh = M.make_mesh((2, 1), ("data", "model"))
+    axes = dict(tree_flatten(PRM.logical_axes(MM.param_table(cfg)),
+                             is_leaf=lambda x: isinstance(x, tuple)))
+    name = "seg0.attn.wq"
+    tree = {"p": state.params["seg0"]["attn"]["wq"][0],
+            "m": state.opt.mu["seg0"]["attn"]["wq"][0]}
+    tax = {"p": axes[name], "m": axes[name]}
+    placed = F.remesh_state(tree, tax, data_mesh)
+    for k, leaf in tree.items():
+        d = placed[k]
+        spec = S.spec_for(leaf.shape, tax[k], data_mesh)
+        local = leaf
+        for dim, part in enumerate(spec):
+            if part == "data":
+                n = leaf.shape[dim] // 2
+                local = local.narrow(dim, rank * n, n)
+        if not torch.equal(d.to_local(), local):
+            raise AssertionError(f"across (c) rank {rank}: {k} ({leaf.dtype}"
+                                 f") block differs from its slice")
+    small = F.shrink_mesh(data_mesh, "data", 1)
+    replaced = F.remesh_state(placed, tax, small)
+    for k, leaf in tree.items():
+        got = replaced[k].to_local()
+        if rank == 0 and not torch.equal(got, leaf):
+            raise AssertionError(f"across (c): {k} ({leaf.dtype}) differs "
+                                 "after shrink_mesh")
+        if rank != 0 and got.numel():
+            raise AssertionError(f"across (c) rank {rank}: holds {k} outside "
+                                 "the shrunk mesh")
+    rec["c"] = {"leaves": {k: [str(v.dtype), list(v.shape), str(spec)]
+                           for k, v in tree.items()}}
+    rec["c_s"] = time.perf_counter() - t0
+    del state, step, tree, placed, replaced
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) data-parallel pjit, then the whole batch in one process
+    t0 = time.perf_counter()
+    state = TS.init_state(cfg, torch.Generator(dev).manual_seed(SEED))
+    with S.use_mesh(data_mesh):
+        step = TS.make_train_step(cfg, ocfg_b, microbatches=ACROSS_MB,
+                                  donate=True)
+    dp = []
+    for i in range(ACROSS_DP_STEPS):
+        batch = data(i)
+        sync()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        sync()
+        dp.append({"ms": 1e3 * (time.perf_counter() - t),
+                   "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+        same_on_ranks(f"(b) step {i} parameters", tree_digests(torch,
+                                                              state.params))
+    rec["b"] = {"steps": dp}
+    if rank == 0:
+        whole = TS.init_state(cfg, torch.Generator(dev).manual_seed(SEED))
+        one = TS.make_train_step(cfg, ocfg_b, microbatches=ACROSS_MB,
+                                 donate=True)
+        lr_sum, worst = 0.0, {}
+        for i in range(ACROSS_DP_STEPS):
+            whole, m = one(whole, data(i))
+            lr_sum += float(OPT._schedule(ocfg_b, i + 1))
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            if abs(dp[i]["loss"] - loss) > TRAIN_LOSS_RTOL[cfg.dtype] * abs(
+                    loss) or abs(dp[i]["grad_norm"] - gn) > 2e-2 * gn:
+                raise AssertionError(
+                    f"across (b) step {i}: loss / grad_norm {dp[i]['loss']}"
+                    f" / {dp[i]['grad_norm']} against the whole batch's "
+                    f"{loss} / {gn}")
+            dp[i]["whole_loss"], dp[i]["whole_grad_norm"] = loss, gn
+        got = dict(tree_flatten(state.params))
+        for k, ref in tree_flatten(whole.params):
+            g, r = got[k].float(), ref.float()
+            err = (g - r).abs()
+            far = int((err > 2 * lr_sum + 2e-2 * r.abs()).sum())
+            off = float((err > 2e-4 + 2e-2 * r.abs()).float().mean())
+            worst[k] = [float(err.max()), off]
+            if far or off > 0.01:
+                raise AssertionError(f"across (b) {k}: {far} entries past "
+                                     f"2 sum(lr), {off:.4f} past the bound")
+        rec["b"]["vs_whole"] = worst
+        del whole, one
+    rec["b_s"] = time.perf_counter() - t0
+    total, _ = K.launches_since(before)
+    rec["launches"] = {k: v for k, v in total.items() if v}
+    del state, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def across_check(children: list, serial: dict, card) -> dict:
+    """Phase 27 (a)-(c) from the ranks' records: step 1's codes (each
+    rank's own, and the gathered pair), scales, synced gradients and
+    residuals equal to the serial composition's digests; the compressed
+    mean within ``ACROSS_REL_MAX`` of the plain mean; no kernel launched.
+    Returns the record."""
+    names = children[0]["a"]["first"]["names"]
+    for r, rec in enumerate(children):
+        f = rec["a"]["first"]
+        if rec["launches"]:
+            raise AssertionError(f"across rank {r}: launched the sweep "
+                                 f"kernels {rec['launches']}")
+        if f["loss"] != serial["loss"]:
+            raise AssertionError(f"across (a) rank {r}: step 1 loss "
+                                 f"{f['loss']} against {serial['loss']}")
+        for j, k in enumerate(names):
+            want = serial["leaves"][k]
+            for what, got, exp in (
+                    ("codes", f["q"][j], want["q"][r]),
+                    ("scales", f["s"][j], want["s"][r]),
+                    ("gathered codes", f["gathered"][j], want["q"]),
+                    ("synced gradient", f["synced"][j], want["synced"]),
+                    ("residual", f["res"][j], want["res"][r])):
+                if got != exp:
+                    raise AssertionError(
+                        f"across (a) rank {r} step 1 {k}: {what} differ "
+                        "from the serial composition")
+    rel = max(serial["rel"].values())
+    if not rel < ACROSS_REL_MAX:
+        raise AssertionError(f"across (a): compressed mean {rel} from the "
+                             "plain mean")
+    a = children[0]["a"]
+    log(f"across (a) podsync {ACROSS_ARCH} at {ACROSS_LAYERS} layers "
+        f"({a['params']:,} parameters), 2 pods x 1 rank on the card: steps "
+        + json.dumps([{k: round(v, 4) for k, v in s.items()}
+                      for s in a["steps"]])
+        + f"; peak {a['peak_gib']} GiB a rank; ranks bit-identical after "
+        "every step; step 1's codes, gathered codes, scales, synced "
+        f"gradients and residuals of all {len(names)} leaves == the serial "
+        f"composition; compressed mean vs plain mean rel err {rel:.4g} "
+        f"(worst leaf; < {ACROSS_REL_MAX})", card)
+    for r, rec in enumerate(children):
+        log(f"across rank {r}: stages s " + json.dumps(
+            {k: round(v, 3) for k, v in rec.items() if k.endswith("_s")}), card)
+    b = children[0]["b"]
+    log("across (b) data-parallel pjit on 2 x 1, ranks bit-identical: steps "
+        + json.dumps([{k: round(v, 4) for k, v in s.items()}
+                      for s in b["steps"]])
+        + "; against the whole batch in one process (max abs err, share "
+        "past 2e-4 + 2e-2 |ref|) " + json.dumps(b["vs_whole"]), card)
+    log("across (c) remesh_state onto 2 x 1, shrink_mesh to 1: bit-equal "
+        + json.dumps(children[0]["c"]["leaves"]), card)
+    return {"rel": serial["rel"], "a": a, "b": b, "c": children[0]["c"],
+            "stages": [{k: v for k, v in rec.items() if k.endswith("_s")}
+                       for rec in children]}
+
+
+def across_remat(torch, card) -> dict:
+    """27 (d): the ``REPRO_REMAT`` policies on one card, in this process:
+    granite-3-2b at ``ACROSS_LAYERS`` layers, one gradient pass (a
+    step's forward and backward, where remat acts) of batch
+    ``ACROSS_BATCH`` x ``ACROSS_SEQ`` in ``ACROSS_MB`` microbatches under
+    each policy: ms, peak memory, and the loss and gradients equal to
+    ``full``'s bit for bit."""
+    from repro_torch.data.tokens import make_data_iter
+    from repro_torch.models import model as MM
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import train_step as TS
+    cfg = across_cfg()
+    params = MM.init_tree(cfg, torch.Generator("cuda").manual_seed(SEED))
+    batch = make_data_iter(cfg, ACROSS_BATCH, ACROSS_SEQ, seed=SEED,
+                           device="cuda")(0)
+    rec, ref = {}, None
+    prev = os.environ.get("REPRO_REMAT")
+    try:
+        for policy in ACROSS_REMAT:
+            os.environ["REPRO_REMAT"] = policy
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads = TS._grads(cfg, params, batch, ACROSS_MB)
+            torch.cuda.synchronize()
+            rec[policy] = {"ms": 1e3 * (time.perf_counter() - t),
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2 ** 30,
+                           "above_start_gib": (torch.cuda.max_memory_allocated()
+                                               - base) / 2 ** 30}
+            if ref is None:
+                ref = (loss, tree_leaves(grads))
+            elif not (torch.equal(loss, ref[0]) and all(
+                    torch.equal(a, b) for a, b in zip(tree_leaves(grads),
+                                                      ref[1]))):
+                raise AssertionError(f"across (d): {policy}'s gradients "
+                                     "differ from full's")
+            del grads
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_REMAT", None)
+        else:
+            os.environ["REPRO_REMAT"] = prev
+    log(f"across (d) remat policies, {ACROSS_ARCH} at {ACROSS_LAYERS} layers,"
+        f" batch {ACROSS_BATCH} x {ACROSS_SEQ} in {ACROSS_MB} microbatches: "
+        "gradients == full's bit for bit; " + json.dumps(
+            {p: {k: round(v, 4) for k, v in r.items()} for p, r in rec.items()}),
+        card)
+    del params, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -5213,6 +5693,26 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- phase 27: training across processes on the pod and data axes;
+    # (a)-(c) ran in phase 17 (c)'s ranks, (d) runs here
+    gc.collect()
+    torch.cuda.empty_cache()
+    across = dist.pop("across")
+    zero_counts(torch)
+    t = time.perf_counter()
+    across["d"] = across_remat(torch, smi)
+    stages["across_d_s"] = time.perf_counter() - t
+    stages["across_ranks_s"] = max(st["a_s"] + st["b_s"] + st["c_s"]
+                                   for st in across["stages"])
+    across["launches"] = {n: c["launches"] for n, c in read_counts(
+        torch, "Across", ()).items() if c["launches"]}
+    if across["launches"]:
+        raise AssertionError(f"across (d): launched the sweep kernels "
+                             f"{across['launches']}")
+    log("across: kernel launches {} (ranks and this process); stages s "
+        + json.dumps({"ranks": round(stages["across_ranks_s"], 2),
+                      "d": round(stages["across_d_s"], 2)}), smi)
+
     # ---- phase 22: the LLM serving path at granite-3-2b's full width, in
     # this process, on a card freed of the phases' tensors
     gc.collect()
@@ -5301,7 +5801,7 @@ def main(argv=None) -> int:
             eb_probes=eb_probes, serve=served, uc_predictions=uc_predictions,
             dist=dist, fabric=fabric, fault=fault, tune=tuned, llm=llm,
             train=trained, families=families, mla_ssm=mla_ssm,
-            hybrid_encdec=hybrid_encdec,
+            hybrid_encdec=hybrid_encdec, across=across,
             sort_route_cost=sort_cost,
             launches_by_path={
                 p: {n: {"launches": c["launches"],

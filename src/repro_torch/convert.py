@@ -7,7 +7,11 @@ caller's); these functions rebuild the port's objects from them.  An LM's
 parameters, KV cache and training state come as the reference's trees
 with numpy leaves (``jax.tree.map(np.asarray, params)``): ``lm_params``
 (a serving model), ``lm_tree`` (the stacked tree training
-differentiates), ``lm_cache`` and ``train_state``.
+differentiates), ``lm_cache``, ``train_state`` and ``podsync_state``
+(one pod's slice of the reference's pod-stacked state).  The other way,
+``numpy_tree`` turns the port's trees -- plain tensors or
+``dist.fault.remesh_state``'s DTensors (through ``full_tensor()``) --
+into numpy leaves the reference takes.
 
 The state of one CR model::
 
@@ -147,3 +151,30 @@ def train_state(state, device="cuda") -> TS.TrainState:
                      lm_tree(state.opt.mu, device),
                      lm_tree(state.opt.nu, device)),
         ef)
+
+
+def podsync_state(state, pod: int, device="cuda") -> TS.TrainState:
+    """Pod ``pod``'s slice of the reference's pod-stacked ``TrainState``
+    (``stack_for_podsync``'s (n_pods, ...) leaves, numpy): the port's
+    pod-stacked state of that pod's process, each leaf its (1, ...)
+    slice."""
+    def sl(tree):
+        return tree_unflatten(tree, [np.asarray(a)[pod:pod + 1]
+                                     for a in tree_leaves(tree)])
+    ef = None if state.ef is None else type(state.ef)(sl(state.ef.residuals))
+    return train_state(type(state)(
+        sl(state.params), type(state.opt)(state.opt.step, sl(state.opt.mu),
+                                          sl(state.opt.nu)), ef), device)
+
+
+def numpy_tree(tree):
+    """A port tree (plain tensors or DTensors) as numpy leaves in the same
+    structure; a DTensor through ``full_tensor()`` (a collective over its
+    mesh: every rank of it calls this), bfloat16 as float32 (exact;
+    ``.astype(jnp.bfloat16)`` gives the reference's leaf back)."""
+    def host(a):
+        if hasattr(a, "full_tensor"):
+            a = a.full_tensor()
+        a = a.detach().cpu()
+        return (a.to(torch.float32) if a.dtype == torch.bfloat16 else a).numpy()
+    return tree_unflatten(tree, [host(a) for a in tree_leaves(tree)])

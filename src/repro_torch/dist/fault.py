@@ -31,8 +31,10 @@ as the process that serves it lives: a ``FileStore`` outlives every
 process, a ``TCPStore`` served by process 0 dies with it, and one
 served by ``launch.mesh.serve_coordinator`` outlives every rank.
 
-The reference's ``remesh_state`` and ``shrink_mesh`` move a language
-model's parameter trees by logical axes; they come with that model.
+Re-meshing (the reference's elastic path) moves a training state onto
+another mesh by its logical axes: :func:`shrink_mesh` keeps the first
+slices of an axis, :func:`remesh_state` places each leaf as a DTensor
+on the target mesh, values unchanged bit for bit.
 """
 from __future__ import annotations
 
@@ -338,3 +340,111 @@ def surviving_submesh(mesh, alive: Iterable[int]):
                          f"{sorted(alive)}")
     return dataclasses.replace(mesh, ranks=tuple(r for r, _ in keep),
                                shares=tuple(s for _, s in keep), group=None)
+
+
+# ---------------------------------------------------------------------------
+# Re-meshing
+# ---------------------------------------------------------------------------
+
+def _dtensor():
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:                       # torch before 2.4
+        from torch.distributed._tensor import DTensor
+    return DTensor
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        a is None or isinstance(a, str) for a in x)
+
+
+def _full(a):
+    """A DTensor's whole value on each rank of its mesh, gathered axis by
+    axis (innermost first) over the mesh's groups with
+    ``dist.collectives.all_gather`` (host-staged on gloo); a plain tensor
+    as it is."""
+    import torch
+    from repro_torch.dist import collectives as COL
+    if not isinstance(a, _dtensor()):
+        return a
+    mesh = a.device_mesh
+    if mesh.get_coordinate() is None:
+        return None
+    x = a.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p = a.placements[i]
+        if p.is_shard():
+            x = torch.cat(COL.all_gather(x, mesh.get_group(i)), dim=p.dim)
+    return x
+
+
+def remesh_state(tree, axes, mesh):
+    """Place every leaf of ``tree`` on ``mesh`` per its logical ``axes``.
+
+    ``axes`` mirrors ``tree``'s structure with a tuple of logical axis
+    names where ``tree`` has a tensor (``params.logical_axes`` output).
+    Each leaf becomes a DTensor whose placements are the ones its axes
+    imply on ``mesh`` (``dist.sharding.named_sharding``), holding this
+    rank's block of the value; a leaf that is already a DTensor on
+    another mesh is gathered there first.  Values are unchanged bit for
+    bit.  Every rank of the world calls it; a rank outside ``mesh`` holds
+    an empty local tensor."""
+    import torch
+    from repro_torch.dist import sharding as S
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    DTensor = _dtensor()
+    leaves = tree_leaves(tree)
+    ax = tree_leaves(axes, is_leaf=_is_axes)
+    if len(ax) != len(leaves):
+        raise ValueError(f"remesh_state: {len(leaves)} leaves, {len(ax)} "
+                         "axis tuples")
+    coord = mesh.get_coordinate()
+    out = []
+    for a, names in zip(leaves, ax):
+        full = _full(a)
+        shape = tuple(a.shape)
+        placements = S.named_sharding(shape, names, mesh).placements
+        if coord is None:
+            local = torch.empty(0, dtype=a.dtype, device=a.device)
+        elif full is None:
+            raise ValueError("remesh_state: this rank is on the target mesh "
+                             "but not on the leaf's mesh, so it has no value")
+        else:
+            local = full
+            for i, p in enumerate(placements):
+                if p.is_shard():
+                    n = mesh.size(i)
+                    size = local.shape[p.dim] // n
+                    local = local.narrow(p.dim, coord[i] * size, size)
+            local = local.contiguous()
+        out.append(DTensor.from_local(local, mesh, placements,
+                                      run_check=False, shape=torch.Size(shape),
+                                      stride=torch.empty(shape,
+                                                         device="meta").stride()))
+    return tree_unflatten(tree, out)
+
+
+def shrink_mesh(mesh, axis: str, new_size: int):
+    """A mesh with ``axis`` reduced to its first ``new_size`` slices: a
+    ``DeviceMesh`` over those ranks (every rank of the world calls it:
+    the new mesh builds its groups), or an ``AbstractMesh`` of the new
+    sizes."""
+    from repro_torch.dist import sharding as S
+    names = tuple(mesh.mesh_dim_names)
+    if axis not in names:
+        raise ValueError(
+            f"shrink_mesh: mesh has axes {names}, not {axis!r}")
+    i = names.index(axis)
+    sizes = list(S.axis_sizes(mesh).values())
+    if not 1 <= int(new_size) <= sizes[i]:
+        raise ValueError(
+            f"shrink_mesh: new_size={new_size} outside [1, "
+            f"{sizes[i]}] for axis {axis!r}")
+    if isinstance(mesh, S.AbstractMesh):
+        sizes[i] = int(new_size)
+        return S.AbstractMesh(tuple(sizes), names)
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = mesh.mesh.index_select(i, torch.arange(int(new_size)))
+    return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=names)

@@ -93,9 +93,13 @@ class ShardedRows:
 
 
 def active_sweep_mesh(mesh: Optional[SweepMesh] = None) -> Optional[SweepMesh]:
-    """``mesh`` (or the active ``use_mesh`` mesh) when its extent is
-    above 1, else None (a single-device sweep)."""
-    mesh = mesh if mesh is not None else S.current_mesh()
+    """``mesh`` (or the active ``use_mesh`` sweep mesh) when its extent
+    is above 1, else None (a single-device sweep).  An active training
+    mesh (a ``DeviceMesh``) shards no sweep: a lossy checkpoint's sweeps
+    run on the one rank that writes it."""
+    if mesh is None:
+        mesh = S.current_mesh()
+        mesh = mesh if isinstance(mesh, SweepMesh) else None
     return mesh if mesh is not None and mesh.size > 1 else None
 
 

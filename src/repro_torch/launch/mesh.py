@@ -27,7 +27,10 @@ lives decides which deaths the fabric survives:
 * ``file://path`` -- a ``FileStore``, which already outlives every
   process.
 
-``make_sweep_mesh`` builds a ``dist.sweep.SweepMesh``: inside a process
+``make_mesh`` / ``make_production_mesh`` build a training mesh (a
+``DeviceMesh`` over the group, or outside one an abstract mesh of names
+and sizes, ``dist.sharding``).  ``make_sweep_mesh`` builds a
+``dist.sweep.SweepMesh``: inside a process
 group it spans every process's devices (each process contributes its
 own, and the mesh is collective to build), otherwise it covers this
 process's devices.  One device may carry several shards
@@ -39,6 +42,7 @@ import datetime
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.dist.sweep import SweepMesh
@@ -108,6 +112,11 @@ def dist_init(coordinator_address: Optional[str] = None, *,
                             rank=int(process_id), timeout=timeout)
     _RANK_DEVICE, _TIMEOUT, _STORE = dev, timeout, store
     return dist.get_rank(), dist.get_world_size()
+
+
+def rank_device() -> Optional[torch.device]:
+    """This process's device as :func:`dist_init` set it (None before)."""
+    return _RANK_DEVICE
 
 
 def _tcp_address(init: str) -> tuple:
@@ -236,6 +245,44 @@ def make_sweep_mesh(num_devices: Optional[int] = None, *,
              else dist.new_group(list(ranks), timeout=_TIMEOUT))
     return SweepMesh(tuple(local[:shares[dist.get_rank()]]),
                      tuple(shares[r] for r in ranks), ranks, group)
+
+
+def make_mesh(shape, axes):
+    """A training mesh of ``shape`` over named ``axes`` (the reference's
+    ``jax.make_mesh``): inside a process group (:func:`dist_init`) a
+    ``torch.distributed`` ``DeviceMesh`` over the group's ranks in rank
+    order, on this rank's device type, with ``mesh_dim_names`` ``axes``
+    (every rank must make this call: the mesh builds one subgroup per
+    slice of each axis); outside one, the
+    ``dist.sharding.AbstractMesh`` of those names and sizes, which
+    computes specs but runs no step.  Raises ``ValueError`` when the
+    group's size is not the product of ``shape``."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import AbstractMesh
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"make_mesh: shape {shape} and axes {axes} differ "
+                         "in length")
+    if not (dist.is_available() and dist.is_initialized()):
+        return AbstractMesh(shape, axes)
+    size = int(np.prod(shape))
+    if size != dist.get_world_size():
+        raise ValueError(
+            f"make_mesh{shape}: {size} ranks, but the process group that "
+            f"repro_torch.launch.mesh.dist_init joined has "
+            f"{dist.get_world_size()}; start as many processes as the mesh "
+            "has places, each calling dist_init")
+    from torch.distributed.device_mesh import init_device_mesh
+    kind = _RANK_DEVICE.type if _RANK_DEVICE is not None else "cpu"
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """(data=16, model=16) = 256 places; multi-pod (pod=2, data=16,
+    model=16) = 512 (the reference's TPU v5e pod slices)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def mesh_from_spec(spec: Optional[str], device: str = "cuda"):

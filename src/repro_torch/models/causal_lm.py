@@ -51,9 +51,14 @@ stacked leaves): ``forward`` and ``loss_fn`` take either a ``CausalLM``
 or such a tree, and on a tree layer i of a segment reads slice i of
 each leaf through one ``unbind`` per leaf, so a gradient comes back
 stacked, one leaf per reference leaf.  With ``remat`` each layer runs
-under ``torch.utils.checkpoint`` (the reference's default ``full``
-policy: only layer boundaries are kept).  ``xent_loss`` chunks the
-sequence by 512 as the reference's scan does.
+under ``torch.utils.checkpoint`` with the reference's ``REPRO_REMAT``
+policy, read at each forward: ``full`` (the default) keeps only the
+layer boundaries; ``dots`` also keeps every matrix product's output
+inside a layer, and ``tp_outs`` only the two marked ``tp_ar_out``
+(``layers.tp_ar_out``), by ``torch.utils.checkpoint``'s selective
+checkpointing.  Each recomputes what it does not keep with the same
+operations, so the gradients are the same bits under all three.
+``xent_loss`` chunks the sequence by 512 as the reference's scan does.
 
 A moe layer carries a ``moe`` group (a float32 router and the
 experts' stacks, shared experts with them) where a dense one carries
@@ -71,8 +76,8 @@ prepends the ``meta`` tokens to a sequence (not to a decode step's
 token) and cuts them off after the final norm, and a decode step's
 position counts them (``pos + meta_tokens``).
 
-The ``REPRO_REMAT=dots|tp_outs`` policies and ``cache_logical_axes``
-come with training across cards (ROADMAP Queue 1 item 7).
+``cache_logical_axes`` gives a cache's logical axes (batch-sharded,
+KV heads on ``model`` where they divide its extent, else the sequence).
 """
 from __future__ import annotations
 
@@ -90,7 +95,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.params import ParamDef, tree_flatten
+from repro_torch.models.params import (ParamDef, tree_flatten, tree_leaves,
+                                      tree_unflatten)
 
 FAMILIES = ("dense", "moe", "vlm", "mla_moe", "ssm", "hybrid", "encdec")
 
@@ -377,6 +383,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def cache_logical_axes(cfg: ModelConfig, cache):
+    """Logical axes for cache tensors: batch-sharded everywhere, plus a
+    ``model``-axis shard on KV heads when they divide the active mesh's
+    ``model`` extent, else on the *sequence* dimension (the reference's
+    flash-decoding fallback, ``seq_model``).  A tree of axis tuples of
+    ``cache``'s structure."""
+    from repro_torch.dist import sharding as S
+    mesh = S.current_mesh()
+    model_ext = 1
+    if mesh is not None:
+        model_ext = S._mesh_extent(mesh, S.current_rules().get("model", ()))
+    kv_shards = model_ext > 1 and cfg.num_kv_heads % model_ext == 0
+
+    def axes_for(x):
+        if x.dim() == 5 and cfg.family != "ssm":      # (n, B, T, Hkv, hd)
+            if kv_shards:
+                return ("layers", "batch", None, "model", None)
+            return ("layers", "batch", "seq_model", None, None)
+        if x.dim() == 5:                              # ssm state (n,B,H,P,N)
+            return ("layers", "batch", "model", None, None)
+        if x.dim() == 4 and cfg.family == "mla_moe":  # (n, B, T, ckv)
+            return ("layers", "batch", "seq_model", None)
+        if x.dim() == 4:                              # conv (n, B, K-1, C)
+            return ("layers", "batch", None, "model")
+        if x.dim() == 3:                              # pos (n, B, T)
+            return ("layers", "batch", "seq_model")
+        return tuple([None] * x.dim())
+    return tree_unflatten(cache, [axes_for(x) for x in tree_leaves(cache)])
+
+
 def _layer_cache(seg, j: int):
     """Slice ``j`` of a segment's stacked cache entry (views; a nested
     entry sliced through)."""
@@ -449,7 +485,8 @@ def attn_block(x, p, cfg: ModelConfig, *, window: int = 0,
         cpos[:, :n] = pos_tail
         out = L.attention(q, k, v, causal=True, q_offset=0, window=window)
     out = out.reshape(b, s, cfg.num_heads * cfg.hd)
-    return L.dot(out, p.wo)
+    with L.tp_ar_out():
+        return L.dot(out, p.wo)
 
 
 def mla_block(x, p, cfg: ModelConfig, *,
@@ -600,6 +637,37 @@ def _top(params, name: str) -> torch.Tensor:
             else params[name])
 
 
+# the matrix products a layer's einsums and matmuls dispatch to
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_tp_outs(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS and L.in_tp_ar_out()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_kwargs() -> dict:
+    """``torch.utils.checkpoint`` arguments of ``REPRO_REMAT``'s policy
+    (``full``, the default; ``dots``; ``tp_outs``)."""
+    import os
+    mode = os.environ.get("REPRO_REMAT", "full")
+    policy = {"dots": _save_dots, "tp_outs": _save_tp_outs}.get(mode)
+    if policy is None:
+        return {"use_reentrant": False}
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return {"use_reentrant": False, "context_fn": functools.partial(
+        create_selective_checkpoint_contexts, policy)}
+
+
 def forward(model, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches=None, pos_offset: int = 0, mrope_positions=None,
             remat: bool = False):
@@ -615,12 +683,13 @@ def forward(model, tokens: torch.Tensor, cfg: ModelConfig, *,
         m = _top(model, "meta").to(x.dtype)
         x = torch.cat([m[None].expand(x.shape[0], -1, -1), x], dim=1)
     remat = remat and caches is None and torch.is_grad_enabled()
+    ckpt = remat_kwargs() if remat else {}
     for seg, j, lp, window in _layers(model, cfg):
         if remat:
             x = checkpoint(functools.partial(
                 layer_fwd, lp=lp, cfg=cfg, window=window,
                 pos_offset=pos_offset, mrope_positions=mrope_positions), x,
-                use_reentrant=False)
+                **ckpt)
             continue
         lc = _layer_cache(caches[seg], j) if caches is not None else None
         x = layer_fwd(x, lp, cfg, window=window, cache=lc,

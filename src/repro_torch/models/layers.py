@@ -19,9 +19,15 @@ softmax, weights cast to the activation dtype, then V), not
 ``layer_norm`` and ``gelu_mlp`` are whisper's (the encdec family).
 ``gelu`` is ``jax.nn.gelu``'s default, the tanh approximation, written
 out in its order (``F.gelu`` defaults to the erf form).
+
+``tp_ar_out`` marks the two products the reference names ``"tp_ar_out"``
+(``swiglu``'s down-projection here, attention's output projection in
+``causal_lm``): ``REPRO_REMAT=tp_outs`` keeps exactly those.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import numpy as np
@@ -34,6 +40,25 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     df->...f")``), in the promoted dtype of the two."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.to(dt), b.to(dt))
+
+
+_MARK = threading.local()
+
+
+@contextlib.contextmanager
+def tp_ar_out():
+    """Marks the products run inside it as the reference's
+    ``checkpoint_name(..., "tp_ar_out")`` outputs (:func:`in_tp_ar_out`)."""
+    prev = getattr(_MARK, "on", False)
+    _MARK.on = True
+    try:
+        yield
+    finally:
+        _MARK.on = prev
+
+
+def in_tp_ar_out() -> bool:
+    return getattr(_MARK, "on", False)
 
 
 def _rms_norm_fwd(x, gamma, eps):
@@ -260,8 +285,10 @@ def gelu_mlp(x, w1, b1, w2, b2):
 
 
 def swiglu(x, wg, wu, wd):
-    """SwiGLU MLP: x (B,S,D); wg/wu (D,F); wd (F,D)."""
+    """SwiGLU MLP: x (B,S,D); wg/wu (D,F); wd (F,D); the down-projection
+    is a ``tp_ar_out`` product."""
     g = dot(x, wg)
     u = dot(x, wu)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    return dot(h, wd)
+    with tp_ar_out():
+        return dot(h, wd)

@@ -7,9 +7,10 @@ and training's ``loss_fn``, each dispatching on ``cfg.family ==
 family is ``models.causal_lm``.  For serving "params" is the model's
 module (``CausalLM`` or ``Whisper``); ``init_tree`` gives the same
 tensors as the reference's stacked tree, which training differentiates.
-The dry run's ``input_specs`` / ``abstract_*`` (ROADMAP Queue 1 item
-6) and the mesh's ``param_specs`` / ``cache_logical_axes`` (item 7,
-across cards) are not ported.
+``abstract_params`` / ``abstract_cache`` give meta-device trees (nothing
+allocated, at any size), ``param_specs`` the parameters' shardings on a
+mesh and ``cache_logical_axes`` a cache's logical axes.  The dry run's
+``input_specs`` (ROADMAP Queue 1 item 6) is not ported.
 """
 from __future__ import annotations
 
@@ -45,6 +46,15 @@ def init_tree(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters as the reference's stacked tree, on
     ``generator``'s device (``build(cfg, tree)`` serves them)."""
     return PRM.init_params(param_table(cfg), generator)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as meta-device tensors (no allocation)."""
+    return PRM.abstract_params(param_table(cfg))
+
+
+def param_specs(cfg: ModelConfig, mesh=None):
+    return PRM.param_specs(param_table(cfg), mesh)
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -114,3 +124,23 @@ def init_cache(cfg: ModelConfig, params, batch: int, max_len: int):
     if cfg.family == "encdec":
         return WSP.empty_cache(cfg, batch, max_len, device=params.device)
     return CLM.init_cache(cfg, batch, max_len, device=params.device)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
+    """``init_cache``'s tree as meta-device tensors (no allocation)."""
+    if cfg.family == "encdec":
+        return WSP.empty_cache(cfg, batch, max_len, device="meta")
+    return CLM.init_cache(cfg, batch, max_len, device="meta")
+
+
+def cache_logical_axes(cfg: ModelConfig, cache):
+    """Logical axes of a cache's tensors; whisper's 5-D K/V leaves shard
+    their heads on ``model``, its 3-D positions only their batch."""
+    if cfg.family == "encdec":
+        def axes_for(x):
+            if x.dim() == 5:
+                return ("layers", "batch", None, "model", None)
+            return ("layers", "batch", None)
+        return PRM.tree_unflatten(cache, [axes_for(x) for x in
+                                          PRM.tree_leaves(cache)])
+    return CLM.cache_logical_axes(cfg, cache)

@@ -3,7 +3,10 @@
 A model declares its parameters once as a nested dict of ``ParamDef``
 (stacked over layers, as the reference's scans take them);
 ``init_params`` materializes a table and ``count`` sizes it without
-allocating.  ``tree_flatten`` / ``tree_unflatten`` walk a nested
+allocating; ``logical_axes`` gives the tree of logical axis names,
+``abstract_params`` the tree of meta-device tensors of each def's shape
+and dtype (nothing allocated, even at deepseek-v2-236b) and
+``param_specs`` the tree of ``dist.sharding.NamedSharding``s on a mesh.  ``tree_flatten`` / ``tree_unflatten`` walk a nested
 container in ``jax.tree.flatten``'s order (dict keys sorted; tuples,
 NamedTuples and lists in order; ``None`` holds no leaf), which the
 engine's KV gate scores and meters leaves in.
@@ -115,3 +118,21 @@ def init_params(table, generator: torch.Generator) -> dict:
 
 def count(table) -> int:
     return sum(int(np.prod(d.shape)) for d in tree_leaves(table, _is_def))
+
+
+def logical_axes(table):
+    return tree_unflatten(table, [d.axes for d in tree_leaves(table, _is_def)])
+
+
+def abstract_params(table):
+    """Meta-device tensors of each def's shape and dtype."""
+    return tree_unflatten(table, [
+        torch.empty(d.shape, dtype=d.dtype, device="meta")
+        for d in tree_leaves(table, _is_def)])
+
+
+def param_specs(table, mesh=None):
+    """Tree of ``NamedSharding``s for the whole parameter table."""
+    from repro_torch.dist import sharding as S
+    return tree_unflatten(table, [S.named_sharding(d.shape, d.axes, mesh)
+                                  for d in tree_leaves(table, _is_def)])

@@ -14,8 +14,9 @@ straggler counting (``repro/train/loop.py``).
 On restart the parameters and moments come from the checkpoint, the
 optimizer's step is the checkpoint's, and the error-feedback residuals
 are the fresh state's (they are not checkpointed), as in the reference.
-Re-meshing a state onto other cards (``dist.fault.remesh_state``) is
-training across cards: ROADMAP Queue 1 item 7.
+In a process group every rank runs the loop; ``LoopConfig.save`` is
+False on all but rank 0 (``launch.train``), so one rank writes the
+checkpoints and every rank resumes from them.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ class LoopConfig:
     failure_prob: float = 0.0            # simulated preemption probability
     failure_seed: int = 0
     straggler_factor: float = 3.0
+    save: bool = True                    # False: resume, but write nothing
     lossy: CKPT.LossyPolicy = dataclasses.field(default_factory=CKPT.LossyPolicy)
 
 
@@ -70,7 +72,8 @@ def run(
 
     ``losses_out``: optional shared dict that survives SimulatedFailure
     (``run_with_recovery`` passes one to keep the full loss history)."""
-    ckpt = CKPT.AsyncCheckpointer(loop.ckpt_dir, loop.lossy)
+    ckpt = CKPT.AsyncCheckpointer(loop.ckpt_dir, loop.lossy) \
+        if loop.save else None
     start = CKPT.latest_step(loop.ckpt_dir)
     restarts = 0
     if start is not None:
@@ -105,13 +108,15 @@ def run(
             if dt > loop.straggler_factor * ema and step > begin + 3:
                 stragglers += 1
             losses[step] = loss
-            if (step + 1) % loop.ckpt_every == 0 or step + 1 == loop.total_steps:
+            if ckpt is not None and ((step + 1) % loop.ckpt_every == 0
+                                     or step + 1 == loop.total_steps):
                 ckpt.submit(step + 1, {"params": state.params,
                                        "mu": state.opt.mu,
                                        "nu": state.opt.nu})
     finally:
-        ckpt.wait()
-        ckpt.close()
+        if ckpt is not None:
+            ckpt.wait()
+            ckpt.close()
     return state, LoopResult(losses, loop.total_steps, stragglers, restarts)
 
 

@@ -162,7 +162,8 @@ def test_param_table_equals_reference_at_full_size(arch):
 def test_other_families_raise():
     """Every one of the ten configs builds (its smoke model allocated,
     its full one sized without allocating); what still raises is
-    training across cards (ROADMAP Queue 1 item 7)."""
+    a mesh's ``model`` axis (ROADMAP Queue 1 item 7, its model-axis
+    half)."""
     from repro_torch.train import train_step as TTS
     for arch in TB.ARCH_IDS:
         cfg = TB.get_smoke(arch)
@@ -171,7 +172,12 @@ def test_other_families_raise():
             TM.count_params(cfg) == cfg.param_count(), arch
         assert TM.count_params(TB.get_arch(arch)) == \
             RM.count_params(RB.get_arch(arch)), arch
+    from repro_torch.dist import sharding as S
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        TTS.make_train_step(TB.get_smoke("hymba-1.5b"), mode="podsync",
+                            mesh=S.AbstractMesh((1, 1, 2),
+                                                ("pod", "data", "model")))
+    with pytest.raises(ValueError, match="'pod' axis"):
         TTS.make_train_step(TB.get_smoke("hymba-1.5b"), mode="podsync")
 
 

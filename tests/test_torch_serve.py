@@ -845,6 +845,7 @@ def test_port_modules_load_without_jax_or_reference():
         "    importlib.import_module(name)\n"
         "print('SSM', 'repro_torch.models.ssm' in names)\n"
         "print('WSP', 'repro_torch.models.whisper' in names)\n"
+        "print('COL', 'repro_torch.dist.collectives' in names)\n"
         "from repro_torch.serve.sweep_service import SweepService\n"
         "SweepService(device='cpu').close()\n"
         "import torch\n"
@@ -866,6 +867,7 @@ def test_port_modules_load_without_jax_or_reference():
     assert "BAD []" in out.stdout, out.stdout
     assert "SSM True" in out.stdout, out.stdout
     assert "WSP True" in out.stdout, out.stdout
+    assert "COL True" in out.stdout, out.stdout
     assert "CUDA_INIT False" in out.stdout, out.stdout
 
 

@@ -556,16 +556,34 @@ def test_donated_step_equals_plain_step():
 
 
 def test_across_cards_raises_naming_the_roadmap_item():
+    """The ``model`` axis (the next slice, ROADMAP Queue 1 item 7) raises;
+    the ``pod`` and ``data`` axes run: on a 1 x 1 x 1 mesh the
+    uncompressed podsync step is the plain step bit for bit
+    (``tests/test_torch_across_cards.py`` runs them across processes)."""
+    from repro_torch.dist import sharding as S
+    model = S.AbstractMesh((1, 1, 2), ("pod", "data", "model"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TTS.make_train_step(CFG, mode="podsync")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        TTS.make_train_step(CFG, mode="podsync", mesh=model)
+    with pytest.raises(NotImplementedError, match="'model' axis"):
+        TTS.make_train_step(CFG, mesh=S.AbstractMesh((1, 2),
+                                                     ("data", "model")))
+    with pytest.raises(ValueError, match="not a mesh with named axes"):
         TTS.make_train_step(CFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TTS.stack_for_podsync(_state(), 2)
     from repro_torch.launch import train as LT
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         LT.main(["--arch", "granite-3-2b", "--smoke", "--mesh", "2x2",
                  "--device", "cpu"])
+    one = S.AbstractMesh((1, 1, 1), ("pod", "data", "model"))
+    batch = TT.make_data_iter(CFG, batch=4, seq=32, device="cpu")(0)
+    plain, pm = _step()(_state(), batch)
+    stacked = TTS.stack_for_podsync(_state(), 1)
+    assert all(x.shape[0] == 1 for x in tree_leaves(stacked.params))
+    pod, qm = TTS.make_train_step(
+        CFG, TOPT.AdamWConfig(lr=3e-3, warmup_steps=10), mode="podsync",
+        mesh=one, remat=False)(stacked, batch)
+    assert torch.equal(pm["loss"], qm["loss"])
+    for x, y in zip(tree_leaves(plain.params), tree_leaves(pod.params)):
+        assert torch.equal(x, y[0])
 
 
 # ---------------------------------------------------------------- data

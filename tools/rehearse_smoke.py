@@ -21,7 +21,9 @@ qwen2-vl, 2 layers each where it serves; phase 25 on the smoke configs
 of deepseek-v2 and mamba2, at 6 and 48 layers where it serves; phase
 26 on the smoke configs of hymba-1.5b and whisper-large-v3, hymba at 5
 layers where it serves, its prompts of 48 ids past the smoke window of
-32 and its 40 ring slots), every
+32 and its 40 ring slots; phase 27 on granite-3-2b's smoke config at 2
+layers, (a)-(c) inside phase 17 (c)'s two CPU ranks as on the card),
+every
 tensor on the CPU, the
 kernel build,
 the quotient proof and the launch-count and built-library checks left
